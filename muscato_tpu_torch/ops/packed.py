@@ -1,0 +1,236 @@
+"""Nibble-packed sequences and the SWAR diagonal verify (port of
+``muscato_tpu/ops/packed.py``).
+
+Sequences are packed 8 bases per 32-bit word, one 4-bit nibble per base in
+little-endian nibble order.  Packed words are stored as int32 bit patterns
+(the JAX package's uint32 bytes); arithmetic that needs them unsigned runs
+on int64 copies holding values in [0, 2**32), because torch has no logical
+right shift on int32 and no uint32 shifts on the CPU.
+
+Only the engine's main path is ported here: ``verify_diagonals_packed`` in
+diagonal-major order with the target-row view (``trows``) fetched by the
+B4 row gather and the gene lookup on the B3 gather.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .gather import monotone_gather, monotone_gather_rows
+
+BASES_PER_WORD = 8
+M32 = 0xFFFFFFFF
+_NIB1 = 0x11111111
+
+
+def u64(x: torch.Tensor) -> torch.Tensor:
+    """int32 bit patterns -> int64 values in [0, 2**32)."""
+    return x.to(torch.int64) & M32
+
+
+def to_i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2**32) -> their int32 bit patterns."""
+    return torch.where(x >= (1 << 31), x - (1 << 32), x).to(torch.int32)
+
+
+def popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Population count of int64 values in [0, 2**32) (SWAR; torch has no
+    popcount op)."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & M32) >> 24
+
+
+def mulmod32(x: torch.Tensor, mult: int) -> torch.Tensor:
+    """(x * mult) mod 2**32 for int64 x in [0, 2**32) and a 32-bit mult,
+    with every partial product below 2**63 (no reliance on int64 wrap)."""
+    mult = int(mult)
+    lo = x * (mult & 0xFFFF)
+    hi = ((x * (mult >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & M32
+
+
+def packed_width(l: int) -> int:
+    return -(-l // BASES_PER_WORD)
+
+
+def pack_rows(codes: torch.Tensor) -> torch.Tensor:
+    """(R, L) uint8 codes (values < 16) -> (R, ceil(L/8)) int32 holding the
+    bit patterns of ``muscato_tpu.ops.packed.pack_rows_np``'s uint32 words,
+    computed on the codes' device: two nibbles per byte, then four
+    little-endian bytes per word."""
+    nrows, l = codes.shape
+    nw = packed_width(l)
+    c = torch.nn.functional.pad(codes, (0, nw * BASES_PER_WORD - l))
+    c = c.reshape(nrows, nw * 4, 2)
+    return (c[..., 0] | (c[..., 1] << 4)).contiguous().view(torch.int32)
+
+
+# Tail padding on the packed target stream: enough words that a full
+# max-length read slice starting at the last base stays in bounds
+# (supports MaxReadLength up to 4096).
+STREAM_PAD_WORDS = packed_width(4096) + 2
+
+
+def pack_stream(tcat: np.ndarray) -> np.ndarray:
+    """(S,) uint8 codes -> (ceil(S/8)+PAD,) uint32 with zero tail padding."""
+    s = len(tcat)
+    nw = packed_width(max(s, 1))
+    arr = np.zeros((nw + STREAM_PAD_WORDS) * BASES_PER_WORD, dtype=np.uint32)
+    arr[:s] = tcat
+    arr = arr.reshape(-1, BASES_PER_WORD)
+    shifts = (np.arange(BASES_PER_WORD, dtype=np.uint32) * 4).astype(np.uint32)
+    return np.sum(arr << shifts[None, :], axis=1, dtype=np.uint32)
+
+
+# ---- Row-gather target view -------------------------------------------
+#
+# trows[i] = tpacked[8*i : 8*i + nwords + 9]: one row per 64 stream
+# positions, so a diagonal's nwords + 1 target words are one row fetch plus
+# an in-row word offset in [0, 8).
+
+TROWS_GUARD = 9
+GENE_BLOCK_BITS = 8  # gene block table: one entry per 256 stream positions
+
+
+def trows_nrows(smax: int) -> int:
+    return max(1, (max(smax, 1) - 1) // 64 + 1)
+
+
+def build_trows(tpacked: torch.Tensor, nwords: int, smax: int) -> torch.Tensor:
+    """Overlapping (nrows, nwords + 9) int32 view of the packed stream,
+    one row per 64 stream positions (a contiguous copy)."""
+    rowlen = nwords + TROWS_GUARD
+    nrows = trows_nrows(smax)
+    need = 8 * (nrows - 1) + rowlen
+    tp = tpacked
+    if tp.shape[0] < need:
+        tp = torch.nn.functional.pad(tp, (0, need - tp.shape[0]))
+    return tp[:need].unfold(0, rowlen, 8).contiguous()
+
+
+def _trows_select(t: torch.Tensor, woff: torch.Tensor, nwords: int) -> torch.Tensor:
+    """3-level column select: rows fetched from trows -> the nwords+1
+    stream words starting at each lane's in-row word offset (in [0, 8))."""
+    for step in (4, 2, 1):
+        pick = ((woff & step) != 0)[:, None]
+        t = torch.where(pick, t[:, step:], t[:, : t.shape[1] - step])
+    return t[:, : nwords + 1]
+
+
+def build_gene_block(gene_start_np: np.ndarray, smax: int):
+    """Host-built block table for the gene lookup: gblock[b] = owning gene
+    of stream position b*256, plus the refine step count (log2 of the
+    widest block's gene span)."""
+    gs = np.asarray(gene_start_np, dtype=np.int64)
+    nb = (max(smax, 1) >> GENE_BLOCK_BITS) + 2
+    marks = np.arange(nb, dtype=np.int64) << GENE_BLOCK_BITS
+    gb = (np.searchsorted(gs[: len(gs)], marks, side="right") - 1).astype(np.int32)
+    gb = np.clip(gb, 0, max(len(gs) - 2, 0))
+    span = int((gb[1:] - gb[:-1]).max(initial=0))
+    steps = max(span, 1).bit_length()
+    return gb, steps
+
+
+def gene_of_pos_block_mono(gene_start, gblock, p, steps: int):
+    """Owning gene of each position of a NONDECREASING position stream p:
+    bounds from two gblock entries, then `steps` branchless refines.  Every
+    fetch (bounds, each refine's gene_start probe, the final gene's start
+    and end) is itself a monotone stream and rides the B3 gather.
+    Returns (g, gstart, gend)."""
+    g = gene_start.shape[0] - 1
+    b = (p >> GENE_BLOCK_BITS).to(torch.int32)
+    bc = b.clamp(0, gblock.shape[0] - 2)
+    lo, _ = monotone_gather(gblock, bc)
+    hi, _ = monotone_gather(gblock, bc + 1)
+    for _ in range(steps):
+        mid = (lo + hi + 1) >> 1
+        gs_mid, _ = monotone_gather(gene_start, mid.clamp(0, g))
+        up = gs_mid <= p
+        lo = torch.where(up, mid, lo)
+        hi = torch.where(up, hi, mid - 1)
+    gstart, _ = monotone_gather(gene_start, lo.clamp(0, g))
+    gend, _ = monotone_gather(gene_start, (lo + 1).clamp(0, g))
+    return lo, gstart, gend
+
+
+def _nibble_mask(k: torch.Tensor) -> torch.Tensor:
+    """int64 mask with the low `k` nibbles set (k clipped to [0, 8])."""
+    k = k.clamp(0, BASES_PER_WORD).to(torch.int64)
+    return torch.bitwise_left_shift(torch.ones_like(k), 4 * k) - 1
+
+
+def verify_diagonals_packed(
+    r: torch.Tensor,  # (C,) int32 read rows (-1 = inactive lane)
+    d: torch.Tensor,  # (C,) int32 global read-start positions (diagonals)
+    rpacked: torch.Tensor,  # (R, NW) int32 nibble-packed reads
+    lengths: torch.Tensor,  # (R,) int32
+    gene_start: torch.Tensor,  # (G+1,) int32
+    budget: torch.Tensor,  # (max_read_length+1,) int32
+    q1s: tuple,  # (K,) window offsets, host ints
+    width: int,
+    smax: int,
+    trows: torch.Tensor,  # (T, NW+9) int32 target-row view
+    gblock: torch.Tensor,  # gene block table
+    gsteps: int,
+):
+    """Verify one (read, diagonal) once for all windows at once (the
+    diagonal-major branch of the JAX function: lanes sorted by (d, r), so
+    the target-row and gene streams are monotone and ride B4 and B3).
+
+    Returns (nx, g, s, okbits): bit k of okbits says "a pair from window k
+    on this diagonal passes verification" (window region exact, left and
+    fit checks including the reference's pos-0 quirk, mismatch budget)."""
+    nwords = rpacked.shape[1]
+    active = (r >= 0) & (d >= 0)
+    rc = r.clamp(0, rpacked.shape[0] - 1)
+    dc = d.clamp(0, smax - 1)
+
+    # Dead tail lanes (r < 0, sorted last) clamp to the last live position
+    # so the position stream stays monotone through the tail.
+    last_live = torch.where(active, dc, 0).max()
+    dcm = torch.where(r >= 0, dc, last_live)
+    g, gstart, gend = gene_of_pos_block_mono(gene_start, gblock, dcm, gsteps)
+    glen = gend - gstart
+    s_local = dc - gstart
+    rlen = lengths[rc.long()]
+
+    # ---- SWAR mismatch count over the aligned diagonal (once) ----
+    rshift = ((dc & 7) * 4).to(torch.int64)[:, None]
+    # Inactive lanes map to the last row; negative diagonals already clamp
+    # to row 0 through dc — both keep the row stream nondecreasing.
+    row = torch.where(
+        r >= 0, (dc >> 6).clamp(0, trows.shape[0] - 1), trows.shape[0] - 1
+    ).to(torch.int32)
+    t_rows, _ = monotone_gather_rows(trows, row)
+    tw = u64(_trows_select(t_rows, (dc >> 3) & 7, nwords))
+    lowpart = tw[:, :-1] >> rshift
+    hipart = torch.where(
+        rshift == 0, 0, (tw[:, 1:] << ((32 - rshift) & 31)) & M32
+    )
+    taligned = lowpart | hipart
+
+    x = taligned ^ u64(rpacked[rc.long()])
+    wordbase = torch.arange(nwords, dtype=torch.int64, device=r.device) * BASES_PER_WORD
+    x = x & _nibble_mask(rlen[:, None].to(torch.int64) - wordbase[None, :])
+    nz = (x | (x >> 1) | (x >> 2) | (x >> 3)) & _NIB1
+    nx = popcount32(nz).sum(dim=1).to(torch.int32)
+
+    budget_ok = nx <= budget[rlen.clamp(0, budget.shape[0] - 1).long()]
+    fit_norm = (rlen + s_local) <= glen
+    fit_pos0 = rlen <= torch.minimum(glen, torch.full_like(glen, 100 - width))
+
+    okbits = torch.zeros(r.shape, dtype=torch.int32, device=r.device)
+    for k, q1k in enumerate(q1s):
+        q2k = q1k + width
+        left_ok = (dc + q1k) < gend
+        fit_ok = torch.where(s_local == 0, fit_pos0, fit_norm) if q1k == 0 else fit_norm
+        wmask = _nibble_mask(q2k - wordbase) & ~_nibble_mask(q1k - wordbase)
+        win_mm = popcount32(nz & wmask[None, :]).sum(dim=1)
+        bit = left_ok & fit_ok & (win_mm == 0)
+        okbits = okbits | (bit.to(torch.int32) << k)
+
+    okbits = torch.where(active & budget_ok, okbits, 0)
+    return nx, g.to(torch.int32), s_local.to(torch.int32), okbits
