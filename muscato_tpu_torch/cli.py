@@ -1,10 +1,11 @@
 """Command-line entry point ``muscato_torch`` (the PyTorch/CUDA twin of
 ``muscato``).
 
-It takes the same flags and config file as ``muscato`` (parsed by
-``muscato_tpu.config``), plus ``-device=`` (default ``cuda``; ``cpu``
-runs the kernels' plain PyTorch twins).  ``muscato_prep_targets`` and
-``muscato_gendat`` are framework-free and serve both packages as they are.
+It takes the same flags and config file as ``muscato`` (parsed by the
+port's copy of its config module, ``muscato_tpu_torch.config``), plus
+``-device=`` (default ``cuda``; ``cpu`` runs the kernels' plain PyTorch
+twins).  The console scripts ``muscato_prep_targets`` and
+``muscato_gendat`` stay the JAX package's; their files serve both.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ def _split_device(argv):
 
 
 def main_muscato(argv=None) -> int:
-    from muscato_tpu import config as config_mod
+    from . import config as config_mod
 
     from .engine import driver
 

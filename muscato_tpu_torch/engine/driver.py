@@ -25,9 +25,9 @@ import uuid
 
 import numpy as np
 
-from muscato_tpu.config import Config
-from muscato_tpu.io import reads as reads_io
-from muscato_tpu.io import targets as targets_io
+from ..config import Config
+from ..io import reads as reads_io
+from ..io import targets as targets_io
 
 from ..device import resolve_device
 from . import pipeline, report

@@ -26,7 +26,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from muscato_tpu.io.targets import TargetSet
+from ..io.targets import TargetSet
 
 from ..ops import packed as pops
 from ..ops import windows as winops
@@ -80,7 +80,7 @@ def _host_index_arrays(tcat: np.ndarray, gene_start: np.ndarray, width: int):
     """Window keys of every valid position, sorted by (k1, k2, pos) —
     numpy, with the window keys and the radix sort in C when the native
     library is present.  Returns (k1, k2, spos, nvalid)."""
-    from muscato_tpu.io import native
+    from ..io import native
 
     s = len(tcat)
     mult = np.uint32(winops.key_multiplier(width))

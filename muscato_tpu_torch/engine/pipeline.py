@@ -7,6 +7,12 @@ batch runs probe -> expand -> verify -> rank on the device
 Multi-batch runs re-apply the per-group MaxMatches cap and the dedup/rank
 over the union on the host, as the JAX engine does.
 
+The JAX package's switches select the same alternatives here, read when a
+run starts: ``MUSCATO_PJOIN=0`` takes the sort-merge probe instead of the
+sorted join (unset or ``1`` keeps the join, as ``TUNED.json`` sets it), and
+``MUSCATO_PEXPAND_SUB=1`` runs the pair expansion on the sub-chunked B6
+kernel instead of B2.  Both give the same MatchResult.
+
 Not ported yet (each raises NotImplementedError naming it): the streaming
 expand (NoDedup, more than 31 windows, or a pair total above
 ``_MAX_PAIR_CAP``), the search and direct probes, and gene-range sharding.
@@ -18,6 +24,7 @@ have none.
 from __future__ import annotations
 
 import logging
+import os
 import time
 import warnings
 from dataclasses import dataclass
@@ -25,9 +32,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from muscato_tpu.config import Config
-from muscato_tpu.io.reads import ReadSet
-from muscato_tpu.io.targets import TargetSet
+from ..config import Config
+from ..io.reads import ReadSet
+from ..io.targets import TargetSet
 
 from ..ops import fused
 from ..ops import packed as packed_ops
@@ -73,6 +80,13 @@ def _window_has_reads(rs: ReadSet, q1: int, width: int) -> bool:
     return bool(np.any(rs.lengths >= q1 + width))
 
 
+def _switch(name: str, default: bool) -> bool:
+    """An engine switch as the JAX package reads it: on iff the variable is
+    "1", the default when it is unset."""
+    v = os.environ.get(name)
+    return default if v is None else v == "1"
+
+
 def run_matching(cfg: Config, rs: ReadSet, ts: TargetSet, *, device,
                  index: TargetIndex | None = None) -> MatchResult:
     if index is None:
@@ -113,8 +127,9 @@ def run_matching_indexed(cfg: Config, rs: ReadSet, index: TargetIndex,
                          timings: dict | None = None) -> MatchResult:
     """Match a ReadSet against a prebuilt index on the index's device.
 
-    probe: None or 'sort' (the sorted-join probe, always taken; its
-    results are exact like the search probe's).  timings, when given,
+    probe: None or 'sort' (the sorted-join probe, or the sort-merge probe
+    under MUSCATO_PJOIN=0; their results are exact like the search
+    probe's).  MUSCATO_PEXPAND_SUB=1 expands on B6.  timings, when given,
     receives per-stage seconds under 'stages' (probe, expand_verify, rank;
     CUDA-event device time on a GPU), the host seconds spent packing and
     uploading read batches ('read_prep_s') and fetching and unpacking the
@@ -130,6 +145,9 @@ def run_matching_indexed(cfg: Config, rs: ReadSet, index: TargetIndex,
             "the streaming expand (NoDedup or more than 31 windows) is not "
             "ported to muscato_tpu_torch yet"
         )
+    probe_fn = (fused._probe_windows_pjoin_impl if _switch("MUSCATO_PJOIN", True)
+                else fused._probe_windows_impl)
+    subchunk = _switch("MUSCATO_PEXPAND_SUB", False)
     device = index.device
     width = cfg.WindowWidth
     # Trim the packed read matrix to the longest actual read.
@@ -169,7 +187,7 @@ def run_matching_indexed(cfg: Config, rs: ReadSet, index: TargetIndex,
         read_prep_s += time.perf_counter() - t_batch
         if clock:
             clock.mark("probe")
-        pr = fused._probe_windows_pjoin_impl(
+        pr = probe_fn(
             rpacked, lengths, q1s, index.skeys, width=width,
             min_dinuc=cfg.MinDinuc,
         )
@@ -193,7 +211,7 @@ def run_matching_indexed(cfg: Config, rs: ReadSet, index: TargetIndex,
             pr, q1s, rpacked, lengths, index.spos, index.gene_start, budget,
             width=width, max_read_length=cfg.MaxReadLength, pair_cap=pair_cap,
             vchunk=min(vchunk, pair_cap), smax=index.num_bases, trows=trows,
-            gblock=gblock, gsteps=gsteps,
+            gblock=gblock, gsteps=gsteps, subchunk=subchunk,
         )
         nsurv = int(ver.nsurv)
         # Survivor-capacity regrow: the sorted survivors are all on the

@@ -39,10 +39,10 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from muscato_tpu.io.blob import decode_rows_blob, gather_ranges as _gather_ranges, ranged_copy
-from muscato_tpu.io.reads import ReadSet
-from muscato_tpu.io.seqcodec import _C2B
-from muscato_tpu.io.targets import TargetSet
+from ..io.blob import decode_rows_blob, gather_ranges as _gather_ranges, ranged_copy
+from ..io.reads import ReadSet
+from ..io.seqcodec import _C2B
+from ..io.targets import TargetSet
 from .pipeline import MatchResult
 
 

@@ -1,15 +1,16 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled by hand with ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface and loaded with ``ctypes``: that
-builds in seconds, where an extension that includes PyTorch's headers takes
-minutes.  The library lands in ``build/muscato_tpu_torch/<hash>/`` at the
-repository root, keyed on a hash of the sources and flags, on first use:
-importing this module compiles nothing.
+The sources are compiled by hand with ``nvcc`` for ``sm_90a``, one
+``nvcc`` process per source, all started together, and linked into one
+shared library with a plain C interface that is loaded with ``ctypes``:
+that builds in seconds, where an extension that includes PyTorch's headers
+takes minutes.  The library lands in ``build/muscato_tpu_torch/<hash>/`` at
+the repository root, keyed on a hash of the sources and flags, on first
+use: importing this module compiles nothing.
 
 Each C launcher takes raw device pointers and the stream of PyTorch's
 current CUDA stream, launches without synchronising, and returns
-``cudaGetLastError()``; ``check`` turns a nonzero code into an exception.
+``cudaGetLastError()``; ``launch`` turns a nonzero code into an exception.
 """
 
 from __future__ import annotations
@@ -32,17 +33,23 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "muscato_tpu_torch")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
+_I = ctypes.c_int
+_U = ctypes.c_uint
 # name -> argtypes of each extern "C" launcher (all return a cudaError_t).
 _SIGNATURES = {
     "muscato_sorted_join": (_P, _I64, _P, _I64, _P, _P, _P),
     "muscato_expand_owners": (_P, _P, _P, _I64, _I64, _P, _P, _P),
+    "muscato_expand_owners_sub": (_P, _P, _P, _I64, _I64, _P, _P, _P),
     "muscato_monotone_gather": (_P, _I64, _P, _I64, _P, _P),
-    "muscato_monotone_gather_rows": (_P, _I64, ctypes.c_int, _P, _I64, _P, _P),
+    "muscato_monotone_gather_rows": (_P, _I64, _I, _P, _I64, _P, _P),
+    "muscato_window_queries": (
+        _P, _P, _I64, _I, _P, _I, _I, _I, _U, _U, _I, _P, _P, _P, _P,
+    ),
 }
 
 
@@ -77,6 +84,20 @@ def _digest(srcs: list[str]) -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands concurrently; raise with their output if any
+    fails, else return their joined output."""
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for c in cmds
+    ]
+    outs = [p.communicate()[0] for p in procs]
+    for c, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): {' '.join(c)}\n{out}")
+    return "".join(outs)
+
+
 def _build() -> tuple[str, float, str]:
     srcs = sources()
     out_dir = os.path.join(BUILD_ROOT, _digest(srcs))
@@ -85,22 +106,23 @@ def _build() -> tuple[str, float, str]:
         return out, 0.0, ""
     nvcc = _nvcc()
     os.makedirs(out_dir, exist_ok=True)
-    # Compile to a private name, then rename: a concurrent builder never
-    # sees a half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
+    # Compile into a private directory and link to a private name, then
+    # rename: a concurrent builder never sees a half-written library.
+    work = tempfile.mkdtemp(dir=out_dir)
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", tmp, *srcs],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
-    return out, time.perf_counter() - t0, proc.stdout + proc.stderr
+    try:
+        objs = [
+            os.path.join(work, os.path.basename(src) + ".o") for src in srcs
+        ]
+        log = _run_all([
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src] for obj, src in zip(objs, srcs)
+        ])
+        lib = os.path.join(work, "lib.so")
+        log += _run_all([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", lib, *objs]])
+        os.replace(lib, out)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out, time.perf_counter() - t0, log
 
 
 @functools.lru_cache(maxsize=None)

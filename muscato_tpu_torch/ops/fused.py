@@ -3,20 +3,24 @@
 Each batch runs four stages on the device, each ported from the JAX
 function named in its docstring:
 
-  probe    window keys of every (window, read), a query sort, the B1 sorted
-           join against the resident index, and a compaction in lo order;
-  expand   B2 pair expansion, the B3 postings fetch, the (diagonal, read)
-           pair sort and the unique-(read, diagonal) compaction;
+  probe    B5 window keys of every (window, read), a query sort, the B1
+           sorted join against the resident index, and a compaction in lo
+           order (or, with MUSCATO_PJOIN=0, the sort-merge probe: one sort
+           of index and query keys together, no B1);
+  expand   B2 pair expansion (B6 with MUSCATO_PEXPAND_SUB=1), the B3
+           postings fetch, the (diagonal, read) pair sort and the
+           unique-(read, diagonal) compaction;
   verify   the SWAR verify over the unique diagonals in chunks (B4 target
            rows, B3 gene lookup), the B3 verdict map-back over ``u_idx``,
            the survivor sort and the B3 cap-key fetch;
   rank     MaxMatches cap, (read, gene, start) dedup and per-read
            best+MMTol over the survivors, with a B3 segment-min broadcast.
 
-Only the JAX package's main-path configuration is ported: the pjoin probe,
+The JAX package's main-path configuration is the default: the pjoin probe,
 PEXPAND, MGATHER and DORDER, which on the GPU are simply the way the stage
-runs (no flags).  The GPU kernels have no windows, so nothing here can
-overflow and no fallback ladder exists.
+runs.  The engine takes the sort-merge probe and the B6 expand on the JAX
+package's own switches.  The GPU kernels have no windows, so nothing here
+can overflow and no fallback ladder exists.
 
 uint32 values (window keys, packed words) are held as int32 bit patterns;
 ``lax.sort`` with several keys becomes packed int64 keys or stable LSD
@@ -30,12 +34,10 @@ from typing import NamedTuple
 import torch
 
 from . import join as _join
-from . import windows as winops
 from .expand import expand_owners
 from .gather import monotone_gather
-from .packed import (
-    M32, mulmod32, popcount32, to_i32, u64, verify_diagonals_packed,
-)
+from .packed import M32, to_i32, u64, verify_diagonals_packed
+from .window_queries import window_queries
 
 NCOL = 7  # r, g, s, nx, group1, group2, window
 INF32 = 0x7FFFFFFF
@@ -74,61 +76,6 @@ def _lexsort(keys) -> torch.Tensor:
 # ---- probe ---------------------------------------------------------------
 
 
-def _window_queries(rpacked, lengths, q1s, *, width, min_dinuc):
-    """Window keys + validity for every (window, read), flattened to (K*R,)
-    window-major — from the nibble-packed read matrix (port of
-    ``fused._window_queries``).  Keys are int32 bit patterns of the uint32
-    Horner keys (mod 2**32); validity is the length gate and, when
-    min_dinuc > 0, at least min_dinuc distinct dinucleotides."""
-    nreads, nw = rpacked.shape
-    use_k2 = winops.uses_second_key(width)
-    mult = int(winops.key_multiplier(width))
-    mult2 = int(winops.HASH_MULT2)
-
-    nal = -(-width // 8)  # aligned words covering the window
-    nsl = nal + 1  # sliced words (one extra feeds the funnel shift)
-    padn = max(1, nsl - nw)
-    rp = u64(torch.nn.functional.pad(rpacked, (0, padn)))
-    nwp = nw + padn
-
-    keys, keys2, valids = [], [], []
-    for q1 in q1s:
-        w0 = min(max(q1 >> 3, 0), nwp - nsl)
-        sh = min(max((q1 - (w0 << 3)) * 4, 0), 31)
-        words = rp[:, w0 : w0 + nsl]
-        al = []
-        for j in range(nal):
-            lo = words[:, j] >> sh
-            hi = (words[:, j + 1] << (32 - sh)) & M32 if sh else 0
-            al.append(lo | hi)
-        key = torch.zeros(nreads, dtype=torch.int64, device=rpacked.device)
-        key2 = torch.zeros_like(key)
-        bits = torch.zeros_like(key)
-        prev = None
-        for i in range(width):
-            b = (al[i >> 3] >> ((i & 7) * 4)) & 0xF
-            key = (mulmod32(key, mult) + b) & M32
-            if use_k2:
-                key2 = (mulmod32(key2, mult2) + b) & M32
-            if min_dinuc > 0 and prev is not None:
-                # A shift past bit 31 gives 0, as a uint32 shift does.
-                pr = prev * winops.NBASE + b
-                one = torch.bitwise_left_shift(torch.ones_like(pr), pr.clamp(max=31))
-                bits = bits | torch.where(pr < 32, one, 0)
-            prev = b
-        v = lengths >= q1 + width
-        if min_dinuc > 0:
-            v = v & (popcount32(bits & M32) >= min_dinuc)
-        keys.append(key)
-        keys2.append(key2)
-        valids.append(v)
-
-    key = to_i32(torch.stack(keys).reshape(-1))
-    key2 = to_i32(torch.stack(keys2).reshape(-1))
-    valid = torch.stack(valids).reshape(-1)
-    return key, key2, valid
-
-
 class Probe(NamedTuple):
     counts: torch.Tensor  # (K*R,) candidate count of the query at each slot
     lo: torch.Tensor  # start of the query's postings run in the index
@@ -148,7 +95,7 @@ def _probe_windows_pjoin_impl(rpacked, lengths, q1s, skeys, *, width, min_dinuc)
         raise ValueError("query space exceeds the packed-key range")
     if skeys.shape[0] >= (1 << 30):
         raise ValueError("index exceeds the packed-lo range")
-    keyf, key2f, validf = _window_queries(
+    keyf, key2f, validf = window_queries(
         rpacked, lengths, q1s, width=width, min_dinuc=min_dinuc
     )
     dev = rpacked.device
@@ -169,6 +116,58 @@ def _probe_windows_pjoin_impl(rpacked, lengths, q1s, skeys, *, width, min_dinuc)
     )
 
 
+def _probe_windows_impl(rpacked, lengths, q1s, skeys, *, width, min_dinuc):
+    """Sort-merge probe (port of ``fused._probe_windows_impl``): one stable
+    sort of the index keys and the query keys together, on key1 alone.
+    Index rows precede equal-key queries (they come first in the
+    concatenation), so a query's candidate count is the number of index
+    rows in its key's run and its lo the number of index rows before the
+    run; then the same lo-ordered compaction as the sorted-join probe,
+    over V + Q rows, of which the first Q slots are kept."""
+    nflat = len(q1s) * rpacked.shape[0]
+    nidx = skeys.shape[0]
+    if nflat >= (1 << 30) - 1:
+        raise ValueError("query space exceeds the packed-key range")
+    if nidx >= (1 << 30):
+        raise ValueError("index exceeds the packed-lo range")
+    keyf, key2f, validf = window_queries(
+        rpacked, lengths, q1s, width=width, min_dinuc=min_dinuc
+    )
+    dev = rpacked.device
+    # The payload word encodes the row class: -1 an index row, >= 0 a valid
+    # query (its flat id), -2 a length- or entropy-rejected query.
+    pay = torch.cat([
+        torch.full((nidx,), -1, dtype=torch.int32, device=dev),
+        torch.where(validf, torch.arange(nflat, dtype=torch.int32, device=dev), -2),
+    ])
+    # Each intermediate below spans V + Q rows (0.5-1 GB at the flagship)
+    # and is dropped as soon as it is used, to bound peak memory.
+    m1s, order = torch.sort(_join.flip(torch.cat([skeys, keyf])), stable=True)
+    pay_s = pay[order]
+    del order
+    seg = _cat_first(m1s[1:] != m1s[:-1])
+    del m1s
+    is_idx = (pay_s == -1).to(torch.int64)
+    ie = torch.cumsum(is_idx, 0) - is_idx  # index rows strictly before j
+    del is_idx
+    seg_ie = torch.cummax(torch.where(seg, ie, -1), 0).values  # ie at my run start
+    del seg
+    counts_m = torch.where(pay_s >= 0, ie - seg_ie, 0).to(torch.int32)
+    del ie
+    lo_m = seg_ie.clamp(min=0)
+    qid_m = torch.where(pay_s >= 0, pay_s, -1)
+    inactive = (counts_m == 0).to(torch.int64)
+    packed_key = (inactive << 30) | lo_m.clamp(0, (1 << 30) - 1)
+    packed_c, order = torch.sort(packed_key.to(torch.int32))
+    order = order[:nflat]
+    counts_c = counts_m[order]
+    return Probe(
+        counts=counts_c, lo=packed_c[:nflat] & ((1 << 30) - 1),
+        qid=qid_m[order], keyf=keyf, key2f=key2f,
+        total=counts_c.sum(dtype=torch.int64),
+    )
+
+
 # ---- expand --------------------------------------------------------------
 
 
@@ -182,20 +181,22 @@ class Pairs(NamedTuple):
 
 
 def _expand_pairs_impl(counts_m, lo_m, qid_m, q1s, spos, *, nreads, pair_cap,
-                       smax):
+                       smax, subchunk=False):
     """Pair expansion into a (pair_cap,) buffer sorted by (diagonal, read)
     with run-start bookkeeping for the diagonal-dedup verify (port of
     ``fused._expand_pairs_impl`` with pexpand, mgather and dorder on):
-    B2 finds each lane's owning slot, B3 fetches its postings site.  As in
-    the JAX function, smax=None keeps the qid payload through the sort
-    instead of packing the window index into the minor key."""
+    B2 (B6 with ``subchunk``) finds each lane's owning slot, B3 fetches its
+    postings site.  As in the JAX function, smax=None keeps the qid payload
+    through the sort instead of packing the window index into the minor
+    key."""
     dev = counts_m.device
     offsets = torch.cumsum(counts_m, 0)
     total = offsets[-1]
     oexcl = (offsets - counts_m).to(torch.int32)
 
     pid = torch.arange(pair_cap, dtype=torch.int32, device=dev)
-    qid, sidx0 = expand_owners(oexcl, lo_m, qid_m, pair_cap=pair_cap)
+    qid, sidx0 = expand_owners(oexcl, lo_m, qid_m, pair_cap=pair_cap,
+                               subchunk=subchunk)
     sidx = sidx0.clamp(0, spos.shape[0] - 1)
     act = (pid < total) & (qid >= 0)
     qpos = qid.clamp(min=0)
@@ -343,14 +344,15 @@ def survivor_rows(ver: Verified, keyf, key2f, *, nreads, nwin, surv_cap):
 
 def expand_verify_dedup(pr: Probe, q1s, rpacked, lengths, spos, gene_start,
                         budget, *, width, max_read_length, pair_cap, vchunk,
-                        smax, trows, gblock, gsteps) -> Verified:
+                        smax, trows, gblock, gsteps, subchunk=False) -> Verified:
     """Expand + verify of one batch up to the survivor sort; the caller
-    sizes the survivor buffer from ``nsurv`` and calls ``survivor_rows``."""
+    sizes the survivor buffer from ``nsurv`` and calls ``survivor_rows``.
+    ``subchunk`` runs the expansion on B6 instead of B2."""
     q1s = tuple(q1s)
     nreads = rpacked.shape[0]
     pairs = _expand_pairs_impl(
         pr.counts, pr.lo, pr.qid, q1s, spos, nreads=nreads,
-        pair_cap=pair_cap, smax=smax,
+        pair_cap=pair_cap, smax=smax, subchunk=subchunk,
     )
     return _verify_diagonals(
         pairs, q1s, rpacked, lengths, gene_start, budget, trows, gblock,

@@ -1,6 +1,7 @@
 """The port's driver, CLI and report writers against the JAX package's on
 the same inputs: results.txt, the nonmatch fastq, readstats and genestats
-must be byte-identical."""
+must be byte-identical.  Each package gets its own ReadSet, TargetSet and
+Config."""
 
 import dataclasses
 import json
@@ -9,13 +10,15 @@ import os
 import numpy as np
 import pytest
 
-from muscato_tpu.bench import gendat
-from muscato_tpu.config import Config, apply_defaults
+from muscato_tpu import config as jconfig
+from muscato_tpu.bench import gendat as jgendat
 from muscato_tpu.engine import driver as jdriver
 from muscato_tpu.engine import pipeline as jpipeline
 from muscato_tpu.engine import report as jreport
-from muscato_tpu.io import targets
 from muscato_tpu_torch import cli
+from muscato_tpu_torch import config as tconfig
+from muscato_tpu_torch.bench import gendat as tgendat
+from muscato_tpu_torch.io import targets
 from muscato_tpu_torch.engine import driver as tdriver
 from muscato_tpu_torch.engine import pipeline as tpipeline
 from muscato_tpu_torch.engine import report as treport
@@ -38,8 +41,10 @@ def _outputs(results_path):
 
 @pytest.mark.parametrize("empty", [False, True])
 def test_report_bytes_match_jax(tmp_path, empty):
-    rs, ts = gendat.generate_arrays_realistic(800, 100, 40, 1000, seed=2)
-    cfg = Config(
+    args = (800, 100, 40, 1000)
+    rs, ts = tgendat.generate_arrays_realistic(*args, seed=2)
+    jrs, jts = jgendat.generate_arrays_realistic(*args, seed=2)
+    cfg = tconfig.Config(
         Windows=[10, 30, 50, 70], WindowWidth=20, PMatch=0.96, MinDinuc=3,
         MaxReadLength=200, MMTol=2, MaxMatches=10**6, MatchMode="best",
     )
@@ -49,10 +54,11 @@ def test_report_bytes_match_jax(tmp_path, empty):
         mr = tpipeline.MatchResult(z, z, z, z)
     assert empty or len(mr.read_row) > 0
     jmr = jpipeline.MatchResult(mr.read_row, mr.gene, mr.start, mr.nmiss)
-    for mod, name, m in ((treport, "t.txt", mr), (jreport, "j.txt", jmr)):
+    for mod, name, m, r, t in ((treport, "t.txt", mr, rs, ts),
+                               (jreport, "j.txt", jmr, jrs, jts)):
         path = str(tmp_path / name)
-        table = mod.write_results(path, m, rs, ts)
-        mod.write_nonmatch(path, m, rs)
+        table = mod.write_results(path, m, r, t)
+        mod.write_nonmatch(path, m, r)
         mod.write_readstats(path, table)
         mod.write_genestats(path, table)
     assert _outputs(str(tmp_path / "t.txt")) == _outputs(str(tmp_path / "j.txt"))
@@ -61,16 +67,16 @@ def test_report_bytes_match_jax(tmp_path, empty):
 @pytest.fixture(scope="module")
 def files(tmp_path_factory):
     d = tmp_path_factory.mktemp("drv")
-    reads, genes = gendat.generate_big(
+    reads, genes = tgendat.generate_big(
         3000, 100, 100, 1000, out_dir=str(d), seed=5, hit_frac=0.6
     )
     seq, ids = targets.prep_targets(genes, rev=False)
     return d, reads, seq, ids
 
 
-def _cfg(files, tag):
+def _cfg(files, tag, config=tconfig):
     d, reads, seq, ids = files
-    return Config(
+    return config.Config(
         ReadFileName=reads, GeneFileName=seq, GeneIdFileName=ids,
         ResultsFileName=str(d / f"{tag}.txt"), Windows=[10, 30, 50, 70],
         WindowWidth=20, PMatch=0.96, MinDinuc=3, MaxReadLength=200, MMTol=2,
@@ -83,8 +89,8 @@ def test_driver_outputs_match_jax(files):
     """The JAX driver, then the port through its console entry point on
     the CPU, on files written by gendat and prepared by prep_targets."""
     d = files[0]
-    jcfg = _cfg(files, "jax")
-    apply_defaults(jcfg)
+    jcfg = _cfg(files, "jax", config=jconfig)
+    jconfig.apply_defaults(jcfg)
     jdriver.run(jcfg)
 
     tcfg = _cfg(files, "torch")

@@ -8,6 +8,7 @@ not part of the contract, and those intermediates are compared as
 multisets of rows.
 """
 
+import os
 import subprocess
 import sys
 
@@ -17,15 +18,17 @@ import torch
 
 import jax.numpy as jnp
 
-from muscato_tpu.bench import gendat
+from muscato_tpu.bench import gendat as jgendat
 from muscato_tpu.engine import index as jindex
 from muscato_tpu.ops import fused as jfused
 from muscato_tpu.ops import packed as jpacked
 from muscato_tpu.ops import verify as jverify
+from muscato_tpu_torch.bench import gendat as tgendat
 from muscato_tpu_torch.engine import index as tindex
 from muscato_tpu_torch.ops import fused as tfused
 from muscato_tpu_torch.ops import packed as tpacked
 from muscato_tpu_torch.ops import verify as tverify
+from muscato_tpu_torch.ops import window_queries as twq
 from muscato_tpu_torch.ops import windows as twindows
 
 
@@ -94,7 +97,7 @@ def test_window_queries_match_jax(width, min_dinuc):
         jnp.asarray(rp), jnp.asarray(lengths), jnp.asarray(np.array(q1s, np.int32)),
         width=width, min_dinuc=min_dinuc,
     )
-    t1, t2, tv = tfused._window_queries(
+    t1, t2, tv = twq.window_queries_torch(
         _t(rp), _t(lengths), q1s, width=width, min_dinuc=min_dinuc
     )
     np.testing.assert_array_equal(tv.numpy(), np.asarray(v))
@@ -118,18 +121,23 @@ def test_pack64_extract64_match_jax():
         pos += b
 
 
-def _index_pair(rs_ts, width):
-    """The same TargetSet compiled by both packages (port on the CPU)."""
-    _rs, ts = rs_ts
+def _index_pair(workload, width):
+    """The same targets compiled by both packages, each from its own
+    TargetSet (the port's on the CPU)."""
     return (
-        jindex.build_target_index(ts, width),
-        tindex.build_target_index(ts, width, "cpu"),
+        jindex.build_target_index(workload["jax"][1], width),
+        tindex.build_target_index(workload["port"][1], width, "cpu"),
     )
 
 
 @pytest.fixture(scope="module")
 def workload():
-    return gendat.generate_arrays_realistic(1500, 100, 60, 1000, seed=3)
+    """The same seeded workload made by each package's gendat."""
+    args = (1500, 100, 60, 1000)
+    return {
+        "jax": jgendat.generate_arrays_realistic(*args, seed=3),
+        "port": tgendat.generate_arrays_realistic(*args, seed=3),
+    }
 
 
 def test_index_build_matches_jax(workload):
@@ -204,7 +212,7 @@ def test_verify_diagonals_packed_matches_jax():
 
 
 def _stage_inputs(workload, width, q1s, min_dinuc):
-    rs, _ts = workload
+    rs, _ts = workload["port"]
     ji, ti = _index_pair(workload, width)
     rp = jpacked.pack_rows_np(rs.codes[:, :100])
     nreads = rp.shape[0]
@@ -236,6 +244,32 @@ def test_probe_matches_jax(workload, width, min_dinuc):
     np.testing.assert_array_equal(_u32(got.keyf), np.asarray(exp[3]))
     np.testing.assert_array_equal(_u32(got.key2f), np.asarray(exp[4]))
     assert _slots(got.counts, got.lo, got.qid) == _slots(exp[0], exp[1], exp[2])
+
+
+@pytest.mark.parametrize("width,min_dinuc", [(20, 3), (10, 0), (14, 2)])
+def test_sort_merge_probe_matches_jax(workload, width, min_dinuc):
+    """The port's sort-merge probe (MUSCATO_PJOIN=0) against the JAX
+    package's: query keys exact, active slots equal as a multiset (the
+    compaction sort is unstable in both)."""
+    q1s = (10, 30, 50, 70)
+    ji, ti, rp, lengths, nreads = _stage_inputs(workload, width, q1s, min_dinuc)
+    exp = jfused._probe_windows_impl(
+        jnp.asarray(rp), jnp.asarray(lengths), jnp.asarray(np.array(q1s, np.int32)),
+        ji.skeys, width=width, min_dinuc=min_dinuc,
+    )
+    got = tfused._probe_windows_impl(
+        _t(rp), _t(lengths), q1s, ti.skeys, width=width, min_dinuc=min_dinuc
+    )
+    assert got.counts.shape == (len(q1s) * nreads,)
+    assert int(got.total) == int(exp[5]) > 0
+    np.testing.assert_array_equal(_u32(got.keyf), np.asarray(exp[3]))
+    np.testing.assert_array_equal(_u32(got.key2f), np.asarray(exp[4]))
+    assert _slots(got.counts, got.lo, got.qid) == _slots(exp[0], exp[1], exp[2])
+    # The sorted-join probe resolves the same slots.
+    pj = tfused._probe_windows_pjoin_impl(
+        _t(rp), _t(lengths), q1s, ti.skeys, width=width, min_dinuc=min_dinuc
+    )
+    assert _slots(pj.counts, pj.lo, pj.qid) == _slots(got.counts, got.lo, got.qid)
 
 
 @pytest.fixture(scope="module")
@@ -366,18 +400,23 @@ def test_rank_core_matches_jax(seed):
 
 
 def test_port_imports_no_jax():
-    """Importing every module of muscato_tpu_torch leaves jax unimported."""
+    """Importing every module of muscato_tpu_torch, and chip_smoke, in a
+    fresh interpreter leaves jax and every module of muscato_tpu
+    unimported (tests/test_torch_isolation.py scans the sources)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import muscato_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.'))\n"
+        "import chip_smoke\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'muscato_tpu'))\n"
         "assert not bad, bad\n"
         "print(len([k for k in sys.modules if k.startswith('muscato_tpu_torch')]))\n"
     )
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     out = subprocess.run(
-        [sys.executable, "-c", code], capture_output=True, text=True, timeout=120
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=120, cwd=root,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15
+    assert int(out.stdout.strip()) >= 25

@@ -3,8 +3,11 @@ against the JAX engine's run_matching on the same realistic workload.
 
 MatchResult must be identical: width 10 and width 20, single-batch and
 multi-batch (a small ReadBatch), and a binding MaxMatches cap.  The JAX
-run takes whichever probe it auto-selects; the port always takes the
-sorted-join probe — the retained set is the contract.
+run takes whichever probe it auto-selects; the port takes the sorted-join
+probe, or under the JAX package's switches the sort-merge probe
+(MUSCATO_PJOIN=0) and the sub-chunked B6 expand (MUSCATO_PEXPAND_SUB=1) —
+the retained set is the contract.  Each package gets its own ReadSet,
+TargetSet and Config, made by its own gendat and config module.
 """
 
 import dataclasses
@@ -13,25 +16,50 @@ import numpy as np
 import pytest
 import torch
 
-from muscato_tpu.bench import gendat
-from muscato_tpu.config import Config
+from muscato_tpu import config as jconfig
+from muscato_tpu.bench import gendat as jgendat
 from muscato_tpu.engine import pipeline as jpipeline
+from muscato_tpu_torch import config as tconfig
+from muscato_tpu_torch.bench import gendat as tgendat
 from muscato_tpu_torch.device import resolve_device
 from muscato_tpu_torch.engine import pipeline as tpipeline
-from muscato_tpu_torch.ops import expand, gather, join
+from muscato_tpu_torch.ops import expand, gather, join, window_queries
+
+_ARGS = (5000, 100, 200, 1000)
 
 
 @pytest.fixture(scope="module")
 def workload():
-    return gendat.generate_arrays_realistic(5000, 100, 200, 1000, seed=1)
+    """The port's ReadSet and TargetSet."""
+    return tgendat.generate_arrays_realistic(*_ARGS, seed=1)
 
 
-def _cfg(width, windows, min_dinuc, mode="best", mm=10**6, batch=0):
-    return Config(
+@pytest.fixture(scope="module")
+def jax_workload():
+    """The same workload made by the JAX package's gendat."""
+    return jgendat.generate_arrays_realistic(*_ARGS, seed=1)
+
+
+def _cfg(width, windows, min_dinuc, mode="best", mm=10**6, batch=0,
+         config=tconfig):
+    return config.Config(
         Windows=list(windows), WindowWidth=width, PMatch=0.96,
         MinDinuc=min_dinuc, MaxReadLength=200, MMTol=2, MaxMatches=mm,
         MatchMode=mode, ReadBatch=batch,
     )
+
+
+_JAX_RESULTS = {}
+
+
+def _jax_result(jax_workload, cfg):
+    """The JAX engine's MatchResult for the port's config ``cfg`` (computed
+    once per config in this module)."""
+    key = repr(dataclasses.asdict(cfg))
+    if key not in _JAX_RESULTS:
+        jcfg = jconfig.Config(**dataclasses.asdict(cfg))
+        _JAX_RESULTS[key] = jpipeline.run_matching(jcfg, *jax_workload)
+    return _JAX_RESULTS[key]
 
 
 def _assert_same(got, exp):
@@ -50,15 +78,47 @@ def _assert_same(got, exp):
     ],
     ids=["w20", "w10", "w20-multibatch", "w10-first-capped"],
 )
-def test_run_matching_matches_jax(workload, cfg):
+def test_run_matching_matches_jax(workload, jax_workload, cfg):
     rs, ts = workload
-    exp = jpipeline.run_matching(cfg, rs, ts)
+    exp = _jax_result(jax_workload, cfg)
     timings = {}
     index = tpipeline.build_target_index(ts, cfg.WindowWidth, "cpu")
     got = tpipeline.run_matching_indexed(cfg, rs, index, timings=timings)
     _assert_same(got, exp)
     assert set(timings["stages"]) == {"probe", "expand_verify", "rank"}
     assert timings["batches"] == -(-rs.num_unique // (cfg.ReadBatch or 1 << 22))
+
+
+@pytest.mark.parametrize("switch", ["MUSCATO_PJOIN=0", "MUSCATO_PEXPAND_SUB=1"])
+@pytest.mark.parametrize(
+    "cfg",
+    [
+        _cfg(20, (10, 30, 50, 70), 3),
+        _cfg(10, (0, 20, 45), 0, mode="first", mm=2),
+        _cfg(20, (10, 30, 50, 70), 3, batch=2048),
+    ],
+    ids=["w20", "w10-first-capped", "w20-multibatch"],
+)
+def test_switched_paths_match_jax(workload, jax_workload, cfg, switch, monkeypatch):
+    """The sort-merge probe and the B6 expand, each selected by its switch
+    when the run starts, give the JAX engine's MatchResult."""
+    name, value = switch.split("=")
+    monkeypatch.setenv(name, value)
+    rs, ts = workload
+    index = tpipeline.build_target_index(ts, cfg.WindowWidth, "cpu")
+    called = []
+    for mod, fn in ((tpipeline.fused, "_probe_windows_impl"),
+                    (tpipeline.fused, "_probe_windows_pjoin_impl"),
+                    (expand, "expand_owners_sub")):
+        orig = getattr(mod, fn)
+        monkeypatch.setattr(mod, fn, lambda *a, _o=orig, _n=fn, **k: (called.append(_n), _o(*a, **k))[1])
+    got = tpipeline.run_matching_indexed(cfg, rs, index)
+    _assert_same(got, _jax_result(jax_workload, cfg))
+    if name == "MUSCATO_PJOIN":
+        assert "_probe_windows_impl" in called and "_probe_windows_pjoin_impl" not in called
+        assert "expand_owners_sub" not in called
+    else:
+        assert "_probe_windows_pjoin_impl" in called and "expand_owners_sub" in called
 
 
 def test_survivor_capacity_regrows(workload, monkeypatch):
@@ -101,10 +161,25 @@ def test_cuda_run_matches_cpu_run(workload):
         pytest.skip("needs a CUDA device")
     rs, ts = workload
     cfg = _cfg(20, (10, 30, 50, 70), 3)
-    before = [f.launches for f in (join.sorted_join, expand.expand_owners,
-                                   gather.monotone_gather, gather.monotone_gather_rows)]
+    fns = (join.sorted_join, expand.expand_owners, gather.monotone_gather,
+           gather.monotone_gather_rows, window_queries.window_queries)
+    before = [f.launches for f in fns]
     got = tpipeline.run_matching(cfg, rs, ts, device="cuda")
-    after = [f.launches for f in (join.sorted_join, expand.expand_owners,
-                                  gather.monotone_gather, gather.monotone_gather_rows)]
-    assert all(a > b for a, b in zip(after, before))
+    assert all(f.launches > b for f, b in zip(fns, before))
+    _assert_same(got, tpipeline.run_matching(cfg, rs, ts, device="cpu"))
+
+
+@pytest.mark.gpu
+def test_cuda_switched_run_matches_cpu_run(workload, monkeypatch):
+    """Both switches at once on the card: no B1, one B6 per batch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    monkeypatch.setenv("MUSCATO_PJOIN", "0")
+    monkeypatch.setenv("MUSCATO_PEXPAND_SUB", "1")
+    rs, ts = workload
+    cfg = _cfg(20, (10, 30, 50, 70), 3)
+    before = (join.sorted_join.launches, expand.expand_owners_sub.launches)
+    got = tpipeline.run_matching(cfg, rs, ts, device="cuda")
+    assert join.sorted_join.launches == before[0]
+    assert expand.expand_owners_sub.launches == before[1] + 1
     _assert_same(got, tpipeline.run_matching(cfg, rs, ts, device="cpu"))
