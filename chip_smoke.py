@@ -5,10 +5,11 @@
 
 Run from the root of a checkout.  It builds the six CUDA kernels from
 muscato_tpu_torch/csrc with nvcc (one process per source, in parallel),
-then:
+and a variant of them built with -DMUSCATO_NO_STAGE (B1 and B4 never
+stage a span), then:
 
   1. prints the card (nvidia-smi name and power limit), torch and CUDA
-     versions and the kernel build time;
+     versions and the kernel build times;
   2. runs each kernel against its plain PyTorch twin on the card at the
      flagship workload's main-path shapes (98.1M index keys, 16.8M
      queries, ~10M pair lanes, a (2**20, 22) row gather, a (2**22, 13)
@@ -16,8 +17,14 @@ then:
      width) with duplicate runs, 0xFFFFFFFF keys, dead tails and piecewise
      step-backs; results must be exactly equal; prints each one's time,
      the twin's and, where one PyTorch call computes the same function,
-     that call's (CUDA events, median of 5), and the least time the card
-     could take for the bytes moved;
+     that call's (CUDA events around one call, median of 5; and around
+     10 back-to-back calls), and the least time the card could take for
+     the bytes moved; then holds B1 and B4 exactly against their twins on
+     cases that reach each branch of their kernels (unsorted queries, an
+     equal-key run longer than B1's staged span, unaligned slices,
+     flagship-shaped dense verify chunks of 22- and 28-word rows, also
+     timed beside index_select, scattered rows, odd row widths); then
+     times B1 and B4 against their unstaged variant in turns;
   3. matches 100k reads of the flagship workload against the FULL
      100M-base index on cuda and on cpu (the plain twins), then on cuda
      under MUSCATO_PJOIN=0 (the sort-merge probe) and under
@@ -27,7 +34,11 @@ then:
      windows 10,30,50,70 at width 20) through run_matching_indexed with
      every launch counter set to 0 first, prints reads/s, matches, the
      pair total, per-stage CUDA-event times and peak device memory, and
-     fails unless every kernel of the path launched; then the same with
+     fails unless every kernel of the path launched; then profiles one
+     more such run with torch.profiler (every device kernel's time and
+     launches, the device's busy share of the stage window, and for each
+     call site of the port's kernels its launches, time and summed bytes
+     bound); then the same with
      both switches set (sort-merge probe and B6), whose MatchResult must
      equal the default run's; then times the probe stage of the flagship
      batch with B5 and with its plain twin, in turns, and with each probe
@@ -52,12 +63,14 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 SEED = 0
 NUM_READ, READ_LEN, NUM_GENE, GENE_LEN = 4_000_000, 100, 100_000, 1_000
 WINDOWS, WIDTH = (10, 30, 50, 70), 20
 BATCH = 1 << 22  # the engine's default read batch
 PARITY_READS = 100_000
+JOIN_LONG_RUN = 100_000  # equal keys, longer than B1's staged span (6,144)
 DRIVER_READS = 200_000  # the driver phase cuts the read count only
 
 KERNELS = {
@@ -76,6 +89,18 @@ DEFAULT_PATH = ("sorted_join", "expand_owners", "monotone_gather",
 SWITCHED_PATH = ("expand_owners_sub", "monotone_gather", "monotone_gather_rows",
                  "window_queries")
 SWITCHES = {"MUSCATO_PJOIN": "0", "MUSCATO_PEXPAND_SUB": "1"}
+# Where the engine calls each kernel wrapper (module, attribute; fused
+# reaches B1 through its reference to the join module), and each kernel's
+# CUDA symbol as a profile names it.
+CALL_POINTS = (("fused", "window_queries"), ("fused", "_join.sorted_join"),
+               ("fused", "expand_owners"), ("fused", "monotone_gather"),
+               ("packed", "monotone_gather"), ("packed", "monotone_gather_rows"))
+SYMBOLS = {
+    "sorted_join": "sorted_join_kernel", "expand_owners": "expand_owners_kernel",
+    "monotone_gather": "gather_kernel", "monotone_gather_rows": "gather_rows_kernel",
+    "window_queries": "window_queries_kernel",
+    "expand_owners_sub": "expand_owners_sub_kernel",
+}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM peak memory rate (NVIDIA data sheet)
 
 
@@ -130,8 +155,12 @@ def switched(**env):
                 os.environ[k] = v
 
 
-def time_ms(fn, reps: int = 5) -> float:
-    """Median device time of fn in ms (CUDA events), after one warm-up."""
+def time_ms(fn, reps: int = 5, inner: int = 1) -> float:
+    """Time of one call of fn in ms: CUDA events around ``inner``
+    back-to-back calls, over ``inner``, median of ``reps``, after one
+    warm-up.  With ``inner=1`` a short kernel's time includes the device
+    idling while the host launches it; back to back (``inner=10``), the
+    host's launch work overlaps the device work."""
     import torch
 
     fn()
@@ -141,10 +170,11 @@ def time_ms(fn, reps: int = 5) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(inner):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / inner)
     return statistics.median(times)
 
 
@@ -161,13 +191,16 @@ def _compare(name, got, exp) -> float:
     return err
 
 
-def kernel_phase(dev) -> dict:
+def kernel_phase(dev, unstaged) -> dict:
     """Each kernel against its twin at main-path shapes; returns
-    {name: {max_abs_err, ms, plain_ms, library_ms, bound_ms, shapes}}."""
+    {name: {max_abs_err, ms, back_to_back_ms, plain_ms, library_ms,
+    library_back_to_back_ms, bound_ms, shapes}}.  ``unstaged`` is the
+    kernel library built with -DMUSCATO_NO_STAGE: B1 and B4 from it are
+    held against their twins too and timed against the real ones."""
     import torch
 
     from muscato_tpu_torch.engine.pipeline import _bucket_ceil
-    from muscato_tpu_torch.ops import expand, gather, join, window_queries
+    from muscato_tpu_torch.ops import _lib, expand, gather, join, window_queries
     from muscato_tpu_torch.ops.packed import pack_rows
 
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -180,12 +213,40 @@ def kernel_phase(dev) -> dict:
         got, exp = fn(), twin()
         out[name] = dict(
             max_abs_err=_compare(name, got, exp), ms=time_ms(fn),
-            plain_ms=time_ms(twin),
+            back_to_back_ms=time_ms(fn, inner=10), plain_ms=time_ms(twin),
             library_ms=time_ms(library) if library else None,
+            library_back_to_back_ms=time_ms(library, inner=10) if library else None,
             bound_ms=bound_ms(nbytes), shapes=shapes,
         )
 
-    out = {}
+    def exact(label, fn, twin):
+        _compare(label, fn(), twin())
+        edge.append(label)
+
+    def unstaged_join(skeys, qkeys):
+        lo, cnt = torch.empty_like(qkeys), torch.empty_like(qkeys)
+        _lib.launch("sorted_join", qkeys, skeys.data_ptr(), skeys.numel(),
+                    qkeys.data_ptr(), qkeys.numel(), lo.data_ptr(), cnt.data_ptr(),
+                    lib=unstaged)
+        return lo, cnt
+
+    def unstaged_rows(table, ridx):
+        res = torch.empty((ridx.numel(), table.shape[1]), dtype=torch.int32, device=dev)
+        _lib.launch("monotone_gather_rows", ridx, table.data_ptr(), table.shape[0],
+                    table.shape[1], ridx.data_ptr(), ridx.numel(), res.data_ptr(),
+                    lib=unstaged)
+        return (res,)
+
+    def stage_ab(label, staged, plain, twin):
+        """The unstaged variant exact against the twin, then both timed
+        back to back, in turns (staged, unstaged, unstaged, staged, ...)."""
+        _compare(f"unstaged {label}", plain(), twin())
+        times = {"staged": [], "unstaged": []}
+        for arm in ("staged", "unstaged", "unstaged", "staged", "staged", "unstaged"):
+            times[arm].append(time_ms(staged if arm == "staged" else plain, reps=3, inner=10))
+        ab[label] = times
+
+    out, extra, edge, ab = {}, {}, [], {}
     # B1: the sorted index (V = genes x valid windows per gene) with
     # duplicate runs and 0xFFFFFFFF keys, against K x batch sorted queries.
     v = NUM_GENE * (GENE_LEN - WIDTH + 1)
@@ -206,6 +267,34 @@ def kernel_phase(dev) -> dict:
                   torch.searchsorted(kf, qf, side="right")),
          4 * (v + 3 * q), f"skeys ({v},) qkeys ({q},)")
     del hits, kf, qf
+    stage_ab("sorted_join", lambda: join.sorted_join(keys, qs)[:2],
+             lambda: unstaged_join(keys, qs), lambda: join.sorted_join_torch(keys, qs)[:2])
+    # B1's other branches, exact only: unsorted queries (tiles whose span
+    # exceeds the staged cap search global memory), an index slice that is
+    # not 16-byte aligned (staged with plain loads), and an index with an
+    # equal-key run longer than the staged cap that queries hit, whose
+    # length is not a multiple of 4 (the staged tail past the last whole
+    # 16 bytes is loaded plainly) and whose top key the last, ragged tile
+    # queries.
+    uq = qs[torch.randperm(q, device=dev, generator=g)[: 1 << 20]]
+    exact("sorted_join unsorted queries", lambda: join.sorted_join(keys, uq)[:2],
+          lambda: join.sorted_join_torch(keys, uq)[:2])
+    exact("sorted_join unaligned index", lambda: join.sorted_join(keys[1:], qs)[:2],
+          lambda: join.sorted_join_torch(keys[1:], qs)[:2])
+    del uq
+    run_key = int(keys[v // 2])
+    keys2 = join.flip(torch.sort(join.flip(torch.cat([
+        rand_u32((1 << 22) + 3),
+        torch.full((JOIN_LONG_RUN,), run_key, dtype=torch.int32, device=dev)]))).values)
+    qs2 = torch.cat([keys2[torch.randint(0, keys2.numel(), ((1 << 19) - 333,), device=dev,
+                                         generator=g)],
+                     torch.full((1 << 18,), run_key, dtype=torch.int32, device=dev),
+                     rand_u32(1 << 18), keys2[-1:]])
+    qs2 = join.flip(torch.sort(join.flip(qs2)).values)
+    exact(f"sorted_join {JOIN_LONG_RUN}-key run, ragged tile",
+          lambda: join.sorted_join(keys2, qs2)[:2],
+          lambda: join.sorted_join_torch(keys2, qs2)[:2])
+    del keys2, qs2
 
     # B2 and B6: probe slots in lo order — a live prefix, then a dead
     # tail — owning ~10M pair lanes; the buffer has lanes past the total.
@@ -264,7 +353,62 @@ def kernel_phase(dev) -> dict:
          lambda: trows.index_select(0, ridx_l),
          4 * ncols * (touched + vchunk) + 4 * vchunk,
          f"table ({nrows}, {ncols}) ridx ({vchunk},)")
-    del trows, ridx, ridx_l
+    stage_ab("monotone_gather_rows", lambda: gather.monotone_gather_rows(trows, ridx)[:1],
+             lambda: unstaged_rows(trows, ridx),
+             lambda: gather.monotone_gather_rows_torch(trows, ridx)[:1])
+    # The flagship's verify chunk: 2**20 sorted rows over a contiguous
+    # quarter of the table (every tile dense), timed beside index_select;
+    # the same with 28-word rows, the trows width of 150-base reads.
+    quarter = nrows // 4
+    ridx_d = torch.sort(torch.randint(quarter, 2 * quarter, (vchunk,), dtype=torch.int32,
+                                      device=dev, generator=g)).values
+    ridx_dl = ridx_d.long()
+    touched = int(torch.unique(ridx_d).numel())
+    trows28 = torch.randint(0, 2**32, (nrows, 28), dtype=torch.int64, device=dev,
+                            generator=g).to(torch.int32)
+    for tab in (trows, trows28):
+        label = f"monotone_gather_rows dense chunk, {tab.shape[1]}-word rows"
+        fn = lambda: gather.monotone_gather_rows(tab, ridx_d)[:1]
+        twin = lambda: gather.monotone_gather_rows_torch(tab, ridx_d)[:1]
+        lib = lambda: tab.index_select(0, ridx_dl)
+        extra[label] = dict(
+            max_abs_err=_compare(label, fn(), twin()), ms=time_ms(fn),
+            back_to_back_ms=time_ms(fn, inner=10), library_ms=time_ms(lib),
+            library_back_to_back_ms=time_ms(lib, inner=10),
+            bound_ms=bound_ms(4 * tab.shape[1] * (touched + vchunk) + 4 * vchunk),
+            shapes=f"table {tuple(tab.shape)} ridx ({vchunk},) over rows "
+                   f"[{quarter}, {2 * quarter})")
+        stage_ab(label, fn, lambda: unstaged_rows(tab, ridx_d), twin)
+    del ridx_dl
+    # B4's other branches, exact only (the main case above spreads each
+    # tile's rows wider than the tile, so its tiles are sparse; the cases
+    # over a quarter of the table or less are dense): step-backs inside a
+    # tile (64-row runs each fetched twice) and a ragged last tile;
+    # scattered rows; a table slice 8- but not 16-byte aligned (the piece
+    # path, staged by plain loads); 21-word rows, whole and sliced to
+    # 4-byte alignment (the word path, staged by the bulk copy and by
+    # plain loads); a table whose word count is not a multiple of 4, with
+    # its last row fetched (the staged tail loaded plainly).
+    trows21 = trows[:, :21].contiguous()
+    rows_cases = {
+        "step-backs, ragged tile": (
+            trows, ridx_d.view(-1, 64).repeat_interleave(2, dim=0).view(-1)[: vchunk - 77]),
+        "scattered rows": (trows, torch.randint(0, nrows, (1 << 18,), dtype=torch.int32,
+                                                device=dev, generator=g)),
+        "8-byte-aligned table": (trows[1:], ridx_d),
+        "21-word rows": (trows21, ridx_d),
+        "21-word rows, 4-byte-aligned table": (trows21[1:], ridx_d),
+        "odd word count, last row": (trows[:-1], torch.sort(torch.cat([
+            torch.randint(nrows - 1 - (1 << 16), nrows - 1, (1 << 18,), dtype=torch.int32,
+                          device=dev, generator=g),
+            torch.tensor([nrows - 2], dtype=torch.int32, device=dev)])).values),
+    }
+    for label, (tab, rix) in rows_cases.items():
+        check(tab.is_contiguous(), label)
+        exact(f"monotone_gather_rows {label}",
+              lambda: gather.monotone_gather_rows(tab, rix)[:1],
+              lambda: gather.monotone_gather_rows_torch(tab, rix)[:1])
+    del trows, trows21, trows28, ridx, ridx_l, ridx_d, rows_cases
 
     # B5: one packed read batch (4 x 2**22 queries).  Half the rows hold
     # codes 0-4 (realistic), half random words (nibbles past the code
@@ -295,10 +439,20 @@ def kernel_phase(dev) -> dict:
     del rpacked, lengths
 
     for name, r in out.items():
-        lib = "" if r["library_ms"] is None else f", one library call {r['library_ms']:.3f} ms"
-        print(f"kernel {name}: exact vs twin; {r['ms']:.3f} ms (plain twin "
+        lib = ("" if r["library_ms"] is None else f", one library call "
+               f"{r['library_ms']:.3f} ms ({r['library_back_to_back_ms']:.3f} back to back)")
+        print(f"kernel {name}: exact vs twin; {r['ms']:.3f} ms a call "
+              f"({r['back_to_back_ms']:.3f} back to back; plain twin "
               f"{r['plain_ms']:.3f} ms{lib}; bound {r['bound_ms']:.3f} ms) "
               f"at {r['shapes']}", flush=True)
+    for name, r in extra.items():
+        print(f"kernel {name}: exact vs twin; {r['ms']:.3f} ms a call "
+              f"({r['back_to_back_ms']:.3f} back to back; index_select "
+              f"{r['library_ms']:.3f} ms ({r['library_back_to_back_ms']:.3f} back to back); "
+              f"bound {r['bound_ms']:.3f} ms) at {r['shapes']}", flush=True)
+    print("kernel edge cases exact vs twin: " + "; ".join(edge), flush=True)
+    print("staging A/B (ms a call, 10 back-to-back calls, median of 3, in turns; the "
+          "unstaged variant exact vs twin): " + json.dumps(ab), flush=True)
     return out
 
 
@@ -372,6 +526,154 @@ def flagship_run(dev, cfg, rs, ts, index, path) -> tuple:
         peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
         launches=launches,
     )
+
+
+@contextlib.contextmanager
+def recorded_calls():
+    """Wrap the engine's kernel calls (CALL_POINTS) for a block.  Each call
+    that launches a kernel appends {kernel, site, args, kw} to the yielded
+    list: the launching wrapper (read off the launch counters), the
+    caller's file:line and the arguments.  The hook calls the wrappers
+    themselves, so their launch counts move as without it."""
+    from muscato_tpu_torch.ops import fused, packed
+
+    mods = {"fused": fused, "packed": packed}
+    counters = wrappers()
+    calls, saved = [], []
+
+    def hook(orig):
+        def call(*args, **kw):
+            f = sys._getframe(1)
+            before = {k: fn.launches for k, fn in counters.items()}
+            res = orig(*args, **kw)
+            site = f"{os.path.basename(f.f_code.co_filename)}:{f.f_lineno}"
+            calls.extend(dict(kernel=k, site=site, args=args, kw=kw)
+                         for k, fn in counters.items() if fn.launches != before[k])
+            return res
+        return call
+
+    for modname, attr in CALL_POINTS:
+        mod = mods[modname]
+        ref, _, name = attr.rpartition(".")
+        if ref:
+            # A stand-in for the referenced module, so that the wrapper's
+            # own module (where it counts its launches) stays as it is.
+            inner = getattr(mod, ref)
+            saved.append((mod, ref, inner))
+            setattr(mod, ref, types.SimpleNamespace(
+                **{**vars(inner), name: hook(getattr(inner, name))}))
+        else:
+            saved.append((mod, attr, getattr(mod, attr)))
+            setattr(mod, attr, hook(getattr(mod, attr)))
+    try:
+        yield calls
+    finally:
+        for mod, attr, orig in saved:
+            setattr(mod, attr, orig)
+
+
+def call_bound_ms(c) -> float:
+    """The bytes bound of one recorded launch, from its own inputs (each
+    input read once, each output written once; table entries and rows
+    counted once however often they are fetched)."""
+    import torch
+
+    a, k = c["args"], c["kernel"]
+    if k == "window_queries":
+        r, nw = a[0].shape
+        nbytes = 4 * r * (nw + 1) + 9 * len(a[2]) * r
+    elif k == "sorted_join":
+        nbytes = 4 * (a[0].numel() + 3 * a[1].numel())
+    elif k.startswith("expand_owners"):
+        # The slots that own lanes have distinct oexcl values.
+        nbytes = 12 * torch.unique(a[0]).numel() + 8 * c["kw"]["pair_cap"]
+    else:
+        table, idx = a
+        m = idx.numel()
+        touched = torch.unique(idx.clamp(0, table.shape[0] - 1)).numel()
+        row = 4 * (table.shape[1] if table.dim() == 2 else 1)  # bytes an entry
+        nbytes = row * (touched + m) + 4 * m
+    return bound_ms(nbytes)
+
+
+def kernel_profile(dev, cfg, rs, index) -> dict:
+    """One more default-path flagship run, after the warm-up, under
+    torch.profiler: every device kernel's total time and launches by name,
+    the device's busy share of the stage window (from the start of the
+    first B5 launch, which opens the probe, to the start of the last
+    device-to-host copy, the row fetch), and, per call site of each of the
+    port's kernels, launches, device time and the summed bytes bound of
+    the launches' own inputs.  Fails if the profile holds no device time,
+    or if it counts other launches of a port kernel than the calls the
+    hook recorded (a call site missing from CALL_POINTS)."""
+    import re
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from muscato_tpu_torch.engine import pipeline
+
+    torch.cuda.synchronize(dev)
+    with recorded_calls() as calls, profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pipeline.run_matching_indexed(cfg, rs, index)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    check(evs, "the profiler recorded no device time")
+    out = dict(source="torch.profiler", wall_s=wall)
+    pats = {k: re.compile(r"(?<![\w])" + sym + r"\b") for k, sym in SYMBOLS.items()}
+    per_launch = {k: [(e.time_range.end - e.time_range.start) / 1e3
+                      for e in evs if p.search(e.name)] for k, p in pats.items()}
+    by_name = {}
+    for e in evs:
+        short = e.name.replace("(anonymous namespace)::", "").split("(")[0]
+        name = next((k for k, p in pats.items() if p.search(e.name)),
+                    short.removeprefix("void ")[:120])
+        t = by_name.setdefault(name, [0, 0.0])
+        t[0] += 1
+        t[1] += (e.time_range.end - e.time_range.start) / 1e3
+    starts = [e.time_range.start for e in evs if pats["window_queries"].search(e.name)]
+    fetch = [e.time_range.start for e in evs if "DtoH" in e.name]
+    w0 = starts[0] if starts else evs[0].time_range.start
+    w1 = fetch[-1] if fetch and fetch[-1] > w0 else max(e.time_range.end for e in evs)
+    busy, edge = 0.0, w0
+    for e in evs:
+        a, b = max(e.time_range.start, edge), min(e.time_range.end, w1)
+        if b > a:
+            busy += b - a
+            edge = b
+    out.update(window_ms=(w1 - w0) / 1e3, busy_ms=busy / 1e3,
+               busy_share=busy / max(w1 - w0, 1e-9))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    out["kernels"] = {n: {"launches": c, "ms": ms} for i, (n, (c, ms)) in enumerate(top)
+                      if n in SYMBOLS or i < 25}
+    sites = {}
+    for k in SYMBOLS:
+        mine = [c for c in calls if c["kernel"] == k]
+        check(len(per_launch[k]) == len(mine),
+              f"{k}: the profile shows {len(per_launch[k])} launches, the hook "
+              f"recorded {len(mine)} calls (a call site missing from CALL_POINTS?)")
+        for c, ms in zip(mine, per_launch[k]):
+            s = sites.setdefault((k, c["site"]), dict(
+                kernel=k, site=c["site"], launches=0, shapes=set(), ms=0.0, bound_ms=0.0))
+            s["launches"] += 1
+            s["shapes"].add((int(c["args"][0].shape[0]), int(c["args"][1].shape[0])))
+            s["ms"] += ms
+            s["bound_ms"] += call_bound_ms(c)
+    del calls
+    for s in sites.values():
+        s["shapes"] = sorted(s["shapes"])  # (len of the first two arguments)
+        s["loss_ms"] = s["ms"] - s["bound_ms"]
+    out["sites"] = sorted(sites.values(), key=lambda s: -s["loss_ms"])
+    for k, key in (("monotone_gather", "b3"), ("monotone_gather_rows", "b4")):
+        mine = [s for s in out["sites"] if s["kernel"] == k]
+        out[f"{key}_bound_ms"] = sum(s["bound_ms"] for s in mine)
+        out[f"{key}_ms"] = sum(s["ms"] for s in mine)
+    return out
 
 
 def probe_ab(dev, cfg, rs, index) -> dict:
@@ -470,6 +772,8 @@ def match_phases(dev) -> tuple:
     pipeline.run_matching_indexed(cfg, rs, index)
     mr, flag = flagship_run(dev, cfg, rs, ts, index, DEFAULT_PATH)
     print("flagship: " + json.dumps(flag), flush=True)
+    prof = kernel_profile(dev, cfg, rs, index)
+    print("profile (flagship batch, default path): " + json.dumps(prof), flush=True)
     with switched(**SWITCHES):
         pipeline.run_matching_indexed(cfg, rs, index)
         mr_sw, flag_sw = flagship_run(dev, cfg, rs, ts, index, SWITCHED_PATH)
@@ -556,10 +860,14 @@ def main() -> int:
           f"(load {time.perf_counter() - t0:.2f}s)", flush=True)
     print(kern.log.strip(), flush=True)
     t0 = time.perf_counter()
+    unstaged = _lib.load(_lib._build(_lib.NVCC_FLAGS + ("-DMUSCATO_NO_STAGE",))[0])
+    print(f"kernels without staging (-DMUSCATO_NO_STAGE): built and loaded in "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
+    t0 = time.perf_counter()
     print(f"native host library: {native.ensure_built() is not None} "
           f"({time.perf_counter() - t0:.1f}s)", flush=True)
 
-    kres = kernel_phase(dev)
+    kres = kernel_phase(dev, unstaged)
     flag, flag_sw = match_phases(dev)
     driver_phase(dev)
 
@@ -569,7 +877,9 @@ def main() -> int:
          "launches": (flag if name in DEFAULT_PATH else flag_sw)["launches"][name],
          "max_abs_err": kres[name]["max_abs_err"], "ms": kres[name]["ms"],
          "plain_ms": kres[name]["plain_ms"], "bound_ms": kres[name]["bound_ms"],
-         "bound_by": "bytes", "library_ms": kres[name]["library_ms"]}
+         "bound_by": "bytes", "library_ms": kres[name]["library_ms"],
+         "back_to_back_ms": kres[name]["back_to_back_ms"],
+         "library_back_to_back_ms": kres[name]["library_back_to_back_ms"]}
         for name in KERNELS
     ]}
     print(json.dumps(line))

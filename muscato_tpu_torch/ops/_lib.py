@@ -75,9 +75,10 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built here")
 
 
-def _digest(srcs: list[str]) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in srcs:
+def _digest(srcs: list[str], flags: tuple[str, ...] = NVCC_FLAGS) -> str:
+    """Hash of the flags, the sources and the headers they include."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    for path in srcs + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
             h.update(f.read())
@@ -98,9 +99,11 @@ def _run_all(cmds: list[list[str]]) -> str:
     return "".join(outs)
 
 
-def _build() -> tuple[str, float, str]:
+def _build(flags: tuple[str, ...] = NVCC_FLAGS) -> tuple[str, float, str]:
+    """Build the library with ``flags`` (or find it built); returns its
+    path, the compile time (0.0 if cached) and nvcc's output."""
     srcs = sources()
-    out_dir = os.path.join(BUILD_ROOT, _digest(srcs))
+    out_dir = os.path.join(BUILD_ROOT, _digest(srcs, flags))
     out = os.path.join(out_dir, "libmuscato_kernels.so")
     if os.path.exists(out):
         return out, 0.0, ""
@@ -115,26 +118,31 @@ def _build() -> tuple[str, float, str]:
             os.path.join(work, os.path.basename(src) + ".o") for src in srcs
         ]
         log = _run_all([
-            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src] for obj, src in zip(objs, srcs)
+            [nvcc, *flags, "-c", "-o", obj, src] for obj, src in zip(objs, srcs)
         ])
         lib = os.path.join(work, "lib.so")
-        log += _run_all([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", lib, *objs]])
+        log += _run_all([[nvcc, *flags[:2], "-shared", "-o", lib, *objs]])
         os.replace(lib, out)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return out, time.perf_counter() - t0, log
 
 
-@functools.lru_cache(maxsize=None)
-def kernels() -> Kernels:
-    """The loaded kernel library, built on first call."""
-    path, build_s, log = _build()
+def load(path: str) -> ctypes.CDLL:
+    """Load a built library with its launchers' signatures set."""
     lib = ctypes.CDLL(path)
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
-    return Kernels(lib=lib, path=path, build_s=build_s, log=log)
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def kernels() -> Kernels:
+    """The loaded kernel library, built on first call."""
+    path, build_s, log = _build()
+    return Kernels(lib=load(path), path=path, build_s=build_s, log=log)
 
 
 def on_cpu(name: str, *tensors: torch.Tensor) -> bool:
@@ -158,10 +166,11 @@ def on_cpu(name: str, *tensors: torch.Tensor) -> bool:
     return False
 
 
-def launch(name: str, like: torch.Tensor, *args) -> None:
-    """Call launcher ``muscato_<name>`` on ``like``'s device and current
-    stream; raise if the launch was refused."""
-    fn = getattr(kernels().lib, "muscato_" + name)
+def launch(name: str, like: torch.Tensor, *args, lib: ctypes.CDLL | None = None) -> None:
+    """Call launcher ``muscato_<name>`` of ``lib`` (default: the kernel
+    library) on ``like``'s device and current stream; raise if the launch
+    was refused."""
+    fn = getattr(lib or kernels().lib, "muscato_" + name)
     with torch.cuda.device(like.device):
         rc = fn(*args, torch.cuda.current_stream(like.device).cuda_stream)
     if rc != 0:

@@ -19,8 +19,9 @@ function named in its docstring:
 The JAX package's main-path configuration is the default: the pjoin probe,
 PEXPAND, MGATHER and DORDER, which on the GPU are simply the way the stage
 runs.  The engine takes the sort-merge probe and the B6 expand on the JAX
-package's own switches.  The GPU kernels have no windows, so nothing here
-can overflow and no fallback ladder exists.
+package's own switches.  A GPU kernel whose staged window does not fit
+falls back to global memory inside the kernel, so nothing here can
+overflow and no fallback ladder exists.
 
 uint32 values (window keys, packed words) are held as int32 bit patterns;
 ``lax.sort`` with several keys becomes packed int64 keys or stable LSD

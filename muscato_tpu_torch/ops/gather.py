@@ -4,8 +4,9 @@
 ``csrc/gather.cu`` (they replace ``muscato_tpu/ops/pallas_gather.py``'s
 functions of the same names); the ``*_torch`` functions are their plain
 PyTorch twins, which the wrappers run for CPU tensors.  The engine feeds
-both with (piecewise) nondecreasing index streams, which is what makes the
-GPU gathers coalesce; the values do not depend on it.
+both with (piecewise) nondecreasing index streams, which makes B3's loads
+coalesce and keeps B4's tiles within the table span it stages in shared
+memory; the values do not depend on it.
 """
 
 from __future__ import annotations
@@ -46,7 +47,9 @@ def monotone_gather(table, idx):
 
 def monotone_gather_rows(table, ridx):
     """out[j, :] = table[ridx[j], :] for an (R, NC) int32 ``table`` and
-    int32 ``ridx`` in [0, R).  Returns ``(out (M, NC), overflow=0)``."""
+    int32 ``ridx`` in [0, R).  Returns ``(out (M, NC), overflow=0)``: a
+    tile whose rows span more than the kernel stages reads them from
+    global memory, so nothing overflows."""
     if _lib.on_cpu("monotone_gather_rows", table, ridx):
         return monotone_gather_rows_torch(table, ridx)
     nrows, ncols = table.shape

@@ -32,8 +32,9 @@ def sorted_join_torch(skeys: torch.Tensor, qkeys: torch.Tensor):
 def sorted_join(skeys: torch.Tensor, qkeys: torch.Tensor):
     """lo[i] = #{skeys < qkeys[i]}, count[i] = #{skeys == qkeys[i]}, both
     compared as uint32, for a sorted ``skeys`` (int32 bit patterns of uint32
-    keys).  Returns ``(lo, count, overflow)`` like the Pallas kernel; the
-    GPU kernel has no window, so overflow is always 0."""
+    keys).  Returns ``(lo, count, overflow)`` like the Pallas kernel; a
+    query tile whose index span is wider than the kernel stages searches
+    global memory, so overflow is always 0."""
     if _lib.on_cpu("sorted_join", skeys, qkeys):
         return sorted_join_torch(skeys, qkeys)
     v, m = skeys.shape[0], qkeys.shape[0]

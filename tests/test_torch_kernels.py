@@ -331,6 +331,100 @@ def test_build_requires_nvcc(monkeypatch, tmp_path):
     assert len(_lib.sources()) == 4
 
 
+def test_build_digest_covers_headers(monkeypatch, tmp_path):
+    """The build is keyed on the headers the sources include too, so an
+    edited header never loads a library built from the old one."""
+    monkeypatch.setattr(_lib, "CSRC", str(tmp_path))
+    (tmp_path / "a.cu").write_text('#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// one\n")
+    before = _lib._digest(_lib.sources())
+    (tmp_path / "b.cuh").write_text("// two\n")
+    assert _lib.sources() == [str(tmp_path / "a.cu")]
+    assert _lib._digest(_lib.sources()) != before
+
+
+def test_build_digest_covers_flags():
+    """A build with other flags (chip_smoke's unstaged variant) lands in
+    its own directory, never in the default build's."""
+    srcs = _lib.sources()
+    assert _lib._digest(srcs, _lib.NVCC_FLAGS + ("-DMUSCATO_NO_STAGE",)) != _lib._digest(srcs)
+
+
+# B1's staged span and tile (csrc/join.cu kJoinSpan, kJoinTile) and B4's
+# tile (csrc/gather.cu kRowTile).
+JOIN_SPAN, JOIN_TILE, ROW_TILE = 6144, 512, 256
+
+
+def _join_branch_cases(rng):
+    """(label, keys, queries, offset) reaching each branch of B1: the
+    index sliced at ``offset`` on the device (1: not 16-byte aligned, so
+    staged by plain loads); an equal-key run longer than the staged span
+    that queries hit (the global-memory branch); unsorted queries; a
+    ragged last tile that queries the top key of an index whose length is
+    not a multiple of 4 (the staged tail past the last whole 16 bytes)."""
+    run = np.uint32(rng.integers(1, 2**32 - 1))
+    keys = np.sort(np.concatenate([
+        rng.integers(0, 2**32, 50_003, dtype=np.uint64).astype(np.uint32),
+        np.full(JOIN_SPAN + 7_000, run, np.uint32),
+    ]))
+    assert len(keys) % 4 == 3
+    qs = np.concatenate([
+        rng.choice(keys, 30_001), np.full(5_000, run, np.uint32),
+        rng.integers(0, 2**32, 10_000, dtype=np.uint64).astype(np.uint32), keys[-1:],
+    ])
+    assert len(qs) % JOIN_TILE
+    return [("long run, ragged tile", keys, np.sort(qs), 0),
+            ("unsorted queries", keys, rng.permutation(qs), 0),
+            ("unaligned index", keys, np.sort(qs), 1)]
+
+
+def _rows_branch_cases(rng):
+    """(label, table, ridx, offset) reaching each branch of B4: dense
+    sorted tiles over a quarter of the table; 64-row runs fetched twice
+    (step-backs inside a tile); scattered rows (sparse tiles); the last
+    row of a table whose word count is not a multiple of 4 (the staged
+    tail); a table sliced at ``offset`` rows on the device (88 bytes: 8-
+    but not 16-byte aligned, so the 8-byte pieces are staged by plain
+    loads); 16-word rows (8-byte pieces at another even width); 5-word
+    rows, whole and sliced to 4-byte alignment, dense and scattered (the
+    4-byte word path); every case has a ragged last tile."""
+    nrows = 20_001
+    table = rng.integers(0, 2**32, (nrows, 22), dtype=np.uint64).astype(np.uint32)
+    dense = np.sort(rng.integers(5_000, 10_000, 64 * 999)).astype(np.int32)
+    last = np.sort(np.append(rng.integers(15_000, nrows, 9_000), nrows - 1)).astype(np.int32)
+    assert (nrows * 22) % 4 == 2
+    cases = [
+        ("dense", table, dense, 0),
+        ("step-backs", table, np.repeat(dense.reshape(-1, 64), 2, axis=0).reshape(-1), 0),
+        ("scattered", table, rng.integers(0, nrows, 30_001).astype(np.int32), 0),
+        ("last row, odd word count", table, last, 0),
+        ("unaligned table", table, dense, 1),
+        ("16-word rows", np.ascontiguousarray(table[:, :16]), dense, 0),
+        ("5-word rows, scattered", np.ascontiguousarray(table[:, :5]),
+         rng.integers(0, nrows, 30_001).astype(np.int32), 0),
+        ("5-word rows", np.ascontiguousarray(table[:, :5]), dense, 0),
+        ("5-word rows, unaligned table", np.ascontiguousarray(table[:, :5]), dense, 1),
+    ]
+    assert all(len(r) % ROW_TILE for _, _, r, _ in cases)
+    return cases
+
+
+def test_branch_cases_twins_match_numpy():
+    """The branch cases the GPU test runs: their twins against the JAX
+    package's numpy oracle and plain numpy indexing."""
+    rng = np.random.default_rng(44)
+    for label, keys, qs, off in _join_branch_cases(rng):
+        lo, cnt, _ = join.sorted_join(_t(keys)[off:], _t(qs))
+        lo_np, cnt_np = pj.sorted_join_np(keys[off:], qs)
+        np.testing.assert_array_equal(lo.numpy(), lo_np, err_msg=label)
+        np.testing.assert_array_equal(cnt.numpy(), cnt_np, err_msg=label)
+    for label, table, ridx, off in _rows_branch_cases(rng):
+        ridx = np.minimum(ridx, len(table) - 1 - off)
+        out, _ = gather.monotone_gather_rows(_t(table)[off:], _t(ridx))
+        np.testing.assert_array_equal(out.numpy().view(np.uint32), table[off:][ridx],
+                                      err_msg=label)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -385,3 +479,22 @@ def test_cuda_window_queries_and_sub_expand_match_twins(cuda_device):
                                    pair_cap=cap, subchunk=True)
         exp = expand.expand_owners_torch(*args, pair_cap=cap)
         assert all(torch.equal(g.cpu(), e) for g, e in zip(got, exp))
+
+
+@pytest.mark.gpu
+def test_cuda_join_and_row_gather_branches(cuda_device):
+    """Every branch of B1 and B4 exact against the twins: the bulk-copied
+    and the plainly loaded stage, the staged tail, the global-memory
+    fallback, step-backs, ragged tiles and the runtime-width row kernel.
+    Slices are taken on the device, so their base pointers are not 16-byte
+    aligned."""
+    rng = np.random.default_rng(44)
+    for label, keys, qs, off in _join_branch_cases(rng):
+        k, q = _t(keys), _t(qs)
+        got = join.sorted_join(k.to(cuda_device)[off:], q.to(cuda_device))
+        exp = join.sorted_join_torch(k[off:], q)
+        assert all(torch.equal(g.cpu(), e) for g, e in zip(got[:2], exp[:2])), label
+    for label, table, ridx, off in _rows_branch_cases(rng):
+        t, r = _t(table), _t(np.minimum(ridx, len(table) - 1 - off))
+        out, _ = gather.monotone_gather_rows(t.to(cuda_device)[off:], r.to(cuda_device))
+        assert torch.equal(out.cpu(), gather.monotone_gather_rows_torch(t[off:], r)[0]), label
