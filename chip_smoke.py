@@ -5,11 +5,14 @@
 
 Run from the root of a checkout.  It builds the six CUDA kernels from
 muscato_tpu_torch/csrc with nvcc (one process per source, in parallel),
-and a variant of them built with -DMUSCATO_NO_STAGE (B1 and B4 never
-stage a span), then:
+a variant of them built with -DMUSCATO_NO_STAGE (B1 and B4 never stage a
+span, B5 stages by a copy loop) and variants of B2 built with other
+constants (tiles a warp, register cut), then:
 
   1. prints the card (nvidia-smi name and power limit), torch and CUDA
-     versions and the kernel build times;
+     versions, the kernel build times, and the integer rate the bounds
+     use (the documented lanes a clock at the card's maximum SM clock)
+     beside the rates a small kernel of integer chains reaches;
   2. runs each kernel against its plain PyTorch twin on the card at the
      flagship workload's main-path shapes (98.1M index keys, 16.8M
      queries, ~10M pair lanes, a (2**20, 22) row gather, a (2**22, 13)
@@ -18,13 +21,21 @@ stage a span), then:
      step-backs; results must be exactly equal; prints each one's time,
      the twin's and, where one PyTorch call computes the same function,
      that call's (CUDA events around one call, median of 5; and around
-     10 back-to-back calls), and the least time the card could take for
-     the bytes moved; then holds B1 and B4 exactly against their twins on
+     10 back-to-back calls), and the least time the card could take: the
+     larger of the bytes moved over the memory rate and the integer
+     operations over the integer rate, and which of the two it is; B2 and
+     B6 also at the flagship's density of one lane a live slot, side by
+     side; then holds B1, B2, B4 and B5 exactly against their twins on
      cases that reach each branch of their kernels (unsorted queries, an
      equal-key run longer than B1's staged span, unaligned slices,
      flagship-shaped dense verify chunks of 22- and 28-word rows, also
-     timed beside index_select, scattered rows, odd row widths); then
-     times B1 and B4 against their unstaged variant in turns;
+     timed beside index_select, scattered rows, odd row widths; dead-tail
+     tiles, empty-slot runs longer than B2's stage, slots that own
+     several tiles, one slot, 4-byte-aligned slot views; even row widths,
+     1 and 64 windows, every width class with and without the
+     dinucleotide gate, rows of random words); then times B1, B4 and B5
+     against their unstaged variant, and B2 against its other builds, in
+     turns;
   3. matches 100k reads of the flagship workload against the FULL
      100M-base index on cuda and on cpu (the plain twins), then on cuda
      under MUSCATO_PJOIN=0 (the sort-merge probe) and under
@@ -36,9 +47,10 @@ stage a span), then:
      pair total, per-stage CUDA-event times and peak device memory, and
      fails unless every kernel of the path launched; then profiles one
      more such run with torch.profiler (every device kernel's time and
-     launches, the device's busy share of the stage window, and for each
-     call site of the port's kernels its launches, time and summed bytes
-     bound); then the same with
+     launches, the device's busy share of the stage window, for each
+     call site of the port's kernels its launches, time and summed
+     bound, and for the postings fetch its step-backs and the 128-byte
+     lines it touches); then the same with
      both switches set (sort-merge probe and B6), whose MatchResult must
      equal the default run's; then times the probe stage of the flagship
      batch with B5 and with its plain twin, in turns, and with each probe
@@ -54,7 +66,9 @@ and prints no result.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
+import functools
 import json
 import os
 import shutil
@@ -72,6 +86,7 @@ BATCH = 1 << 22  # the engine's default read batch
 PARITY_READS = 100_000
 JOIN_LONG_RUN = 100_000  # equal keys, longer than B1's staged span (6,144)
 DRIVER_READS = 200_000  # the driver phase cuts the read count only
+BRANCH_SLOTS, BRANCH_READS = 1 << 20, 300_007  # sizes of B2's and B5's branch cases
 
 KERNELS = {
     # name: (source, the TPU kernel's function that reaches pl.pallas_call)
@@ -102,6 +117,18 @@ SYMBOLS = {
     "expand_owners_sub": "expand_owners_sub_kernel",
 }
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM peak memory rate (NVIDIA data sheet)
+# 32-bit integer results a clock on one SM, for each of its two integer
+# pipes: multiply-add, and add/compare/shift/logic (the table of
+# arithmetic throughput for compute capability 9.0 in NVIDIA's CUDA C++
+# programming documentation).
+INT_LANES_PER_SM = 64
+# Builds of B2 timed beside the default one (4 tiles a warp, registers
+# cut for 4 CTAs an SM): other tile counts, and other register cuts.
+B2_VARIANTS = {
+    **{f"{n} tile{'s' * (n > 1)} a warp": f"-DMUSCATO_EXP_TILES={n}" for n in (1, 2, 8, 16)},
+    "registers uncut": "-DMUSCATO_EXP_MIN_BLOCKS=1",
+    "registers for 5 CTAs an SM": "-DMUSCATO_EXP_MIN_BLOCKS=5",
+}
 
 
 def check(cond, msg: str) -> None:
@@ -132,12 +159,144 @@ def wrappers():
     }
 
 
-def bound_ms(nbytes: int) -> float:
-    """Least time for the card to move ``nbytes`` (each input read once,
-    each output written once) at its peak memory rate.  Every kernel here
-    does a few integer operations per byte, far below the card's peak
-    operation rates, so bytes bound them all."""
-    return nbytes / HBM_BYTES_PER_S * 1e3
+@functools.lru_cache(maxsize=None)
+def int_pipe_rate() -> float:
+    """Peak 32-bit integer operations a second of one pipe of this card:
+    SMs x INT_LANES_PER_SM x the maximum SM clock nvidia-smi reports."""
+    import torch
+
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.split()[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * INT_LANES_PER_SM * float(mhz) * 1e6
+
+
+# Eight independent chains a thread of multiply-adds (kind 0), of
+# shift-and-xor steps (kind 1: two instructions a step) or of both
+# (kind 2): what the card issues when nothing but the integer pipes
+# limits it.
+INT_RATE_SRC = r"""
+#include <cstdint>
+#include <cuda_runtime.h>
+template <int kKind>
+__global__ void chains(uint32_t* out, int iters, uint32_t a, uint32_t b) {
+  uint32_t x[8], y[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    x[i] = threadIdx.x + i;
+    y[i] = blockIdx.x * 977u + threadIdx.x + i;
+  }
+#pragma unroll 8
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (kKind != 1) x[i] = x[i] * a + b;
+      if (kKind != 0) y[i] = (y[i] >> 1) ^ a;
+    }
+  }
+  uint32_t acc = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc += x[i] ^ y[i];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = acc;
+}
+extern "C" int muscato_int_chains(int kind, int blocks, int threads, int iters,
+                                  unsigned a, unsigned b, void* out, void* stream) {
+  auto k = kind == 0 ? chains<0> : kind == 1 ? chains<1> : chains<2>;
+  k<<<blocks, threads, 0, (cudaStream_t)stream>>>((uint32_t*)out, iters, a, b);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def measured_int_rates(dev) -> dict:
+    """Integer operations a second the card reaches on INT_RATE_SRC's
+    chains: multiply-adds alone, shift/logic instructions alone, and both
+    at once (each pipe's share), to hold int_pipe_rate's table value
+    against."""
+    import ctypes
+
+    import torch
+
+    from muscato_tpu_torch.ops import _lib
+
+    work = tempfile.mkdtemp(prefix="muscato_int_rate_")
+    try:
+        src, so = os.path.join(work, "chains.cu"), os.path.join(work, "chains.so")
+        with open(src, "w") as f:
+            f.write(INT_RATE_SRC)
+        _lib._run_all([[_lib._nvcc(), *_lib.NVCC_FLAGS[:6], "-shared", "-o", so, src]])
+        fn = ctypes.CDLL(so).muscato_int_chains
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_uint] * 2 + [ctypes.c_void_p] * 2
+    blocks = 16 * torch.cuda.get_device_properties(0).multi_processor_count
+    threads, iters = 256, 4096
+    out = torch.empty(blocks * threads, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    steps = 8 * iters * blocks * threads  # chain steps a launch, of each kind
+
+    def per_s(kind):
+        def run():
+            check(fn(kind, blocks, threads, iters, 2654435761, 40503,
+                     out.data_ptr(), stream) == 0, "integer chains did not launch")
+        return steps / (time_ms(run, inner=3) * 1e-3)
+
+    both = per_s(2)
+    return {"multiply_add": per_s(0), "shift_logic": 2 * per_s(1),
+            "together": {"multiply_add": both, "shift_logic": 2 * both}}
+
+
+def call_work(kernel: str, args, kw) -> tuple:
+    """(bytes, multiply-adds, other integer operations) that one call of a
+    kernel's function needs, from its inputs alone.  Bytes: each input
+    read once and each output written once; table entries, rows and slots
+    count once however often they are fetched, and only those this call's
+    data touches.  Operations: what the function does, whatever the
+    kernel:
+      sorted_join       two binary searches a query: 2 ceil(log2 V) compares;
+      expand_owners     a compare a slot that owns lanes; a compare and two
+                        adds a lane;
+      monotone_gather   the clamp's two compares a lane (B4: a row);
+      window_queries    a base: a nibble extract, a multiply-add a key,
+                        and for the dinucleotide mask a multiply-add, a
+                        shift and an or; a popcount and two compares a
+                        (window, read)."""
+    import torch
+
+    from muscato_tpu_torch.ops import windows as winops
+
+    if kernel == "window_queries":
+        r, nw = args[0].shape
+        k, width, dinuc = len(args[2]), kw["width"], int(kw["min_dinuc"] > 0)
+        bases = r * k * width
+        return (4 * r * (nw + 1) + 9 * k * r,
+                bases * (1 + int(winops.uses_second_key(width)) + dinuc),
+                bases * (1 + 2 * dinuc) + 3 * k * r)
+    if kernel == "sorted_join":
+        v, q = args[0].numel(), args[1].numel()
+        return 4 * (v + 3 * q), 0, 2 * q * max(v - 1, 1).bit_length()
+    if kernel.startswith("expand_owners"):
+        # The slots that own lanes have distinct oexcl values.
+        owners, cap = torch.unique(args[0]).numel(), kw["pair_cap"]
+        return 12 * owners + 8 * cap, 0, owners + 3 * cap
+    table, idx = args
+    m = idx.numel()
+    touched = torch.unique(idx.clamp(0, table.shape[0] - 1)).numel()
+    row = 4 * (table.shape[1] if table.dim() == 2 else 1)  # bytes an entry
+    return row * (touched + m) + 4 * m, 0, 2 * m
+
+
+def bounds(work) -> dict:
+    """The least time the card could take for ``work`` (call_work): the
+    larger of its bytes over the peak memory rate and its integer
+    operations over the peak rate of the pipe that has more of them."""
+    nbytes, mads, alus = work
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = max(mads, alus) / int_pipe_rate() * 1e3
+    return dict(bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations",
+                bytes_bound_ms=by_bytes, ops_bound_ms=by_ops)
 
 
 @contextlib.contextmanager
@@ -191,12 +350,139 @@ def _compare(name, got, exp) -> float:
     return err
 
 
-def kernel_phase(dev, unstaged) -> dict:
+def launch_expand(lib, oexcl, lo, qid, pair_cap):
+    """B2 of the kernel library ``lib`` (a variant build), launched as
+    ops/expand.py launches the default one."""
+    import torch
+
+    from muscato_tpu_torch.ops import _lib
+
+    q = torch.empty(pair_cap, dtype=torch.int32, device=qid.device)
+    s = torch.empty_like(q)
+    _lib.launch("expand_owners", qid, oexcl.data_ptr(), lo.data_ptr(), qid.data_ptr(),
+                oexcl.numel(), pair_cap, q.data_ptr(), s.data_ptr(), lib=lib)
+    return q, s
+
+
+def launch_windows(lib, rpacked, lengths, q1s, *, width, min_dinuc):
+    """B5 of the kernel library ``lib``, launched as ops/window_queries.py
+    launches the default one."""
+    import ctypes
+
+    import torch
+
+    from muscato_tpu_torch.ops import _lib, windows as winops
+    from muscato_tpu_torch.ops.window_queries import _window_table
+
+    nreads, nw = rpacked.shape
+    k1 = torch.empty(len(q1s) * nreads, dtype=torch.int32, device=rpacked.device)
+    k2, valid = torch.empty_like(k1), torch.empty_like(k1, dtype=torch.bool)
+    table = _window_table(nw, q1s, width)
+    params = (ctypes.c_longlong * len(table))(*table)
+    _lib.launch("window_queries", rpacked, rpacked.data_ptr(), lengths.data_ptr(),
+                nreads, nw, ctypes.addressof(params), len(q1s), width, min_dinuc,
+                int(winops.key_multiplier(width)), int(winops.HASH_MULT2),
+                int(winops.uses_second_key(width)), k1.data_ptr(), k2.data_ptr(),
+                valid.data_ptr(), lib=lib)
+    return k1, k2, valid
+
+
+def expand_branch_cases(dev, g) -> dict:
+    """{label: (oexcl, lo, qid, pair_cap)} reaching each branch of B2 at
+    sizes that cross many tiles."""
+    import torch
+
+    def slots(counts, off=0):
+        counts = counts.to(torch.int32)
+        m = counts.numel()
+        oexcl = (torch.cumsum(counts, 0) - counts).to(torch.int32)
+        lo = torch.randint(0, 1 << 26, (m,), dtype=torch.int32, device=dev, generator=g)
+        qid = torch.randint(0, 1 << 24, (m,), dtype=torch.int32, device=dev, generator=g)
+        return oexcl[off:], lo[off:], qid[off:], int(counts.sum())
+
+    def live(n, hi=5):
+        return torch.randint(1, hi, (n,), dtype=torch.int32, device=dev, generator=g)
+
+    def zeros(n):
+        return torch.zeros(n, dtype=torch.int32, device=dev)
+
+    n = BRANCH_SLOTS
+    cases = {}
+    o, l, q, total = slots(torch.cat([live(n), zeros(n)]))
+    cases["dead tail, 37 tiles past the total"] = (o, l, q, total + 37 * 128 + 13)
+    counts = live(2 * n)
+    counts[torch.arange(2 * n, device=dev) % 9000 >= 5000] = 0
+    o, l, q, total = slots(counts)
+    cases["runs of 4,000 empty slots"] = (o, l, q, total + 3)
+    counts = live(n)
+    counts[::50_000] = 3 * 8192 + 5
+    o, l, q, total = slots(counts)
+    cases["slots that own several CTAs' lanes"] = (o, l, q, total + 1)
+    o, l, q, total = slots(zeros(1))
+    cases["one slot"] = (o, l, q, 3 * 8192 + 501)
+    o, l, q, total = slots(torch.randint(0, 3, (3 * n,), device=dev, generator=g))
+    cases["interior empty slots"] = (o, l, q, total + 1)
+    o, l, q, total = slots(torch.randint(0, 4, (4 * n,), device=dev, generator=g) // 3)
+    cases["mostly empty slots"] = (o, l, q, total + 2)
+    o, l, q, total = slots(live(100))
+    cases["fewer lanes than a tile"] = (o, l, q, total - 1)
+    for off in (1, 2):
+        o, l, q, total = slots(torch.cat([live(n), zeros(999)]), off)
+        cases[f"slot views sliced by {off} (not 16-byte aligned)"] = (
+            o, l, q, total + 8192 + 2 * 128 + 1)
+    return cases
+
+
+def windows_branch_cases(dev, g) -> dict:
+    """{label: (rpacked, lengths, q1s, width, min_dinuc)} reaching each
+    branch of B5: half the rows codes 0-4, half random words (nibbles past
+    the code range), a read count that is not a multiple of the tile, and
+    in every case but "one window" a window past the packed width."""
+    import torch
+
+    from muscato_tpu_torch.ops.packed import pack_rows
+
+    nreads = BRANCH_READS
+    wide = (0, 3, 8, 30, 77, 90, 100, 104)
+
+    def reads(nw):
+        codes = torch.randint(0, 5, (nreads // 2, nw * 8), dtype=torch.uint8,
+                              device=dev, generator=g)
+        junk = torch.randint(0, 2**32, (nreads - nreads // 2, nw), dtype=torch.int64,
+                             device=dev, generator=g).to(torch.int32)
+        lengths = torch.randint(0, nw * 8 + 1, (nreads,), dtype=torch.int32,
+                                device=dev, generator=g)
+        lengths[::2] = nw * 8
+        return torch.cat([pack_rows(codes), junk]), lengths
+
+    rp13, ln13 = reads(13)
+    rp14, ln14 = reads(14)
+    rp2, ln2 = reads(2)
+    rp50, ln50 = reads(50)
+    rp51, ln51 = reads(51)
+    cases = {f"width {w}, min_dinuc {d}": (rp13, ln13, wide, w, d)
+             for w in (4, 8, 13, 14, 20) for d in (0, 3)}
+    cases["even row width"] = (rp14, ln14, wide + (111,), 20, 3)
+    cases["even row width, one key"] = (rp14, ln14, wide + (111,), 13, 0)
+    cases["one window"] = (rp13, ln13, (37,), 20, 3)
+    cases["64 windows"] = (rp13, ln13, tuple(range(0, 128, 2)), 8, 3)
+    cases["rows narrower than a window's slice"] = (rp2, ln2, (0, 3, 9), 13, 3)
+    far = (0, 77, 200, 391, 403)
+    cases["50-word rows (fewer reads a tile than threads)"] = (rp50, ln50, far, 20, 3)
+    cases["51-word rows (fewer reads a tile than threads)"] = (rp51, ln51, far, 14, 3)
+    cases["sliced by one row"] = (rp13[1:], ln13[1:], wide, 20, 3)
+    cases["sliced by one row, even row width"] = (rp14[1:], ln14[1:], wide, 20, 3)
+    return cases
+
+
+def kernel_phase(dev, unstaged, variants) -> dict:
     """Each kernel against its twin at main-path shapes; returns
     {name: {max_abs_err, ms, back_to_back_ms, plain_ms, library_ms,
-    library_back_to_back_ms, bound_ms, shapes}}.  ``unstaged`` is the
-    kernel library built with -DMUSCATO_NO_STAGE: B1 and B4 from it are
-    held against their twins too and timed against the real ones."""
+    library_back_to_back_ms, bound_ms, bound_by, bytes_bound_ms,
+    ops_bound_ms, shapes}}.  ``unstaged`` is the kernel library built with
+    -DMUSCATO_NO_STAGE: B1, B4 and B5 from it are held against their
+    twins too and timed against the real ones.  ``variants`` maps a label
+    to a library whose B2 was built with other constants (B2_VARIANTS)."""
     import torch
 
     from muscato_tpu_torch.engine.pipeline import _bucket_ceil
@@ -209,14 +495,14 @@ def kernel_phase(dev, unstaged) -> dict:
         return torch.randint(0, 2**32, (n,), dtype=torch.int64, device=dev,
                              generator=g).to(torch.int32)
 
-    def case(name, fn, twin, library, nbytes, shapes):
+    def case(name, fn, twin, library, work, shapes):
         got, exp = fn(), twin()
         out[name] = dict(
             max_abs_err=_compare(name, got, exp), ms=time_ms(fn),
             back_to_back_ms=time_ms(fn, inner=10), plain_ms=time_ms(twin),
             library_ms=time_ms(library) if library else None,
             library_back_to_back_ms=time_ms(library, inner=10) if library else None,
-            bound_ms=bound_ms(nbytes), shapes=shapes,
+            **bounds(work), shapes=shapes,
         )
 
     def exact(label, fn, twin):
@@ -237,16 +523,22 @@ def kernel_phase(dev, unstaged) -> dict:
                     lib=unstaged)
         return (res,)
 
-    def stage_ab(label, staged, plain, twin):
-        """The unstaged variant exact against the twin, then both timed
-        back to back, in turns (staged, unstaged, unstaged, staged, ...)."""
-        _compare(f"unstaged {label}", plain(), twin())
-        times = {"staged": [], "unstaged": []}
-        for arm in ("staged", "unstaged", "unstaged", "staged", "staged", "unstaged"):
-            times[arm].append(time_ms(staged if arm == "staged" else plain, reps=3, inner=10))
-        ab[label] = times
+    def in_turns(label, arms, twin, into):
+        """Every arm but the first (the default build) exact against the
+        twin, then all timed back to back, in turns (a, b, b, a, a, b)."""
+        names = list(arms)
+        for arm in names[1:]:
+            _compare(f"{arm} {label}", arms[arm](), twin())
+        times = {arm: [] for arm in names}
+        for order in (names, names[::-1], names):
+            for arm in order:
+                times[arm].append(time_ms(arms[arm], reps=3, inner=10))
+        into[label] = times
 
-    out, extra, edge, ab = {}, {}, [], {}
+    def stage_ab(label, staged, plain, twin):
+        in_turns(label, {"staged": staged, "unstaged": plain}, twin, ab)
+
+    out, extra, edge, ab, b2_ab = {}, {}, [], {}, {}
     # B1: the sorted index (V = genes x valid windows per gene) with
     # duplicate runs and 0xFFFFFFFF keys, against K x batch sorted queries.
     v = NUM_GENE * (GENE_LEN - WIDTH + 1)
@@ -265,7 +557,7 @@ def kernel_phase(dev, unstaged) -> dict:
          lambda: join.sorted_join_torch(keys, qs)[:2],
          lambda: (torch.searchsorted(kf, qf, side="left"),
                   torch.searchsorted(kf, qf, side="right")),
-         4 * (v + 3 * q), f"skeys ({v},) qkeys ({q},)")
+         call_work("sorted_join", (keys, qs), {}), f"skeys ({v},) qkeys ({q},)")
     del hits, kf, qf
     stage_ab("sorted_join", lambda: join.sorted_join(keys, qs)[:2],
              lambda: unstaged_join(keys, qs), lambda: join.sorted_join_torch(keys, qs)[:2])
@@ -297,43 +589,64 @@ def kernel_phase(dev, unstaged) -> dict:
     del keys2, qs2
 
     # B2 and B6: probe slots in lo order — a live prefix, then a dead
-    # tail — owning ~10M pair lanes; the buffer has lanes past the total.
+    # tail — owning ~10M pair lanes at 2.5 lanes a live slot, and 11.0M at
+    # the flagship batch's one lane a live slot; the buffer has lanes
+    # past the total.  The slots that own lanes are read (three words
+    # each): the live ones and the last slot, which owns the dead tail.
     m = q
-    nlive = q // 4
-    counts = torch.zeros(m, dtype=torch.int32, device=dev)
-    counts[:nlive] = torch.randint(1, 5, (nlive,), dtype=torch.int32, device=dev,
-                                   generator=g)
-    oexcl = (torch.cumsum(counts, 0) - counts).to(torch.int32)
     lo = torch.sort(torch.randint(0, v - 8, (m,), dtype=torch.int32, device=dev,
                                   generator=g)).values
-    qid = torch.randperm(m, device=dev, generator=g).to(torch.int32)
-    qid[nlive:] = -1
-    total = int(counts.sum())
-    pair_cap = _bucket_ceil(total)
-    check(pair_cap > total, "B2 case needs lanes past the pair total")
-    # The slots that own lanes are read (three words each): the live ones
-    # and the last slot, which owns the dead tail; two outputs.
-    owners = int((counts > 0).sum()) + 1
-    shapes = f"slots ({m},) pair_cap {pair_cap} (total {total})"
-    for name, sub in (("expand_owners", False), ("expand_owners_sub", True)):
-        case(name,
-             lambda: expand.expand_owners(oexcl, lo, qid, pair_cap=pair_cap, subchunk=sub),
-             lambda: expand.expand_owners_torch(oexcl, lo, qid, pair_cap=pair_cap),
-             None, 12 * owners + 8 * pair_cap, shapes)
-    sidx = expand.expand_owners(oexcl, lo, qid, pair_cap=pair_cap)[1]
+    qid_all = torch.randperm(m, device=dev, generator=g).to(torch.int32)
+    sidx = None
+    for density, nlive, hi in (("", q // 4, 5), (", one lane a slot", m * 21 // 32, 2)):
+        counts = torch.zeros(m, dtype=torch.int32, device=dev)
+        counts[:nlive] = torch.randint(1, hi, (nlive,), dtype=torch.int32, device=dev,
+                                       generator=g)
+        oexcl = (torch.cumsum(counts, 0) - counts).to(torch.int32)
+        qid = qid_all.clone()
+        qid[nlive:] = -1
+        total = int(counts.sum())
+        pair_cap = _bucket_ceil(total)
+        check(pair_cap > total, "B2 case needs lanes past the pair total")
+        kw = dict(pair_cap=pair_cap)
+        shapes = f"slots ({m},) pair_cap {pair_cap} (total {total})"
+        twin = lambda: expand.expand_owners_torch(oexcl, lo, qid, **kw)
+        for name, sub in (("expand_owners", False), ("expand_owners_sub", True)):
+            case(name + density,
+                 lambda: expand.expand_owners(oexcl, lo, qid, subchunk=sub, **kw),
+                 twin, None, call_work(name, (oexcl, lo, qid), kw), shapes)
+        b2 = lambda: expand.expand_owners(oexcl, lo, qid, **kw)
+        in_turns("expand_owners" + density, {"default": b2, **{
+            label: (lambda lib: lambda: launch_expand(lib, oexcl, lo, qid, pair_cap))(lib)
+            for label, lib in variants.items()}}, twin, b2_ab)
+        if sidx is None:
+            sidx = b2()[1]
+    print("B2 against B6, same run (ms a call / back to back): " + "; ".join(
+        f"{label}: " + " vs ".join(
+            f"{n} {out[n + d]['ms']:.3f} / {out[n + d]['back_to_back_ms']:.3f}"
+            for n in ("expand_owners", "expand_owners_sub"))
+        + f" (bound {out['expand_owners' + d]['bound_ms']:.3f})"
+        for d, label in (("", "2.5 lanes a slot"), (", one lane a slot", "one lane a slot"))),
+        flush=True)
+    # B2's and B6's branches, exact only.
+    for label, (o_, l_, q_, cap) in expand_branch_cases(dev, g).items():
+        for sub in (False, True):
+            exact(f"expand_owners{'_sub' if sub else ''} {label}",
+                  lambda: expand.expand_owners(o_, l_, q_, pair_cap=cap, subchunk=sub),
+                  lambda: expand.expand_owners_torch(o_, l_, q_, pair_cap=cap))
+    del o_, l_, q_
 
     # B3: the postings fetch spos[sidx] — piecewise nondecreasing (runs
     # re-expanded for same-key slots step back), clamped dead tail.
     spos = torch.randint(0, NUM_GENE * GENE_LEN, (v,), dtype=torch.int32,
                          device=dev, generator=g)
     sidx = sidx.clamp(0, v - 1)
-    del counts, oexcl, lo, qid
+    del counts, oexcl, lo, qid, qid_all
     sidx_l = sidx.long()
-    touched = int(torch.unique(sidx).numel())
     case("monotone_gather", lambda: gather.monotone_gather(spos, sidx)[:1],
          lambda: gather.monotone_gather_torch(spos, sidx)[:1],
-         lambda: spos[sidx_l], 4 * touched + 8 * pair_cap,
-         f"table ({v},) idx ({pair_cap},)")
+         lambda: spos[sidx_l], call_work("monotone_gather", (spos, sidx), {}),
+         f"table ({v},) idx ({sidx.numel()},), {json.dumps(stream_shape(sidx))}")
     del spos, sidx, sidx_l
 
     # B4: the target-row fetch of one verify chunk: (T, 22) trows, a
@@ -347,11 +660,10 @@ def kernel_phase(dev, unstaged) -> dict:
                                     device=dev, generator=g)).values
     ridx[-vchunk // 10:] = nrows - 1
     ridx_l = ridx.long()
-    touched = int(torch.unique(ridx).numel())
     case("monotone_gather_rows", lambda: gather.monotone_gather_rows(trows, ridx)[:1],
          lambda: gather.monotone_gather_rows_torch(trows, ridx)[:1],
          lambda: trows.index_select(0, ridx_l),
-         4 * ncols * (touched + vchunk) + 4 * vchunk,
+         call_work("monotone_gather_rows", (trows, ridx), {}),
          f"table ({nrows}, {ncols}) ridx ({vchunk},)")
     stage_ab("monotone_gather_rows", lambda: gather.monotone_gather_rows(trows, ridx)[:1],
              lambda: unstaged_rows(trows, ridx),
@@ -363,7 +675,6 @@ def kernel_phase(dev, unstaged) -> dict:
     ridx_d = torch.sort(torch.randint(quarter, 2 * quarter, (vchunk,), dtype=torch.int32,
                                       device=dev, generator=g)).values
     ridx_dl = ridx_d.long()
-    touched = int(torch.unique(ridx_d).numel())
     trows28 = torch.randint(0, 2**32, (nrows, 28), dtype=torch.int64, device=dev,
                             generator=g).to(torch.int32)
     for tab in (trows, trows28):
@@ -375,7 +686,7 @@ def kernel_phase(dev, unstaged) -> dict:
             max_abs_err=_compare(label, fn(), twin()), ms=time_ms(fn),
             back_to_back_ms=time_ms(fn, inner=10), library_ms=time_ms(lib),
             library_back_to_back_ms=time_ms(lib, inner=10),
-            bound_ms=bound_ms(4 * tab.shape[1] * (touched + vchunk) + 4 * vchunk),
+            **bounds(call_work("monotone_gather_rows", (tab, ridx_d), {})),
             shapes=f"table {tuple(tab.shape)} ridx ({vchunk},) over rows "
                    f"[{quarter}, {2 * quarter})")
         stage_ab(label, fn, lambda: unstaged_rows(tab, ridx_d), twin)
@@ -430,21 +741,35 @@ def kernel_phase(dev, unstaged) -> dict:
                  window_queries.window_queries(rpacked, lengths, q1s, **kw),
                  window_queries.window_queries_torch(rpacked, lengths, q1s, **kw))
     kw = dict(width=WIDTH, min_dinuc=3)
-    k = len(WINDOWS)
     case("window_queries",
          lambda: window_queries.window_queries(rpacked, lengths, WINDOWS, **kw),
          lambda: window_queries.window_queries_torch(rpacked, lengths, WINDOWS, **kw),
-         None, 4 * BATCH * (nw + 1) + 9 * k * BATCH,
+         None, call_work("window_queries", (rpacked, lengths, WINDOWS), kw),
          f"rpacked ({BATCH}, {nw}) windows {WINDOWS} width {WIDTH}")
+    stage_ab("window_queries",
+             lambda: window_queries.window_queries(rpacked, lengths, WINDOWS, **kw),
+             lambda: launch_windows(unstaged, rpacked, lengths, WINDOWS, **kw),
+             lambda: window_queries.window_queries_torch(rpacked, lengths, WINDOWS, **kw))
     del rpacked, lengths
+    # B5's branches, exact only, from the default and the unstaged build
+    # (bulk-copied and loop-copied rows at the odd widths).
+    for label, (rp, ln, q1s, width, md) in windows_branch_cases(dev, g).items():
+        kw = dict(width=width, min_dinuc=md)
+        twin = lambda: window_queries.window_queries_torch(rp, ln, q1s, **kw)
+        exact(f"window_queries {label}",
+              lambda: window_queries.window_queries(rp, ln, q1s, **kw), twin)
+        _compare(f"unstaged window_queries {label}",
+                 launch_windows(unstaged, rp, ln, q1s, **kw), twin())
+    del rp, ln
 
     for name, r in out.items():
         lib = ("" if r["library_ms"] is None else f", one library call "
                f"{r['library_ms']:.3f} ms ({r['library_back_to_back_ms']:.3f} back to back)")
         print(f"kernel {name}: exact vs twin; {r['ms']:.3f} ms a call "
               f"({r['back_to_back_ms']:.3f} back to back; plain twin "
-              f"{r['plain_ms']:.3f} ms{lib}; bound {r['bound_ms']:.3f} ms) "
-              f"at {r['shapes']}", flush=True)
+              f"{r['plain_ms']:.3f} ms{lib}; bound {r['bound_ms']:.3f} ms by "
+              f"{r['bound_by']}: bytes {r['bytes_bound_ms']:.4f}, operations "
+              f"{r['ops_bound_ms']:.4f}) at {r['shapes']}", flush=True)
     for name, r in extra.items():
         print(f"kernel {name}: exact vs twin; {r['ms']:.3f} ms a call "
               f"({r['back_to_back_ms']:.3f} back to back; index_select "
@@ -453,6 +778,8 @@ def kernel_phase(dev, unstaged) -> dict:
     print("kernel edge cases exact vs twin: " + "; ".join(edge), flush=True)
     print("staging A/B (ms a call, 10 back-to-back calls, median of 3, in turns; the "
           "unstaged variant exact vs twin): " + json.dumps(ab), flush=True)
+    print("B2 variants (ms a call, 10 back-to-back calls, median of 3, in turns; "
+          "every variant exact vs twin): " + json.dumps(b2_ab), flush=True)
     return out
 
 
@@ -572,28 +899,14 @@ def recorded_calls():
             setattr(mod, attr, orig)
 
 
-def call_bound_ms(c) -> float:
-    """The bytes bound of one recorded launch, from its own inputs (each
-    input read once, each output written once; table entries and rows
-    counted once however often they are fetched)."""
+def stream_shape(idx) -> dict:
+    """How an index stream walks its table of 4-byte entries: its lanes,
+    those that step back from the lane before, and the distinct 128-byte
+    lines (32 entries) the stream touches."""
     import torch
 
-    a, k = c["args"], c["kernel"]
-    if k == "window_queries":
-        r, nw = a[0].shape
-        nbytes = 4 * r * (nw + 1) + 9 * len(a[2]) * r
-    elif k == "sorted_join":
-        nbytes = 4 * (a[0].numel() + 3 * a[1].numel())
-    elif k.startswith("expand_owners"):
-        # The slots that own lanes have distinct oexcl values.
-        nbytes = 12 * torch.unique(a[0]).numel() + 8 * c["kw"]["pair_cap"]
-    else:
-        table, idx = a
-        m = idx.numel()
-        touched = torch.unique(idx.clamp(0, table.shape[0] - 1)).numel()
-        row = 4 * (table.shape[1] if table.dim() == 2 else 1)  # bytes an entry
-        nbytes = row * (touched + m) + 4 * m
-    return bound_ms(nbytes)
+    return dict(lanes=idx.numel(), step_backs=int((idx[1:] < idx[:-1]).sum()),
+                lines_128b=int(torch.unique(idx >> 5).numel()))
 
 
 def kernel_profile(dev, cfg, rs, index) -> dict:
@@ -602,8 +915,10 @@ def kernel_profile(dev, cfg, rs, index) -> dict:
     the device's busy share of the stage window (from the start of the
     first B5 launch, which opens the probe, to the start of the last
     device-to-host copy, the row fetch), and, per call site of each of the
-    port's kernels, launches, device time and the summed bytes bound of
-    the launches' own inputs.  Fails if the profile holds no device time,
+    port's kernels, launches, device time and the summed bound (bounds)
+    of the launches' own inputs; for the postings fetch (the B3 launch
+    that reads the index's spos) also the shape of its index stream
+    (stream_shape).  Fails if the profile holds no device time,
     or if it counts other launches of a port kernel than the calls the
     hook recorded (a call site missing from CALL_POINTS)."""
     import re
@@ -659,14 +974,22 @@ def kernel_profile(dev, cfg, rs, index) -> dict:
               f"recorded {len(mine)} calls (a call site missing from CALL_POINTS?)")
         for c, ms in zip(mine, per_launch[k]):
             s = sites.setdefault((k, c["site"]), dict(
-                kernel=k, site=c["site"], launches=0, shapes=set(), ms=0.0, bound_ms=0.0))
+                kernel=k, site=c["site"], launches=0, shapes=set(), ms=0.0, bound_ms=0.0,
+                bound_by=set()))
             s["launches"] += 1
             s["shapes"].add((int(c["args"][0].shape[0]), int(c["args"][1].shape[0])))
             s["ms"] += ms
-            s["bound_ms"] += call_bound_ms(c)
+            bound = bounds(call_work(k, c["args"], c["kw"]))
+            s["bound_ms"] += bound["bound_ms"]
+            s["bound_by"].add(bound["bound_by"])
+            if k == "monotone_gather" and c["args"][0].data_ptr() == index.spos.data_ptr():
+                out["postings"] = dict(
+                    site=c["site"], ms=ms, **bound,
+                    **stream_shape(c["args"][1].clamp(0, index.spos.numel() - 1)))
     del calls
     for s in sites.values():
         s["shapes"] = sorted(s["shapes"])  # (len of the first two arguments)
+        s["bound_by"] = sorted(s["bound_by"])
         s["loss_ms"] = s["ms"] - s["bound_ms"]
     out["sites"] = sorted(sites.values(), key=lambda s: -s["loss_ms"])
     for k, key in (("monotone_gather", "b3"), ("monotone_gather_rows", "b4")):
@@ -867,7 +1190,19 @@ def main() -> int:
     print(f"native host library: {native.ensure_built() is not None} "
           f"({time.perf_counter() - t0:.1f}s)", flush=True)
 
-    kres = kernel_phase(dev, unstaged)
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor() as pool:
+        variants = dict(zip(B2_VARIANTS, pool.map(
+            lambda flag: _lib.load(_lib._build(_lib.NVCC_FLAGS + (flag,))[0]),
+            B2_VARIANTS.values())))
+    print(f"kernels with B2 variants ({', '.join(B2_VARIANTS.values())}): "
+          f"built and loaded in {time.perf_counter() - t0:.2f}s", flush=True)
+    print(f"integer rate: {int_pipe_rate():.4g} operations/s a pipe "
+          f"({torch.cuda.get_device_properties(0).multi_processor_count} SMs x "
+          f"{INT_LANES_PER_SM} lanes x the max SM clock); measured on chains of "
+          f"dependent instructions: {json.dumps(measured_int_rates(dev))}", flush=True)
+
+    kres = kernel_phase(dev, unstaged, variants)
     flag, flag_sw = match_phases(dev)
     driver_phase(dev)
 
@@ -877,11 +1212,14 @@ def main() -> int:
          "launches": (flag if name in DEFAULT_PATH else flag_sw)["launches"][name],
          "max_abs_err": kres[name]["max_abs_err"], "ms": kres[name]["ms"],
          "plain_ms": kres[name]["plain_ms"], "bound_ms": kres[name]["bound_ms"],
-         "bound_by": "bytes", "library_ms": kres[name]["library_ms"],
+         "bound_by": kres[name]["bound_by"], "library_ms": kres[name]["library_ms"],
+         "bytes_bound_ms": kres[name]["bytes_bound_ms"],
+         "ops_bound_ms": kres[name]["ops_bound_ms"],
          "back_to_back_ms": kres[name]["back_to_back_ms"],
          "library_back_to_back_ms": kres[name]["library_back_to_back_ms"]}
         for name in KERNELS
     ]}
+    print(smi.stdout.strip(), flush=True)  # again, beside the numbers it qualifies
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

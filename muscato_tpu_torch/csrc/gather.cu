@@ -40,8 +40,11 @@
 #include <cuda_runtime.h>
 
 #include "bulk.cuh"
+#include "walk.cuh"
 
 namespace {
+
+using muscato::RowWalk;
 
 __global__ void gather_kernel(const int32_t* __restrict__ table, long long n,
                               const int32_t* __restrict__ idx, long long m,
@@ -67,22 +70,6 @@ constexpr int kRowTile = kRowThreads;  // output rows per CTA, one index each
 constexpr int kStageWords = 256 * 22 + 8;
 constexpr int kStageBytes = kStageWords * 4;  // 22,560 bytes
 static_assert(kStageBytes + 2048 <= 48 * 1024, "stage within the default 48 KB");
-
-// Output unit u0, u0 + stride, ... of a tile whose rows hold `per` units
-// each, as (row j, unit c), advanced without dividing.
-struct RowWalk {
-  int j, c, dj, dc, per;
-  __device__ RowWalk(int u0, int stride, int per_)
-      : j(u0 / per_), c(u0 % per_), dj(stride / per_), dc(stride % per_), per(per_) {}
-  __device__ void next() {
-    j += dj;
-    c += dc;
-    if (c >= per) {
-      c -= per;
-      ++j;
-    }
-  }
-};
 
 // kPieces: rows of an even word count `nc`, the table 8-byte and the
 // output 16-byte aligned; otherwise any width and alignment.

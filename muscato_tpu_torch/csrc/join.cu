@@ -10,8 +10,9 @@
 // both outputs written once (12 Q bytes); at the flagship (V = 98.1M,
 // Q = 16.8M) that is 593.6 MB.  A CTA takes a tile of kJoinTile queries,
 // reduces their min and max as uint32, and finds L = lower_bound(min) and
-// H = upper_bound(max) with one warp-cooperative 32-ary search each (about
-// six dependent loads over 98M keys, not 27).  Every lane's lo and lo + cnt
+// H = upper_bound(max) with one warp-cooperative 32-ary search each
+// (search.cuh; about six dependent loads over 98M keys, not 27).  Every
+// lane's lo and lo + cnt
 // lie in [L, H].  When H - L <= kJoinSpan, one bulk async copy (bulk.cuh)
 // stages skeys[L, H) in shared memory, so the index is read about once in
 // total (a flagship tile spans ~3,000 keys), and each query's lower bound
@@ -29,6 +30,7 @@
 #include <cuda_runtime.h>
 
 #include "bulk.cuh"
+#include "search.cuh"
 
 namespace {
 
@@ -76,36 +78,6 @@ __device__ __forceinline__ Idx upper_bound_from(const uint32_t* a, Idx lo, Idx h
   return lo;
 }
 
-// First index in [lo, hi) of the sorted a with a[i] > q (strict) or
-// a[i] >= q, else hi.  The whole warp calls it with the same arguments;
-// each step loads 31 pivots at once and keeps the 1/32 between two.
-__device__ __forceinline__ long long warp_search(const uint32_t* __restrict__ a,
-                                                 long long lo, long long hi,
-                                                 uint32_t q, bool strict) {
-  const unsigned full = 0xffffffffu;
-  const int lane = threadIdx.x & 31;
-  while (hi - lo > 32) {
-    const long long piv = lo + ((hi - lo) * (lane + 1)) / 32;  // lane 31: hi
-    bool t = true;
-    if (lane < 31) {
-      const uint32_t x = __ldg(a + piv);
-      t = strict ? x > q : x >= q;
-    }
-    const int k = __ffs(__ballot_sync(full, t)) - 1;
-    const long long pk = __shfl_sync(full, piv, k);
-    const long long pprev = __shfl_sync(full, piv, k > 0 ? k - 1 : 0);
-    if (k > 0) lo = pprev + 1;
-    hi = pk;
-  }
-  bool t = true;
-  if (lo + lane < hi) {
-    const uint32_t x = __ldg(a + lo + lane);
-    t = strict ? x > q : x >= q;
-  }
-  const unsigned b = __ballot_sync(full, t);
-  return b ? lo + __ffs(b) - 1 : hi;
-}
-
 __global__ void __launch_bounds__(kJoinThreads)
     sorted_join_kernel(const uint32_t* __restrict__ skeys, long long v,
                        const uint32_t* __restrict__ q, long long m,
@@ -144,7 +116,7 @@ __global__ void __launch_bounds__(kJoinThreads)
 #pragma unroll
     for (int w = 1; w < kJoinThreads / 32; ++w)
       x = warp == 0 ? min(x, s_min[w]) : max(x, s_max[w]);
-    const long long r = warp_search(skeys, 0, v, x, warp == 1);
+    const long long r = muscato::warp_search(skeys, 0, v, x, warp == 1);
     if (lane == 0) s_lh[warp] = r;
   }
   __syncthreads();

@@ -19,22 +19,54 @@
 // twin does, and words past the packed width read as 0 (the twin's guard
 // column).
 //
-// Bound on the card: memory bandwidth.  Each read row is read once, staged
-// by a CTA into shared memory with coalesced loads (row stride padded to an
-// odd word count, so the per-read word reads of a warp hit 32 distinct
-// banks), and each output is written once, coalesced: consecutive threads
-// take consecutive reads of one window.  The arithmetic is native uint32
-// (the twin's int64 emulation is what the CPU needs): one funnel shift per
-// aligned word, a multiply-add per base and key, and __popc of the mask.
+// Bound on the card: bytes and integer operations are of one order.  A
+// flagship call (4,194,304 reads of 13 words, 4 windows of width 20,
+// min_dinuc 3) moves 386 MB (each row and length read once, 9 bytes
+// written per (window, read)): 0.115 ms at 3.35 TB/s.  It also walks
+// 335.5M bases, and a base needs six integer operations: a nibble
+// extract, a multiply-add for each key, and for the mask a multiply-add, a
+// shift and an or.  That is 1.0e9 multiply-adds and 1.0e9 shift/logic
+// operations, and the card issues 64 of each a clock on each of its 132
+// SMs: 0.060 ms at 1.98 GHz when both pipes run at once, as they do
+// (chip_smoke.py's integer chains reach 98% of that rate on each pipe, and
+// on the shift/logic pipe still with multiply-adds beside it).  So the
+// kernel has to stay near six instructions a base, and
+// every instruction spent on addressing, branching or loop counting
+// shows.  The design:
+//   - a CTA takes a tile of consecutive reads, one read a thread.  The
+//     tile's rows are one contiguous span of rpacked, so for an odd row
+//     width (13, 19, 25 words at 100-, 150-, 200-base reads) one bulk async
+//     copy (cp.async.bulk on an mbarrier, bulk.cuh) stages them: no thread
+//     computes an address, and the odd stride already spreads a warp's
+//     per-read word reads over 32 distinct banks.  An even width is staged
+//     by a copy loop over the tile's words in flat order, with the stride
+//     padded by one word; its (row, word) advance by a fixed stride
+//     (walk.cuh), so no loop divides;
+//   - the window loop is outside and the read is the thread, so a window's
+//     w0, sh and gate are uniform in the CTA (one constant-bank read each)
+//     and consecutive threads write consecutive reads of one window;
+//   - the step is specialised at compile time on use_k2 and min_dinuc > 0
+//     (four instances), whole 8-base words are fully unrolled, and the tail
+//     word enters a straight run of steps at the right place after one
+//     shift, so no per-base branch or counter is left;
+//   - the mask bit is PTX shl.b32, which gives 0 for a shift above 31 as
+//     the twin does for dinucleotide indices of nibbles past the code
+//     range (C++ << is undefined there).  The window's first base has no
+//     predecessor and sets no bit: prev starts at 7, whose index 35 + code
+//     shifts out.
+// Built with -DMUSCATO_NO_STAGE every width is staged by the copy loop.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "bulk.cuh"
+#include "walk.cuh"
+
 namespace {
 
 constexpr int kMaxWindows = 64;
-constexpr int kThreads = 256;
-constexpr int kSmemBytes = 48 * 1024;
+constexpr int kThreads = 256;  // and reads per tile, one a thread
+constexpr int kSmemBytes = 48 * 1024;  // what a block gets without opting in
 
 struct WindowParams {
   int nwin;
@@ -43,61 +75,120 @@ struct WindowParams {
   long long gate[kMaxWindows];  // q1 + width: the length gate
 };
 
-__global__ void window_queries_kernel(const int32_t* __restrict__ rpacked,
-                                      const int32_t* __restrict__ lengths,
-                                      long long nreads, int nw, int ld,
-                                      int tile, WindowParams wp, int width,
-                                      int min_dinuc, uint32_t m1, uint32_t m2,
-                                      int use_k2, int32_t* __restrict__ key1,
-                                      int32_t* __restrict__ key2,
-                                      uint8_t* __restrict__ valid) {
-  extern __shared__ uint32_t rows[];  // tile x ld words
+// Keys and dinucleotide mask of one window as its bases stream through.
+template <bool kK2, bool kDinuc>
+struct Fold {
+  uint32_t h1 = 0, h2 = 0, bits = 0, prev = 7;
+  __device__ __forceinline__ void step(uint32_t b, uint32_t m1, uint32_t m2) {
+    h1 = h1 * m1 + b;
+    if (kK2) h2 = h2 * m2 + b;
+    if (kDinuc) {
+      uint32_t bit;
+      asm("shl.b32 %0, %1, %2;" : "=r"(bit) : "r"(1u), "r"(prev * 5u + b));
+      bits |= bit;
+      prev = b;
+    }
+  }
+};
+
+template <bool kK2, bool kDinuc>
+__global__ void __launch_bounds__(kThreads)
+    window_queries_kernel(const int32_t* __restrict__ rpacked,
+                          const int32_t* __restrict__ lengths, long long nreads,
+                          int nw, int ld, int tile, WindowParams wp, int width,
+                          int min_dinuc, uint32_t m1, uint32_t m2,
+                          int32_t* __restrict__ key1, int32_t* __restrict__ key2,
+                          uint8_t* __restrict__ valid) {
+  extern __shared__ __align__(16) uint32_t s_rows[];  // tile x ld words (+ 8)
+  __shared__ __align__(8) uint64_t s_bar;
+  const int tid = threadIdx.x;
   const long long r0 = (long long)blockIdx.x * tile;
   const int nt = (int)min((long long)tile, nreads - r0);
 
-  // Stage the tile's rows: they are contiguous in global memory.
-  const int32_t* src = rpacked + r0 * nw;
-  for (int i = threadIdx.x; i < nt * nw; i += blockDim.x) {
-    int r = i / nw;
-    rows[r * ld + (i - r * nw)] = (uint32_t)__ldg(src + i);
+  // Stage the tile's rows: word c of row r lands at rows[r * ld + c].
+  const uint32_t* rows = s_rows;
+  bool bulk = false;
+  if (ld == nw) {
+    const long long w0 = r0 * nw;
+    rows += w0 - muscato::stage_words((const uint32_t*)rpacked, nreads * nw, w0,
+                                      w0 + (long long)nt * nw, s_rows, &s_bar,
+                                      &bulk);
+  } else {
+    // Flat order over the tile's words, so the loads coalesce and several
+    // are in flight; (row, word) advance by a fixed stride, no division
+    // in the loop.
+    const int32_t* src = rpacked + r0 * nw;
+    muscato::RowWalk a(tid, blockDim.x, nw);
+    for (int i = tid; a.j < nt; i += blockDim.x, a.next())
+      s_rows[a.j * ld + a.c] = (uint32_t)__ldg(src + i);
   }
+  const long long len = tid < nt ? (long long)__ldg(lengths + r0 + tid) : 0;
   __syncthreads();
+  muscato::stage_wait(&s_bar, bulk);
+  if (tid >= nt) return;
 
-  const int nal = (width + 7) >> 3;  // aligned words covering the window
-  for (int it = threadIdx.x; it < nt * wp.nwin; it += blockDim.x) {
-    const int k = it / nt;
-    const int r = it - k * nt;
-    const uint32_t* row = rows + r * ld;
+  const uint32_t* row = rows + tid * ld;
+  const int nfull = width >> 3;  // whole 8-base words of a window
+  const int rem = width & 7;     // bases of its tail word
+  for (int k = 0; k < wp.nwin; ++k) {
     const int w0 = wp.w0[k];
     const int sh = wp.sh[k];
-    uint32_t h1 = 0, h2 = 0, bits = 0, prev = 0;
+    Fold<kK2, kDinuc> f;
     uint32_t hi = (w0 < nw) ? row[w0] : 0u;
-    for (int j = 0; j < nal; ++j) {
+    for (int j = 0; j < nfull; ++j) {
       const uint32_t lo = hi;
       hi = (w0 + j + 1 < nw) ? row[w0 + j + 1] : 0u;
       // (hi:lo) >> sh; sh == 0 gives lo alone, as the twin does.
       const uint32_t al = __funnelshift_r(lo, hi, sh);
-      const int nb = min(8, width - 8 * j);
-      for (int q = 0; q < nb; ++q) {
-        const uint32_t b = (al >> (4 * q)) & 0xFu;
-        h1 = h1 * m1 + b;
-        if (use_k2) h2 = h2 * m2 + b;
-        if (min_dinuc > 0 && (j | q)) {
-          // prev*5 + b reaches 90 for garbage nibbles; a shift past bit
-          // 31 is undefined in CUDA, and the twin gives 0 there.
-          const uint32_t pr = prev * 5u + b;
-          bits |= (pr < 32u) ? (1u << pr) : 0u;
-        }
-        prev = b;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) f.step((al >> (4 * q)) & 0xFu, m1, m2);
+    }
+    if (rem) {
+      const uint32_t lo = hi;
+      hi = (w0 + nfull + 1 < nw) ? row[w0 + nfull + 1] : 0u;
+      // The tail's `rem` bases, moved to the top nibbles: base i of the
+      // tail is nibble 8 - rem + i, and the run below is entered there.
+      const uint32_t al = __funnelshift_r(lo, hi, sh) << (4 * (8 - rem));
+      switch (rem) {
+        case 7: f.step((al >> 4) & 0xFu, m1, m2);
+        case 6: f.step((al >> 8) & 0xFu, m1, m2);
+        case 5: f.step((al >> 12) & 0xFu, m1, m2);
+        case 4: f.step((al >> 16) & 0xFu, m1, m2);
+        case 3: f.step((al >> 20) & 0xFu, m1, m2);
+        case 2: f.step((al >> 24) & 0xFu, m1, m2);
+        default: f.step(al >> 28, m1, m2);
       }
     }
-    bool ok = (long long)__ldg(lengths + r0 + r) >= wp.gate[k];
-    if (min_dinuc > 0) ok = ok && (__popc(bits) >= min_dinuc);
-    const long long out = (long long)k * nreads + r0 + r;
-    key1[out] = (int32_t)h1;
-    key2[out] = (int32_t)h2;
+    bool ok = len >= wp.gate[k];
+    if (kDinuc) ok = ok && (__popc(f.bits) >= min_dinuc);
+    const long long out = (long long)k * nreads + r0 + tid;
+    key1[out] = (int32_t)f.h1;
+    key2[out] = (int32_t)f.h2;
     valid[out] = ok ? 1 : 0;
   }
+}
+
+template <bool kK2, bool kDinuc>
+cudaError_t launch_windows(const int32_t* rpacked, const int32_t* lengths,
+                           long long nreads, int nw, const WindowParams& wp,
+                           int width, int min_dinuc, uint32_t m1, uint32_t m2,
+                           int32_t* key1, int32_t* key2, uint8_t* valid,
+                           cudaStream_t stream) {
+  // An odd stride is free of bank conflicts as it is; an even one is padded.
+  const int ld = muscato::kStage ? (nw | 1) : nw + 1;
+  // Rows of the tile, the 16-byte rounding of a staged span's two ends
+  // (32 bytes) and the kernel's static shared memory; rows of 48 words or
+  // more (reads of 380 bases) get a smaller tile.
+  const long long row_bytes = 4LL * ld, slack = 64;
+  const int tile = (int)min((long long)kThreads, (kSmemBytes - slack) / row_bytes);
+  if (tile < 1) return cudaErrorInvalidValue;  // a row too long for any tile
+  const long long blocks = (nreads + tile - 1) / tile;
+  const int threads = min(kThreads, (tile + 31) & ~31);
+  window_queries_kernel<kK2, kDinuc>
+      <<<(unsigned)blocks, threads, (size_t)(tile * row_bytes + 32), stream>>>(
+      rpacked, lengths, nreads, nw, ld, tile, wp, width, min_dinuc, m1, m2, key1,
+      key2, valid);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -111,25 +202,21 @@ extern "C" int muscato_window_queries(const void* rpacked, const void* lengths,
                                       void* key2, void* valid, void* stream) {
   if (nwin < 1 || nwin > kMaxWindows || nw < 1 || width < 1)
     return (int)cudaErrorInvalidValue;
-  if (nreads > 0) {
-    WindowParams wp;
-    wp.nwin = nwin;
-    const long long* p = (const long long*)params;
-    for (int k = 0; k < nwin; ++k) {
-      wp.w0[k] = (int)p[3 * k];
-      wp.sh[k] = (int)p[3 * k + 1];
-      wp.gate[k] = p[3 * k + 2];
-    }
-    const int ld = nw | 1;  // odd stride: conflict-free per-read word reads
-    int tile = kSmemBytes / (ld * 4);
-    if (tile > kThreads) tile = kThreads;
-    if (tile < 1) return (int)cudaErrorInvalidValue;
-    const long long blocks = (nreads + tile - 1) / tile;
-    window_queries_kernel<<<(unsigned)blocks, kThreads,
-                            (size_t)tile * ld * 4, (cudaStream_t)stream>>>(
-        (const int32_t*)rpacked, (const int32_t*)lengths, nreads, nw, ld, tile,
-        wp, width, min_dinuc, (uint32_t)m1, (uint32_t)m2, use_k2,
-        (int32_t*)key1, (int32_t*)key2, (uint8_t*)valid);
+  if (nreads <= 0) return (int)cudaGetLastError();
+  WindowParams wp;
+  wp.nwin = nwin;
+  const long long* p = (const long long*)params;
+  for (int k = 0; k < nwin; ++k) {
+    wp.w0[k] = (int)p[3 * k];
+    wp.sh[k] = (int)p[3 * k + 1];
+    wp.gate[k] = p[3 * k + 2];
   }
-  return (int)cudaGetLastError();
+  auto launch = use_k2 ? (min_dinuc > 0 ? launch_windows<true, true>
+                                        : launch_windows<true, false>)
+                       : (min_dinuc > 0 ? launch_windows<false, true>
+                                        : launch_windows<false, false>);
+  return (int)launch((const int32_t*)rpacked, (const int32_t*)lengths, nreads, nw,
+                     wp, width, min_dinuc, (uint32_t)m1, (uint32_t)m2,
+                     (int32_t*)key1, (int32_t*)key2, (uint8_t*)valid,
+                     (cudaStream_t)stream);
 }

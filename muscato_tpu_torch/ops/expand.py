@@ -4,10 +4,14 @@
 ``csrc/expand.cu``: B2 (it replaces
 ``muscato_tpu/ops/pallas_expand.py:expand_owners``), or with
 ``subchunk=True`` B6, through ``expand_owners_sub`` (it replaces the same
-function's sub-chunked kernel ``_kernel_sub``), which stages each CTA's slot
-window in shared memory.  Both compute one function, and
-``expand_owners_torch`` is the plain PyTorch twin of both, which the
-wrappers run for CPU tensors.
+function's sub-chunked kernel ``_kernel_sub``).  B2 searches once a warp:
+each warp walks a few tiles of consecutive lanes, stages the offsets of
+the slots a tile spans in shared memory, lets every slot mark the lane it
+starts at and finds each lane's owner with a max-scan; tiles in the dead
+tail of the buffer are filled without any search.  B6 stages each CTA's
+slot window in shared memory and searches it per lane.  Both compute one
+function, bytes bound both on the card, and ``expand_owners_torch`` is the
+plain PyTorch twin of both, which the wrappers run for CPU tensors.
 """
 
 from __future__ import annotations

@@ -4,7 +4,12 @@
 replaces ``muscato_tpu/ops/pallas_windows.py:window_queries_pallas``);
 ``window_queries_torch`` is its plain PyTorch twin (the port of
 ``muscato_tpu/ops/fused.py:_window_queries``), which the wrapper runs for
-CPU tensors.
+CPU tensors.  On the card the function's integer work (six operations a
+base) is of the order of its bytes, so the kernel is built to spend little
+else: a CTA stages a tile of rows with one bulk async copy (a padded copy
+loop at even row widths), a thread folds one read window by window, and
+the step is compiled for each of the four (second key, dinucleotide gate)
+combinations with its base loop unrolled.
 """
 
 from __future__ import annotations

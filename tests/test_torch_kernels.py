@@ -498,3 +498,184 @@ def test_cuda_join_and_row_gather_branches(cuda_device):
         t, r = _t(table), _t(np.minimum(ridx, len(table) - 1 - off))
         out, _ = gather.monotone_gather_rows(t.to(cuda_device)[off:], r.to(cuda_device))
         assert torch.equal(out.cpu(), gather.monotone_gather_rows_torch(t[off:], r)[0]), label
+
+
+# B2's tile and stage, a warp's, and the lanes of two of its CTAs (eight
+# warps at four tiles each; csrc/expand.cu kExpTile, kExpStage, kExpWarps,
+# kExpTiles), and B5's tile (csrc/windows.cu kThreads).
+EXP_TILE, EXP_STAGE, EXP_CTA, WQ_TILE = 128, 384, 8192, 256
+
+
+def _slots_of(rng, counts):
+    """(oexcl, lo, qid, total) of slots with the given lane counts."""
+    counts = np.asarray(counts, np.int32)
+    m = len(counts)
+    oexcl = (np.cumsum(counts) - counts).astype(np.int32)
+    lo = rng.integers(0, 1 << 20, m).astype(np.int32)
+    qid = rng.integers(0, 1 << 24, m).astype(np.int32)
+    return oexcl, lo, qid, int(counts.sum())
+
+
+def _expand_case(label):
+    """(oexcl, lo, qid, pair_cap, offset) reaching one branch of B2; the
+    three slot arrays are sliced at ``offset`` on the device (1 or 2: not
+    16-byte aligned, so staged by 4-byte loads; the lanes before the
+    first remaining offset then clip to slot 0)."""
+    rng = np.random.default_rng(sorted(EXPAND_CASES).index(label))
+    live = lambda n: rng.integers(1, 5, n)
+    off = 0
+    if label == "dead tail, several tiles past the total":
+        oexcl, lo, qid, total = _slots_of(rng, np.concatenate([live(3000), np.zeros(2000)]))
+        cap = total + 3 * EXP_CTA + 5 * EXP_TILE + 13
+    elif label == "empty run longer than the stage inside a tile":
+        oexcl, lo, qid, total = _slots_of(
+            rng, np.concatenate([live(5000), np.zeros(EXP_STAGE + 2500), live(5000)]))
+        cap = total + 3
+    elif label == "one slot owns several CTAs' lanes":
+        oexcl, lo, qid, total = _slots_of(
+            rng, np.concatenate([live(500), [EXP_CTA + 5 * EXP_TILE + 7], live(5000)]))
+        cap = total
+    elif label == "one slot":
+        oexcl, lo, qid, total = _slots_of(rng, [0])
+        cap = EXP_CTA + 2 * EXP_TILE + 53
+    elif label == "one slot, offset past the first lanes":
+        oexcl, lo, qid, total = _slots_of(rng, [7, 3])
+        cap, off = EXP_CTA + EXP_TILE + 5, 1
+    elif label == "one lane a slot, then the dead tail":
+        oexcl, lo, qid, total = _slots_of(rng, np.concatenate([np.ones(20_000), np.zeros(3000)]))
+        cap = total + EXP_CTA + EXP_TILE + 2
+    elif label == "interior empty slots":
+        oexcl, lo, qid, total = _slots_of(rng, rng.integers(0, 3, 20_000))
+        cap = total + 1
+    elif label == "mostly empty slots":
+        oexcl, lo, qid, total = _slots_of(rng, rng.integers(0, 4, 40_000) // 3)
+        cap = total + 2
+    elif label == "fewer lanes than a tile":
+        oexcl, lo, qid, total = _slots_of(rng, live(40))
+        cap = total - 1
+    elif label.startswith("slots sliced"):
+        oexcl, lo, qid, total = _slots_of(rng, np.concatenate([live(6000), np.zeros(900)]))
+        cap, off = total + EXP_CTA + 2 * EXP_TILE + 1, int(label[-1])
+    else:
+        raise KeyError(label)
+    return oexcl, lo, qid, cap + (cap % 4 == 0), off  # never whole 16-byte stores
+
+
+EXPAND_CASES = (
+    "dead tail, several tiles past the total",
+    "empty run longer than the stage inside a tile",
+    "one slot owns several CTAs' lanes",
+    "one slot",
+    "one slot, offset past the first lanes",
+    "one lane a slot, then the dead tail",
+    "interior empty slots",
+    "mostly empty slots",
+    "fewer lanes than a tile",
+    "slots sliced by 1",
+    "slots sliced by 2",
+)
+
+
+def _windows_case(label):
+    """(rpacked, lengths, q1s, width, min_dinuc, offset) reaching one
+    branch of B5; rpacked and lengths are sliced by ``offset`` rows on the
+    device.  Half the rows hold codes 0-4, half random words, whose
+    nibbles exceed the code range (dinucleotide indices past bit 31); the
+    read count is not a multiple of the tile."""
+    rng = np.random.default_rng(100 + sorted(WINDOWS_CASES).index(label))
+    nw, q1s, width, md, off = 13, None, 20, 3, 0
+    if label.startswith("width"):
+        _, w, _, d = label.split()
+        width, md = int(w.rstrip(",")), int(d)
+    elif label.startswith("even row width"):
+        nw = 14
+    elif label == "one window":
+        q1s = (37,)
+    elif label == "64 windows":
+        q1s, width = tuple(range(0, 128, 2)), 8
+    elif label == "rows narrower than a window's slice":
+        nw, q1s, width = 2, (0, 3, 9), 13
+    elif label.endswith("rows (fewer reads a tile than threads)"):
+        nw = int(label.split("-")[0])
+    elif label == "sliced by one row":
+        off = 1
+    elif label == "sliced by one row, even row width":
+        nw, off = 14, 1
+    else:
+        raise KeyError(label)
+    if q1s is None:  # the last window runs past the packed width
+        q1s = WQ_WINDOWS + (nw * 8 - 3,)
+    nreads = 3 * WQ_TILE + 9
+    codes, lengths = _wq_reads(rng, nreads, nw * 8)
+    rp = jpacked.pack_rows_np(codes)
+    assert rp.shape == (nreads, nw)
+    assert len(q1s) == 1 or any(q + width > nw * 8 for q in q1s)
+    rp[nreads // 2:] = rng.integers(0, 2**32, (nreads - nreads // 2, nw),
+                                    dtype=np.uint64).astype(np.uint32)
+    return rp, lengths, q1s, width, md, off
+
+
+WINDOWS_CASES = tuple(
+    [f"width {w}, min_dinuc {d}" for w in (4, 8, 13, 14, 20) for d in (0, 3)]
+    + ["even row width", "one window", "64 windows",
+       "rows narrower than a window's slice",
+       "50-word rows (fewer reads a tile than threads)",
+       "51-word rows (fewer reads a tile than threads)", "sliced by one row",
+       "sliced by one row, even row width"]
+)
+
+
+@pytest.mark.parametrize("label", EXPAND_CASES)
+def test_expand_branch_case_twin_matches_numpy(label):
+    """B2's branch cases, which the GPU test runs on the card: the twin
+    against the JAX package's numpy oracle on every lane."""
+    oexcl, lo, qid, cap, off = _expand_case(label)
+    q, s = expand.expand_owners(_t(oexcl)[off:], _t(lo)[off:], _t(qid)[off:], pair_cap=cap)
+    q_np, s_np = pe.expand_owners_np(oexcl[off:], lo[off:], qid[off:], cap)
+    assert cap % 4 and cap % EXP_TILE
+    np.testing.assert_array_equal(q.numpy(), q_np)
+    np.testing.assert_array_equal(s.numpy(), s_np)
+
+
+@pytest.mark.parametrize("label", WINDOWS_CASES)
+def test_windows_branch_case_twin_matches_jax(label):
+    """B5's branch cases, which the GPU test runs on the card: the twin
+    against the JAX package's packed XLA function on every lane."""
+    rp, lengths, q1s, width, md, off = _windows_case(label)
+    rp, lengths = rp[off:], lengths[off:]
+    k1, k2, v = window_queries.window_queries(
+        _t(rp), _t(lengths), q1s, width=width, min_dinuc=md)
+    e1, e2, ev = jfused._window_queries(
+        jnp.asarray(rp), jnp.asarray(lengths), jnp.asarray(np.array(q1s, np.int32)),
+        width=width, min_dinuc=md)
+    assert len(rp) % WQ_TILE and v.any() and not v.all()
+    np.testing.assert_array_equal(v.numpy(), np.asarray(ev))
+    np.testing.assert_array_equal(k1.numpy().view(np.uint32), np.asarray(e1))
+    np.testing.assert_array_equal(k2.numpy().view(np.uint32), np.asarray(e2))
+
+
+@pytest.mark.gpu
+def test_cuda_expand_and_windows_branches(cuda_device):
+    """Every branch of B2 and B5 exact against the twins: whole-tile fills
+    (dead tail, one slot), head flags and the scan, the second staging
+    round, the global-memory search past the stage, 4-byte-aligned slot
+    views and ragged buffers; bulk-copied and loop-copied rows, every
+    width class with and without the dinucleotide gate, 1 and 64 windows,
+    windows past the packed width and nibbles past the code range.  Slices
+    are taken on the device."""
+    for label in EXPAND_CASES:
+        oexcl, lo, qid, cap, off = _expand_case(label)
+        args = [_t(x) for x in (oexcl, lo, qid)]
+        for sub in (False, True):
+            got = expand.expand_owners(*(a.to(cuda_device)[off:] for a in args),
+                                       pair_cap=cap, subchunk=sub)
+            exp = expand.expand_owners_torch(*(a[off:] for a in args), pair_cap=cap)
+            assert all(torch.equal(g.cpu(), e) for g, e in zip(got, exp)), (label, sub)
+    for label in WINDOWS_CASES:
+        rp, lengths, q1s, width, md, off = _windows_case(label)
+        rp, ln = _t(rp), _t(lengths)
+        kw = dict(width=width, min_dinuc=md)
+        got = window_queries.window_queries(
+            rp.to(cuda_device)[off:], ln.to(cuda_device)[off:], q1s, **kw)
+        exp = window_queries.window_queries_torch(rp[off:], ln[off:], q1s, **kw)
+        assert all(torch.equal(g.cpu(), e) for g, e in zip(got, exp)), label
