@@ -6,8 +6,9 @@
 Run from the root of a checkout.  It builds the six CUDA kernels from
 muscato_tpu_torch/csrc with nvcc (one process per source, in parallel),
 a variant of them built with -DMUSCATO_NO_STAGE (B1 and B4 never stage a
-span, B5 stages by a copy loop) and variants of B2 built with other
-constants (tiles a warp, register cut), then:
+span, B5 stages by a copy loop) and variants of csrc/expand.cu built with
+other constants (B2: tiles a warp, register cut; B6: ring depth, lo and
+qid in the ring or not, lanes a warp, register cut), all at once, then:
 
   1. prints the card (nvidia-smi name and power limit), torch and CUDA
      versions, the kernel build times, and the integer rate the bounds
@@ -21,7 +22,8 @@ constants (tiles a warp, register cut), then:
      step-backs; results must be exactly equal; prints each one's time,
      the twin's and, where one PyTorch call computes the same function,
      that call's (CUDA events around one call, median of 5; and around
-     10 back-to-back calls), and the least time the card could take: the
+     10 back-to-back calls), the wrapper's host time a call (100 calls
+     with no synchronise), and the least time the card could take: the
      larger of the bytes moved over the memory rate and the integer
      operations over the integer rate, and which of the two it is; B2 and
      B6 also at the flagship's density of one lane a live slot, side by
@@ -30,12 +32,15 @@ constants (tiles a warp, register cut), then:
      equal-key run longer than B1's staged span, unaligned slices,
      flagship-shaped dense verify chunks of 22- and 28-word rows, also
      timed beside index_select, scattered rows, odd row widths; dead-tail
-     tiles, empty-slot runs longer than B2's stage, slots that own
-     several tiles, one slot, 4-byte-aligned slot views; even row widths,
+     tiles, empty-slot runs longer than B2's stage and B6's ring, warp
+     ranges that start inside such runs, a dead tail that starts inside
+     a range, slots that own several tiles or ranges, one slot, fewer
+     lanes than a range, 4-byte-aligned slot views, B6's variant builds
+     too; even row widths,
      1 and 64 windows, every width class with and without the
      dinucleotide gate, rows of random words); then times B1, B4 and B5
-     against their unstaged variant, and B2 against its other builds, in
-     turns;
+     against their unstaged variant, and B2, B6 and their variant builds
+     against one another at both densities, in turns;
   3. matches 100k reads of the flagship workload against the FULL
      100M-base index on cuda and on cpu (the plain twins), then on cuda
      under MUSCATO_PJOIN=0 (the sort-merge probe) and under
@@ -50,9 +55,9 @@ constants (tiles a warp, register cut), then:
      launches, the device's busy share of the stage window, for each
      call site of the port's kernels its launches, time and summed
      bound, and for the postings fetch its step-backs and the 128-byte
-     lines it touches); then the same with
-     both switches set (sort-merge probe and B6), whose MatchResult must
-     equal the default run's; then times the probe stage of the flagship
+     lines it touches); then the same run and profile with both switches
+     set (sort-merge probe and B6), whose MatchResult must equal the
+     default run's; then times the probe stage of the flagship
      batch with B5 and with its plain twin, in turns, and with each probe
      against small sorted prefixes of the index; then runs the
      muscato_torch entry point on gendat files prepared by prep_targets
@@ -87,6 +92,11 @@ PARITY_READS = 100_000
 JOIN_LONG_RUN = 100_000  # equal keys, longer than B1's staged span (6,144)
 DRIVER_READS = 200_000  # the driver phase cuts the read count only
 BRANCH_SLOTS, BRANCH_READS = 1 << 20, 300_007  # sizes of B2's and B5's branch cases
+# B6's fewest lanes a warp takes and its ring of slots (csrc/expand.cu
+# kSubMinTiles x kExpTile, kSubRing x kSubSlots): the branch cases place
+# runs and ends against them (their lane counts stay below 2048 x the
+# card's resident warps, so every warp range is SUB_CHUNK lanes).
+SUB_CHUNK, SUB_RING = 2048, 512
 
 KERNELS = {
     # name: (source, the TPU kernel's function that reaches pl.pallas_call)
@@ -122,13 +132,32 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM peak memory rate (NVIDIA data sheet)
 # arithmetic throughput for compute capability 9.0 in NVIDIA's CUDA C++
 # programming documentation).
 INT_LANES_PER_SM = 64
-# Builds of B2 timed beside the default one (4 tiles a warp, registers
-# cut for 4 CTAs an SM): other tile counts, and other register cuts.
+# Builds of csrc/expand.cu timed beside the default one.  B2 (4 tiles a
+# warp, registers cut for 4 CTAs an SM): other tile counts, and other
+# register cuts.  B6 (a ring of 4 stages carrying oexcl, lo and qid, at
+# least 16 tiles a warp, registers uncut): other ring depths, lo and qid
+# read from global memory, fewer and longer warp ranges, register cuts.
 B2_VARIANTS = {
     **{f"{n} tile{'s' * (n > 1)} a warp": f"-DMUSCATO_EXP_TILES={n}" for n in (1, 2, 8, 16)},
     "registers uncut": "-DMUSCATO_EXP_MIN_BLOCKS=1",
     "registers for 5 CTAs an SM": "-DMUSCATO_EXP_MIN_BLOCKS=5",
 }
+B6_VARIANTS = {
+    **{f"ring of {n} stages": f"-DMUSCATO_SUB_RING={n}" for n in (3, 6)},
+    "lo and qid from global memory": "-DMUSCATO_SUB_LOQID=0",
+    "at least 64 tiles a warp": "-DMUSCATO_SUB_MIN_TILES=64",
+    **{f"registers for {n} CTAs an SM": f"-DMUSCATO_SUB_MIN_BLOCKS={n}" for n in (3, 4)},
+}
+
+
+def ptxas_of(log: str, symbol: str) -> str:
+    """nvcc's -Xptxas -v report of one kernel in a build's output: its
+    stack frame, spills, registers and static shared memory."""
+    lines = log.splitlines()
+    for i, ln in enumerate(lines):
+        if "Compiling entry function" in ln and symbol in ln:
+            return " ".join(x.strip() for x in lines[i + 2:i + 4])
+    return "not in the build's output"
 
 
 def check(cond, msg: str) -> None:
@@ -350,18 +379,39 @@ def _compare(name, got, exp) -> float:
     return err
 
 
-def launch_expand(lib, oexcl, lo, qid, pair_cap):
-    """B2 of the kernel library ``lib`` (a variant build), launched as
-    ops/expand.py launches the default one."""
+def launch_expand(lib, oexcl, lo, qid, pair_cap, name="expand_owners"):
+    """B2 (or with ``name="expand_owners_sub"`` B6) of the kernel library
+    ``lib`` (a variant build), launched as ops/expand.py launches the
+    default one."""
     import torch
 
     from muscato_tpu_torch.ops import _lib
 
     q = torch.empty(pair_cap, dtype=torch.int32, device=qid.device)
     s = torch.empty_like(q)
-    _lib.launch("expand_owners", qid, oexcl.data_ptr(), lo.data_ptr(), qid.data_ptr(),
+    _lib.launch(name, qid, oexcl.data_ptr(), lo.data_ptr(), qid.data_ptr(),
                 oexcl.numel(), pair_cap, q.data_ptr(), s.data_ptr(), lib=lib)
     return q, s
+
+
+def launch_expand_sub(lib, oexcl, lo, qid, pair_cap):
+    """B6 of the kernel library ``lib``, as launch_expand launches B2."""
+    return launch_expand(lib, oexcl, lo, qid, pair_cap, name="expand_owners_sub")
+
+
+def host_ms(fn, calls: int = 100) -> float:
+    """Host time of one call of fn in ms: ``calls`` calls on the host's
+    clock with no synchronise between them (what the caller's thread
+    spends to launch), then one synchronise outside the timing."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = (time.perf_counter() - t0) / calls * 1e3
+    torch.cuda.synchronize()
+    return t
 
 
 def launch_windows(lib, rpacked, lengths, q1s, *, width, min_dinuc):
@@ -388,8 +438,9 @@ def launch_windows(lib, rpacked, lengths, q1s, *, width, min_dinuc):
 
 
 def expand_branch_cases(dev, g) -> dict:
-    """{label: (oexcl, lo, qid, pair_cap)} reaching each branch of B2 at
-    sizes that cross many tiles."""
+    """{label: (oexcl, lo, qid, pair_cap)} reaching each branch of B2 and
+    B6 at sizes that cross many tiles and many of B6's warp ranges
+    (SUB_CHUNK lanes, its ring SUB_RING slots)."""
     import torch
 
     def slots(counts, off=0):
@@ -426,6 +477,22 @@ def expand_branch_cases(dev, g) -> dict:
     cases["mostly empty slots"] = (o, l, q, total + 2)
     o, l, q, total = slots(live(100))
     cases["fewer lanes than a tile"] = (o, l, q, total - 1)
+    o, l, q, total = slots(live(600))
+    cases["fewer lanes than a warp range"] = (o, l, q, total + 101)
+    o, l, q, total = slots(live(n, 3))
+    cases["a ring that wraps many times"] = (o, l, q, total + 77)
+    # Runs of empty slots longer than the ring: one starting 3 lanes into a
+    # warp range (its first owner lies before the run), one at a range's
+    # first lane (the search lands past it), each between live stretches.
+    ones = lambda k: torch.ones(k, dtype=torch.int32, device=dev)
+    o, l, q, total = slots(torch.cat([
+        ones(40 * SUB_CHUNK + 3), zeros(3 * SUB_RING), ones(SUB_CHUNK - 3),
+        zeros(SUB_RING + 50), live(n)]))
+    cases["warp ranges that start inside empty runs"] = (o, l, q, total + 9)
+    counts = live(n)
+    counts[-1] += (1000 - int(counts.sum())) % SUB_CHUNK
+    o, l, q, total = slots(torch.cat([counts, zeros(n)]))
+    cases["a dead tail that starts inside a warp range"] = (o, l, q, total + 2 * SUB_CHUNK + 300)
     for off in (1, 2):
         o, l, q, total = slots(torch.cat([live(n), zeros(999)]), off)
         cases[f"slot views sliced by {off} (not 16-byte aligned)"] = (
@@ -475,14 +542,16 @@ def windows_branch_cases(dev, g) -> dict:
     return cases
 
 
-def kernel_phase(dev, unstaged, variants) -> dict:
+def kernel_phase(dev, unstaged, variants, sub_variants) -> dict:
     """Each kernel against its twin at main-path shapes; returns
-    {name: {max_abs_err, ms, back_to_back_ms, plain_ms, library_ms,
-    library_back_to_back_ms, bound_ms, bound_by, bytes_bound_ms,
-    ops_bound_ms, shapes}}.  ``unstaged`` is the kernel library built with
-    -DMUSCATO_NO_STAGE: B1, B4 and B5 from it are held against their
-    twins too and timed against the real ones.  ``variants`` maps a label
-    to a library whose B2 was built with other constants (B2_VARIANTS)."""
+    {name: {max_abs_err, ms, back_to_back_ms, host_ms, plain_ms,
+    library_ms, library_back_to_back_ms, bound_ms, bound_by,
+    bytes_bound_ms, ops_bound_ms, shapes}}.  ``unstaged`` is the kernel
+    library built with -DMUSCATO_NO_STAGE: B1, B4 and B5 from it are held
+    against their twins too and timed against the real ones.
+    ``variants`` and ``sub_variants`` map a label to a library of
+    csrc/expand.cu whose B2 (B2_VARIANTS), or B6 (B6_VARIANTS), was built
+    with other constants."""
     import torch
 
     from muscato_tpu_torch.engine.pipeline import _bucket_ceil
@@ -499,7 +568,8 @@ def kernel_phase(dev, unstaged, variants) -> dict:
         got, exp = fn(), twin()
         out[name] = dict(
             max_abs_err=_compare(name, got, exp), ms=time_ms(fn),
-            back_to_back_ms=time_ms(fn, inner=10), plain_ms=time_ms(twin),
+            back_to_back_ms=time_ms(fn, inner=10), host_ms=host_ms(fn),
+            plain_ms=time_ms(twin),
             library_ms=time_ms(library) if library else None,
             library_back_to_back_ms=time_ms(library, inner=10) if library else None,
             **bounds(work), shapes=shapes,
@@ -538,7 +608,7 @@ def kernel_phase(dev, unstaged, variants) -> dict:
     def stage_ab(label, staged, plain, twin):
         in_turns(label, {"staged": staged, "unstaged": plain}, twin, ab)
 
-    out, extra, edge, ab, b2_ab = {}, {}, [], {}, {}
+    out, extra, edge, ab, exp_ab = {}, {}, [], {}, {}
     # B1: the sorted index (V = genes x valid windows per gene) with
     # duplicate runs and 0xFFFFFFFF keys, against K x batch sorted queries.
     v = NUM_GENE * (GENE_LEN - WIDTH + 1)
@@ -616,9 +686,12 @@ def kernel_phase(dev, unstaged, variants) -> dict:
                  lambda: expand.expand_owners(oexcl, lo, qid, subchunk=sub, **kw),
                  twin, None, call_work(name, (oexcl, lo, qid), kw), shapes)
         b2 = lambda: expand.expand_owners(oexcl, lo, qid, **kw)
-        in_turns("expand_owners" + density, {"default": b2, **{
-            label: (lambda lib: lambda: launch_expand(lib, oexcl, lo, qid, pair_cap))(lib)
-            for label, lib in variants.items()}}, twin, b2_ab)
+        arms = {"B2": b2, "B6": lambda: expand.expand_owners_sub(oexcl, lo, qid, **kw)}
+        for launcher, key, libs in ((launch_expand, "B2", variants),
+                                    (launch_expand_sub, "B6", sub_variants)):
+            arms.update({f"{key} {label}": (lambda f, lib: lambda: f(
+                lib, oexcl, lo, qid, pair_cap))(launcher, lib) for label, lib in libs.items()})
+        in_turns("expand_owners" + density, arms, twin, exp_ab)
         if sidx is None:
             sidx = b2()[1]
     print("B2 against B6, same run (ms a call / back to back): " + "; ".join(
@@ -628,12 +701,46 @@ def kernel_phase(dev, unstaged, variants) -> dict:
         + f" (bound {out['expand_owners' + d]['bound_ms']:.3f})"
         for d, label in (("", "2.5 lanes a slot"), (", one lane a slot", "one lane a slot"))),
         flush=True)
-    # B2's and B6's branches, exact only.
+    # What the card reaches moving the same bytes with no work: one copy
+    # that reads half of B6's bytes at one lane a slot and writes the
+    # other half, back to back.
+    nbytes = call_work("expand_owners_sub", (oexcl, lo, qid), kw)[0] // 8 * 8
+    src = torch.empty(nbytes // 8, dtype=torch.int32, device=dev)
+    dst = torch.empty_like(src)
+    copy_ms = time_ms(lambda: dst.copy_(src), inner=10)
+    print(f"copy yardstick: {nbytes} bytes (half read, half written) in {copy_ms:.4f} ms "
+          f"back to back, {nbytes / copy_ms / 1e9:.3f} TB/s (the bounds use "
+          f"{HBM_BYTES_PER_S / 1e12:.2f})", flush=True)
+    del src, dst
+    # The wrappers' launch path (the launcher cached per library, the
+    # device entered only when it is not current) against one that looks
+    # the launcher up and enters the device on every call: B2's host time
+    # a call, in turns.
+    def launch_uncached(name, like, *args, lib=None):
+        fn = getattr(lib or _lib.kernels().lib, "muscato_" + name)
+        with torch.cuda.device(like.device):
+            rc = fn(*args, torch.cuda.current_stream(like.device).cuda_stream)
+        check(rc == 0, f"{name}: CUDA kernel launch failed (cudaError {rc})")
+
+    cached, launch_ab = _lib.launch, {"cached": [], "uncached": []}
+    for arm in ("cached", "uncached", "uncached", "cached", "cached", "uncached"):
+        _lib.launch = cached if arm == "cached" else launch_uncached
+        try:
+            launch_ab[arm].append(host_ms(lambda: expand.expand_owners(oexcl, lo, qid, **kw)))
+        finally:
+            _lib.launch = cached
+    print("launch path A/B (B2's wrapper, host ms a call over 100 unsynchronised "
+          "calls, in turns): " + json.dumps(launch_ab), flush=True)
+    # B2's and B6's branches, exact only, B6 also from its variant builds.
     for label, (o_, l_, q_, cap) in expand_branch_cases(dev, g).items():
+        twin = lambda: expand.expand_owners_torch(o_, l_, q_, pair_cap=cap)
         for sub in (False, True):
             exact(f"expand_owners{'_sub' if sub else ''} {label}",
                   lambda: expand.expand_owners(o_, l_, q_, pair_cap=cap, subchunk=sub),
-                  lambda: expand.expand_owners_torch(o_, l_, q_, pair_cap=cap))
+                  twin)
+        for vlabel, lib in sub_variants.items():
+            _compare(f"expand_owners_sub ({vlabel}) {label}",
+                     launch_expand_sub(lib, o_, l_, q_, cap), twin())
     del o_, l_, q_
 
     # B3: the postings fetch spos[sidx] — piecewise nondecreasing (runs
@@ -766,7 +873,8 @@ def kernel_phase(dev, unstaged, variants) -> dict:
         lib = ("" if r["library_ms"] is None else f", one library call "
                f"{r['library_ms']:.3f} ms ({r['library_back_to_back_ms']:.3f} back to back)")
         print(f"kernel {name}: exact vs twin; {r['ms']:.3f} ms a call "
-              f"({r['back_to_back_ms']:.3f} back to back; plain twin "
+              f"({r['back_to_back_ms']:.3f} back to back; host {r['host_ms']:.4f} ms "
+              f"a call over 100 unsynchronised calls; plain twin "
               f"{r['plain_ms']:.3f} ms{lib}; bound {r['bound_ms']:.3f} ms by "
               f"{r['bound_by']}: bytes {r['bytes_bound_ms']:.4f}, operations "
               f"{r['ops_bound_ms']:.4f}) at {r['shapes']}", flush=True)
@@ -778,8 +886,9 @@ def kernel_phase(dev, unstaged, variants) -> dict:
     print("kernel edge cases exact vs twin: " + "; ".join(edge), flush=True)
     print("staging A/B (ms a call, 10 back-to-back calls, median of 3, in turns; the "
           "unstaged variant exact vs twin): " + json.dumps(ab), flush=True)
-    print("B2 variants (ms a call, 10 back-to-back calls, median of 3, in turns; "
-          "every variant exact vs twin): " + json.dumps(b2_ab), flush=True)
+    print("B2 and B6 with their variant builds (ms a call, 10 back-to-back calls, "
+          "median of 3, in turns; every arm exact vs twin, the B6 variants on the "
+          "branch cases too): " + json.dumps(exp_ab), flush=True)
     return out
 
 
@@ -910,8 +1019,9 @@ def stream_shape(idx) -> dict:
 
 
 def kernel_profile(dev, cfg, rs, index) -> dict:
-    """One more default-path flagship run, after the warm-up, under
-    torch.profiler: every device kernel's total time and launches by name,
+    """One more flagship run on the path the switches select, after its
+    warm-up, under torch.profiler: every device kernel's total time and
+    launches by name,
     the device's busy share of the stage window (from the start of the
     first B5 launch, which opens the probe, to the start of the last
     device-to-host copy, the row fetch), and, per call site of each of the
@@ -1097,13 +1207,18 @@ def match_phases(dev) -> tuple:
     print("flagship: " + json.dumps(flag), flush=True)
     prof = kernel_profile(dev, cfg, rs, index)
     print("profile (flagship batch, default path): " + json.dumps(prof), flush=True)
+    switches = " ".join(f"{k}={v}" for k, v in SWITCHES.items())
     with switched(**SWITCHES):
         pipeline.run_matching_indexed(cfg, rs, index)
         mr_sw, flag_sw = flagship_run(dev, cfg, rs, ts, index, SWITCHED_PATH)
-    check(same_result(mr_sw, mr), "switched flagship MatchResult differs")
-    check(flag_sw["launches"]["sorted_join"] == 0, "the sort-merge probe ran B1")
-    print("flagship switched (" + " ".join(f"{k}={v}" for k, v in SWITCHES.items())
-          + "): " + json.dumps(flag_sw), flush=True)
+        check(same_result(mr_sw, mr), "switched flagship MatchResult differs")
+        check(flag_sw["launches"]["sorted_join"] == 0, "the sort-merge probe ran B1")
+        print(f"flagship switched ({switches}): " + json.dumps(flag_sw), flush=True)
+        prof_sw = kernel_profile(dev, cfg, rs, index)
+    check(prof_sw["kernels"].get("expand_owners_sub", {}).get("launches") == 1,
+          "the switched profile shows no B6 launch")
+    print(f"profile (flagship batch, switched path, {switches}): " + json.dumps(prof_sw),
+          flush=True)
 
     ab = probe_ab(dev, cfg, rs, index)
     print("probe stage A/B (ms, flagship batch): " + json.dumps(ab), flush=True)
@@ -1182,27 +1297,36 @@ def main() -> int:
     print(f"kernels: built {kern.path} in {kern.build_s:.2f}s "
           f"(load {time.perf_counter() - t0:.2f}s)", flush=True)
     print(kern.log.strip(), flush=True)
+    # The variant builds, all at once: every source without staging, and
+    # csrc/expand.cu alone with each B2 and B6 variant's constants.
     t0 = time.perf_counter()
-    unstaged = _lib.load(_lib._build(_lib.NVCC_FLAGS + ("-DMUSCATO_NO_STAGE",))[0])
-    print(f"kernels without staging (-DMUSCATO_NO_STAGE): built and loaded in "
+    expand_src = [os.path.join(_lib.CSRC, "expand.cu")]
+    wanted = [("-DMUSCATO_NO_STAGE", None),
+              *((f, expand_src) for f in (*B2_VARIANTS.values(), *B6_VARIANTS.values()))]
+    with concurrent.futures.ThreadPoolExecutor(max_workers=len(wanted)) as pool:
+        builds = list(pool.map(
+            lambda w: _lib._build(_lib.NVCC_FLAGS + (w[0],), w[1]), wanted))
+    libs = [_lib.load(path) for path, _, _ in builds]
+    unstaged = libs[0]
+    variants = dict(zip(B2_VARIANTS, libs[1:]))
+    sub_variants = dict(zip(B6_VARIANTS, libs[1 + len(B2_VARIANTS):]))
+    print(f"kernels without staging (-DMUSCATO_NO_STAGE), and expand.cu with B2 variants "
+          f"({', '.join(B2_VARIANTS.values())}) and B6 variants "
+          f"({', '.join(B6_VARIANTS.values())}): built and loaded in "
           f"{time.perf_counter() - t0:.2f}s", flush=True)
+    print(f"B6, -Xptxas -v: {ptxas_of(kern.log, SYMBOLS['expand_owners_sub'])}", flush=True)
+    for label, (_, _, log) in zip(B6_VARIANTS, builds[1 + len(B2_VARIANTS):]):
+        print(f"B6 variant {label}, -Xptxas -v: {ptxas_of(log, SYMBOLS['expand_owners_sub'])}",
+              flush=True)
     t0 = time.perf_counter()
     print(f"native host library: {native.ensure_built() is not None} "
           f"({time.perf_counter() - t0:.1f}s)", flush=True)
-
-    t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor() as pool:
-        variants = dict(zip(B2_VARIANTS, pool.map(
-            lambda flag: _lib.load(_lib._build(_lib.NVCC_FLAGS + (flag,))[0]),
-            B2_VARIANTS.values())))
-    print(f"kernels with B2 variants ({', '.join(B2_VARIANTS.values())}): "
-          f"built and loaded in {time.perf_counter() - t0:.2f}s", flush=True)
     print(f"integer rate: {int_pipe_rate():.4g} operations/s a pipe "
           f"({torch.cuda.get_device_properties(0).multi_processor_count} SMs x "
           f"{INT_LANES_PER_SM} lanes x the max SM clock); measured on chains of "
           f"dependent instructions: {json.dumps(measured_int_rates(dev))}", flush=True)
 
-    kres = kernel_phase(dev, unstaged, variants)
+    kres = kernel_phase(dev, unstaged, variants, sub_variants)
     flag, flag_sw = match_phases(dev)
     driver_phase(dev)
 

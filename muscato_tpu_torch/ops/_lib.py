@@ -99,10 +99,12 @@ def _run_all(cmds: list[list[str]]) -> str:
     return "".join(outs)
 
 
-def _build(flags: tuple[str, ...] = NVCC_FLAGS) -> tuple[str, float, str]:
-    """Build the library with ``flags`` (or find it built); returns its
-    path, the compile time (0.0 if cached) and nvcc's output."""
-    srcs = sources()
+def _build(flags: tuple[str, ...] = NVCC_FLAGS,
+           srcs: list[str] | None = None) -> tuple[str, float, str]:
+    """Build the library of ``srcs`` (default: every source) with ``flags``
+    (or find it built); returns its path, the compile time (0.0 if cached)
+    and nvcc's output."""
+    srcs = sources() if srcs is None else srcs
     out_dir = os.path.join(BUILD_ROOT, _digest(srcs, flags))
     out = os.path.join(out_dir, "libmuscato_kernels.so")
     if os.path.exists(out):
@@ -129,12 +131,14 @@ def _build(flags: tuple[str, ...] = NVCC_FLAGS) -> tuple[str, float, str]:
 
 
 def load(path: str) -> ctypes.CDLL:
-    """Load a built library with its launchers' signatures set."""
+    """Load a built library with the signatures of the launchers it has
+    set (a library built from some of the sources lacks the others)."""
     lib = ctypes.CDLL(path)
     for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
     return lib
 
 
@@ -166,12 +170,22 @@ def on_cpu(name: str, *tensors: torch.Tensor) -> bool:
     return False
 
 
+@functools.lru_cache(maxsize=None)
+def _launcher(lib: ctypes.CDLL, name: str):
+    """Launcher ``muscato_<name>`` of ``lib``, looked up once."""
+    return getattr(lib, "muscato_" + name)
+
+
 def launch(name: str, like: torch.Tensor, *args, lib: ctypes.CDLL | None = None) -> None:
     """Call launcher ``muscato_<name>`` of ``lib`` (default: the kernel
     library) on ``like``'s device and current stream; raise if the launch
-    was refused."""
-    fn = getattr(lib or kernels().lib, "muscato_" + name)
-    with torch.cuda.device(like.device):
-        rc = fn(*args, torch.cuda.current_stream(like.device).cuda_stream)
+    was refused.  The device is switched only when it is not current."""
+    fn = _launcher(lib or kernels().lib, name)
+    dev = like.device
+    if dev.index == torch.cuda.current_device():
+        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(dev):
+            rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA kernel launch failed (cudaError {rc})")

@@ -8,8 +8,10 @@ function's sub-chunked kernel ``_kernel_sub``).  B2 searches once a warp:
 each warp walks a few tiles of consecutive lanes, stages the offsets of
 the slots a tile spans in shared memory, lets every slot mark the lane it
 starts at and finds each lane's owner with a max-scan; tiles in the dead
-tail of the buffer are filled without any search.  B6 stages each CTA's
-slot window in shared memory and searches it per lane.  Both compute one
+tail of the buffer are filled without any search.  B6 finds owners the
+same way, but its warps are persistent and stream the slot words ahead of
+their tiles into a ring in shared memory by asynchronous copies, so that
+no tile waits on a load its own scan depends on.  Both compute one
 function, bytes bound both on the card, and ``expand_owners_torch`` is the
 plain PyTorch twin of both, which the wrappers run for CPU tensors.
 """

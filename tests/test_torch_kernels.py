@@ -9,6 +9,9 @@ CUDA kernels themselves are checked against the twins by the tests marked
 exactly equal.
 """
 
+import contextlib
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -350,6 +353,63 @@ def test_build_digest_covers_flags():
     assert _lib._digest(srcs, _lib.NVCC_FLAGS + ("-DMUSCATO_NO_STAGE",)) != _lib._digest(srcs)
 
 
+class _FakeLib:
+    """Stands in for a kernel library: one launcher that records its calls
+    and returns ``rc``."""
+
+    def __init__(self, rc):
+        self.calls, self.lookups, self.rc = [], 0, rc
+
+    def __getattr__(self, name):
+        if name != "muscato_fake":
+            raise AttributeError(name)
+        self.lookups += 1
+        return lambda *args: self.calls.append(args) or self.rc
+
+
+def _fake_cuda(monkeypatch, current):
+    """torch.cuda as launch sees it with device ``current`` current; a
+    device switch raises."""
+    stream = type("Stream", (), {"cuda_stream": 1234})()
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: current)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: stream)
+
+    def no_switch(dev):
+        raise AssertionError(f"switched to {dev}")
+    monkeypatch.setattr(torch.cuda, "device", no_switch)
+
+
+def test_launch_looks_up_once_and_passes_the_stream(monkeypatch):
+    """On the current device launch passes the current stream last, looks
+    the launcher up once per library, and never switches the device."""
+    _fake_cuda(monkeypatch, 0)
+    lib = _FakeLib(0)
+    like = types.SimpleNamespace(device=torch.device("cuda", 0))
+    for _ in range(3):
+        _lib.launch("fake", like, 7, 8, lib=lib)
+    assert lib.calls == [(7, 8, 1234)] * 3
+    assert lib.lookups == 1
+
+
+@pytest.mark.parametrize("current", [0, 1])
+def test_launch_raises_on_a_refused_launch(monkeypatch, current):
+    """A nonzero cudaError raises, on the current device and on another
+    one, which launch enters first."""
+    _fake_cuda(monkeypatch, current)
+    entered = []
+
+    @contextlib.contextmanager
+    def enter(dev):
+        entered.append(dev)
+        yield
+
+    monkeypatch.setattr(torch.cuda, "device", enter)
+    like = types.SimpleNamespace(device=torch.device("cuda", 1))
+    with pytest.raises(RuntimeError, match="cudaError 9"):
+        _lib.launch("fake", like, lib=_FakeLib(9))
+    assert entered == ([] if current == 1 else [torch.device("cuda", 1)])
+
+
 # B1's staged span and tile (csrc/join.cu kJoinSpan, kJoinTile) and B4's
 # tile (csrc/gather.cu kRowTile).
 JOIN_SPAN, JOIN_TILE, ROW_TILE = 6144, 512, 256
@@ -504,6 +564,10 @@ def test_cuda_join_and_row_gather_branches(cuda_device):
 # warps at four tiles each; csrc/expand.cu kExpTile, kExpStage, kExpWarps,
 # kExpTiles), and B5's tile (csrc/windows.cu kThreads).
 EXP_TILE, EXP_STAGE, EXP_CTA, WQ_TILE = 128, 384, 8192, 256
+# B6's ring of slots and the fewest lanes a warp takes (csrc/expand.cu
+# kSubRing x kSubSlots, kSubMinTiles x kExpTile): below 2048 x the card's
+# resident warps, every warp range is SUB_CHUNK lanes.
+SUB_RING, SUB_CHUNK = 512, 2048
 
 
 def _slots_of(rng, counts):
@@ -517,7 +581,7 @@ def _slots_of(rng, counts):
 
 
 def _expand_case(label):
-    """(oexcl, lo, qid, pair_cap, offset) reaching one branch of B2; the
+    """(oexcl, lo, qid, pair_cap, offset) reaching one branch of B2 or B6; the
     three slot arrays are sliced at ``offset`` on the device (1 or 2: not
     16-byte aligned, so staged by 4-byte loads; the lanes before the
     first remaining offset then clip to slot 0)."""
@@ -553,6 +617,33 @@ def _expand_case(label):
     elif label == "fewer lanes than a tile":
         oexcl, lo, qid, total = _slots_of(rng, live(40))
         cap = total - 1
+    elif label == "a ring that wraps several times":
+        oexcl, lo, qid, total = _slots_of(rng, rng.integers(1, 3, 5 * SUB_CHUNK))
+        cap = total + 77
+    elif label == "an empty run longer than the ring inside a warp range":
+        oexcl, lo, qid, total = _slots_of(
+            rng, np.concatenate([live(3000), np.zeros(3 * SUB_RING + 17), live(3000)]))
+        cap = total + 5
+    elif label == "warp ranges that start inside empty runs":
+        # A run at lane 2 SUB_CHUNK + 3 (the range's first owner lies before
+        # it) and one at lane 3 SUB_CHUNK (the search lands past it).
+        oexcl, lo, qid, total = _slots_of(rng, np.concatenate([
+            np.ones(2 * SUB_CHUNK + 3), np.zeros(2 * SUB_RING), np.ones(SUB_CHUNK - 3),
+            np.zeros(SUB_RING + 50), live(2000)]))
+        cap = total + 9
+    elif label == "one slot owns several warp ranges":
+        oexcl, lo, qid, total = _slots_of(
+            rng, np.concatenate([live(500), [3 * SUB_CHUNK + 77], live(2000)]))
+        cap = total
+    elif label == "a dead tail that starts inside a warp range":
+        counts = live(4000)
+        counts[-1] += (1000 - counts.sum()) % SUB_CHUNK
+        oexcl, lo, qid, total = _slots_of(rng, np.concatenate([counts, np.zeros(3000)]))
+        assert total % SUB_CHUNK == 1000
+        cap = total + 2 * SUB_CHUNK + 300
+    elif label == "fewer lanes than a warp range":
+        oexcl, lo, qid, total = _slots_of(rng, live(300))
+        cap = total + 100
     elif label.startswith("slots sliced"):
         oexcl, lo, qid, total = _slots_of(rng, np.concatenate([live(6000), np.zeros(900)]))
         cap, off = total + EXP_CTA + 2 * EXP_TILE + 1, int(label[-1])
@@ -573,6 +664,12 @@ EXPAND_CASES = (
     "fewer lanes than a tile",
     "slots sliced by 1",
     "slots sliced by 2",
+    "a ring that wraps several times",
+    "an empty run longer than the ring inside a warp range",
+    "warp ranges that start inside empty runs",
+    "one slot owns several warp ranges",
+    "a dead tail that starts inside a warp range",
+    "fewer lanes than a warp range",
 )
 
 
@@ -627,8 +724,8 @@ WINDOWS_CASES = tuple(
 
 @pytest.mark.parametrize("label", EXPAND_CASES)
 def test_expand_branch_case_twin_matches_numpy(label):
-    """B2's branch cases, which the GPU test runs on the card: the twin
-    against the JAX package's numpy oracle on every lane."""
+    """B2's and B6's branch cases, which the GPU test runs on the card: the
+    twin against the JAX package's numpy oracle on every lane."""
     oexcl, lo, qid, cap, off = _expand_case(label)
     q, s = expand.expand_owners(_t(oexcl)[off:], _t(lo)[off:], _t(qid)[off:], pair_cap=cap)
     q_np, s_np = pe.expand_owners_np(oexcl[off:], lo[off:], qid[off:], cap)
@@ -656,10 +753,12 @@ def test_windows_branch_case_twin_matches_jax(label):
 
 @pytest.mark.gpu
 def test_cuda_expand_and_windows_branches(cuda_device):
-    """Every branch of B2 and B5 exact against the twins: whole-tile fills
-    (dead tail, one slot), head flags and the scan, the second staging
-    round, the global-memory search past the stage, 4-byte-aligned slot
-    views and ragged buffers; bulk-copied and loop-copied rows, every
+    """Every branch of B2, B6 and B5 exact against the twins: whole-tile
+    fills (dead tail, one slot), head flags and the scan, the second
+    staging round, the global-memory search past the stage or the ring,
+    the ring's wraps and restarts, warp ranges that start inside empty
+    runs or the dead tail, 4-byte-aligned slot views and ragged buffers;
+    bulk-copied and loop-copied rows, every
     width class with and without the dinucleotide gate, 1 and 64 windows,
     windows past the packed width and nibbles past the code range.  Slices
     are taken on the device."""
