@@ -35,17 +35,23 @@ qid in the ring or not, lanes a warp, register cut), all at once, then:
      tiles, empty-slot runs longer than B2's stage and B6's ring, warp
      ranges that start inside such runs, a dead tail that starts inside
      a range, slots that own several tiles or ranges, one slot, fewer
-     lanes than a range, 4-byte-aligned slot views, B6's variant builds
-     too; even row widths,
+     lanes than a range, 4-byte-aligned slot views, the streaming
+     expand's chunk windows (a middle chunk, and the last one, short and
+     ending in padded slots), B6's variant builds too; even row widths,
      1 and 64 windows, every width class with and without the
      dinucleotide gate, rows of random words); then times B1, B4 and B5
      against their unstaged variant, and B2, B6 and their variant builds
-     against one another at both densities, in turns;
+     against one another at both densities, in turns; B2 and B6 are also
+     timed at the streaming expand's launch shape (131,072 lanes over a
+     131,073-slot chunk window);
   3. matches 100k reads of the flagship workload against the FULL
      100M-base index on cuda and on cpu (the plain twins), then on cuda
      under MUSCATO_PJOIN=0 (the sort-merge probe) and under
      MUSCATO_PEXPAND_SUB=1 (the B6 expand); all MatchResults must be
-     identical;
+     identical; then through the streaming expand, each on cuda and on cpu:
+     NoDedup, 32 windows (0, 2, ..., 62), and _MAX_PAIR_CAP set below the
+     batch's pair total; the first and the last must also equal the
+     default run;
   4. runs the flagship (4M reads x 100 bp against 100,000 genes x 1,000 bp,
      windows 10,30,50,70 at width 20) through run_matching_indexed with
      every launch counter set to 0 first, prints reads/s, matches, the
@@ -57,11 +63,19 @@ qid in the ring or not, lanes a warp, register cut), all at once, then:
      bound, and for the postings fetch its step-backs and the 128-byte
      lines it touches); then the same run and profile with both switches
      set (sort-merge probe and B6), whose MatchResult must equal the
-     default run's; then times the probe stage of the flagship
+     default run's; then the same through the streaming expand
+     (NoDedup: B5, B1, one B2 and B3 a chunk of 131,072 pair lanes, B3 in
+     the rank), counted, timed and profiled, whose MatchResult must equal
+     the default run's; then times the probe stage of the flagship
      batch with B5 and with its plain twin, in turns, and with each probe
-     against small sorted prefixes of the index; then runs the
-     muscato_torch entry point on gendat files prepared by prep_targets
-     (same index size, fewer reads) and checks its four output files.
+     against small sorted prefixes of the index; then matches the
+     flagship as 3 gene-range shards (run_matching_gene_sharded), equal
+     to the default run, with each shard's build and match times; then
+     runs the muscato_torch entry point on gendat files prepared by
+     prep_targets (same index size, fewer reads) and checks its four
+     output files, then runs it with an IndexFile that it saves, with the
+     same IndexFile that it loads, and with ResumeDir set to the saving
+     run's kept TempDir: each run's four files must equal the first's.
 
 Every phase checks its results and any failure exits non-zero.  The line
 before the last is a JSON object with each kernel's numbers; the last line
@@ -114,6 +128,13 @@ DEFAULT_PATH = ("sorted_join", "expand_owners", "monotone_gather",
 SWITCHED_PATH = ("expand_owners_sub", "monotone_gather", "monotone_gather_rows",
                  "window_queries")
 SWITCHES = {"MUSCATO_PJOIN": "0", "MUSCATO_PEXPAND_SUB": "1"}
+# The streaming expand's path (NoDedup): B2 a chunk over its slot window,
+# B3 for the postings and in the rank, no B4 (the row fetch is a plain
+# gather there).
+STREAM_PATH = ("window_queries", "sorted_join", "expand_owners", "monotone_gather")
+STREAM_CHUNK = 1 << 17  # the engine's pair_chunk when MaxPairChunk is 0
+STREAM_WINDOWS = tuple(range(0, 64, 2))  # 32 windows: more than the dedup verify takes
+SHARDS = 3
 # Where the engine calls each kernel wrapper (module, attribute; fused
 # reaches B1 through its reference to the join module), and each kernel's
 # CUDA symbol as a profile names it.
@@ -440,8 +461,11 @@ def launch_windows(lib, rpacked, lengths, q1s, *, width, min_dinuc):
 def expand_branch_cases(dev, g) -> dict:
     """{label: (oexcl, lo, qid, pair_cap)} reaching each branch of B2 and
     B6 at sizes that cross many tiles and many of B6's warp ranges
-    (SUB_CHUNK lanes, its ring SUB_RING slots)."""
+    (SUB_CHUNK lanes, its ring SUB_RING slots), and the streaming
+    expand's chunk windows."""
     import torch
+
+    from muscato_tpu_torch.ops import fused
 
     def slots(counts, off=0):
         counts = counts.to(torch.int32)
@@ -497,6 +521,23 @@ def expand_branch_cases(dev, g) -> dict:
         o, l, q, total = slots(torch.cat([live(n), zeros(999)]), off)
         cases[f"slot views sliced by {off} (not 16-byte aligned)"] = (
             o, l, q, total + 8192 + 2 * 128 + 1)
+    # The streaming expand's chunk windows: STREAM_CHUNK lanes over
+    # STREAM_CHUNK + 1 slots rebased to the chunk (ops/fused.py
+    # _chunk_window), a middle chunk and the last one, short and ending in
+    # the padded slots.
+    counts = torch.cat([live(n), zeros(1000)])  # fewer dead slots than a window
+    total = int(counts.sum())
+    lo = torch.sort(torch.randint(0, 1 << 26, (n + 1000,), dtype=torch.int32, device=dev,
+                                  generator=g)).values
+    qid = torch.randint(0, 1 << 24, (n + 1000,), dtype=torch.int32, device=dev, generator=g)
+    qid[n:] = -1
+    padded = fused._stream_slots(counts, lo, qid, pair_chunk=STREAM_CHUNK, total=total)
+    obs = padded[3]
+    check(total % STREAM_CHUNK and len(obs) > 3, "chunk window cases need a short last chunk")
+    for label, ci in (("a middle chunk", len(obs) // 2), ("the last chunk, short", len(obs) - 1)):
+        cases[f"chunk window, {label}"] = (
+            *fused._chunk_window(*padded[:3], obs[ci], ci * STREAM_CHUNK, STREAM_CHUNK + 1),
+            STREAM_CHUNK)
     return cases
 
 
@@ -555,7 +596,7 @@ def kernel_phase(dev, unstaged, variants, sub_variants) -> dict:
     import torch
 
     from muscato_tpu_torch.engine.pipeline import _bucket_ceil
-    from muscato_tpu_torch.ops import _lib, expand, gather, join, window_queries
+    from muscato_tpu_torch.ops import _lib, expand, fused, gather, join, window_queries
     from muscato_tpu_torch.ops.packed import pack_rows
 
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -694,6 +735,23 @@ def kernel_phase(dev, unstaged, variants, sub_variants) -> dict:
         in_turns("expand_owners" + density, arms, twin, exp_ab)
         if sidx is None:
             sidx = b2()[1]
+        if density:
+            # The streaming expand's launch: STREAM_CHUNK lanes over the
+            # STREAM_CHUNK + 1 slots of a middle chunk of this buffer.
+            padded = fused._stream_slots(counts, lo, qid, pair_chunk=STREAM_CHUNK,
+                                         total=total)
+            ci = len(padded[3]) // 2
+            win = fused._chunk_window(*padded[:3], padded[3][ci], ci * STREAM_CHUNK,
+                                      STREAM_CHUNK + 1)
+            ckw = dict(pair_cap=STREAM_CHUNK)
+            for name, sub in (("expand_owners", False), ("expand_owners_sub", True)):
+                case(f"{name} chunk window",
+                     lambda: expand.expand_owners(*win, subchunk=sub, **ckw),
+                     lambda: expand.expand_owners_torch(*win, **ckw), None,
+                     call_work(name, win, ckw),
+                     f"chunk {ci} of {len(padded[3])}: {STREAM_CHUNK + 1} slots, "
+                     f"pair_cap {STREAM_CHUNK}")
+            del padded, win
     print("B2 against B6, same run (ms a call / back to back): " + "; ".join(
         f"{label}: " + " vs ".join(
             f"{n} {out[n + d]['ms']:.3f} / {out[n + d]['back_to_back_ms']:.3f}"
@@ -960,7 +1018,7 @@ def flagship_run(dev, cfg, rs, ts, index, path) -> tuple:
         stage_s=stages, stages_sum_s=sum(stages.values()),
         host_read_prep_s=timings["read_prep_s"], host_fetch_s=timings["fetch_s"],
         peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
-        launches=launches,
+        launches=launches, streaming_chunks=timings["chunks"],
     )
 
 
@@ -1026,9 +1084,9 @@ def kernel_profile(dev, cfg, rs, index) -> dict:
     first B5 launch, which opens the probe, to the start of the last
     device-to-host copy, the row fetch), and, per call site of each of the
     port's kernels, launches, device time and the summed bound (bounds)
-    of the launches' own inputs; for the postings fetch (the B3 launch
-    that reads the index's spos) also the shape of its index stream
-    (stream_shape).  Fails if the profile holds no device time,
+    of the launches' own inputs; for the postings fetch (the B3 launches
+    that read the index's spos) also the shape of their index streams
+    (stream_shape), summed over the launches.  Fails if the profile holds no device time,
     or if it counts other launches of a port kernel than the calls the
     hook recorded (a call site missing from CALL_POINTS)."""
     import re
@@ -1093,9 +1151,17 @@ def kernel_profile(dev, cfg, rs, index) -> dict:
             s["bound_ms"] += bound["bound_ms"]
             s["bound_by"].add(bound["bound_by"])
             if k == "monotone_gather" and c["args"][0].data_ptr() == index.spos.data_ptr():
-                out["postings"] = dict(
-                    site=c["site"], ms=ms, **bound,
-                    **stream_shape(c["args"][1].clamp(0, index.spos.numel() - 1)))
+                # Summed over the launches (one a chunk on the streaming path).
+                shape = stream_shape(c["args"][1].clamp(0, index.spos.numel() - 1))
+                post = out.setdefault("postings", dict(
+                    site=c["site"], launches=0, ms=0.0, bound_ms=0.0, bytes_bound_ms=0.0,
+                    ops_bound_ms=0.0, **{key: 0 for key in shape}))
+                post["launches"] += 1
+                post["ms"] += ms
+                for key in ("bound_ms", "bytes_bound_ms", "ops_bound_ms"):
+                    post[key] += bound[key]
+                for key, val in shape.items():
+                    post[key] += val
     del calls
     for s in sites.values():
         s["shapes"] = sorted(s["shapes"])  # (len of the first two arguments)
@@ -1158,6 +1224,8 @@ def probe_small_index(dev, cfg, rs, index) -> dict:
 
 
 def match_phases(dev) -> tuple:
+    import dataclasses
+
     import torch
 
     from muscato_tpu_torch.bench import gendat
@@ -1178,14 +1246,17 @@ def match_phases(dev) -> tuple:
           f"{time.perf_counter() - t0:.1f}s {index.build_timings}", flush=True)
 
     # Parity against the full index: cuda kernels vs cpu plain twins, then
-    # each switched path on cuda against the default cuda run.
+    # each switched path on cuda against the default cuda run, then the
+    # streaming expand's three triggers, each cuda against cpu.
     n = PARITY_READS
     sub = ReadSet(codes=rs.codes[:n], lengths=rs.lengths[:n],
                   counts=rs.counts[:n], num_total=n)
+    cpu_index = cpu_copy(index)
     t0 = time.perf_counter()
-    got = pipeline.run_matching_indexed(cfg, sub, index)
+    parity_t = {}
+    got = pipeline.run_matching_indexed(cfg, sub, index, timings=parity_t)
     t1 = time.perf_counter()
-    exp = pipeline.run_matching_indexed(cfg, sub, cpu_copy(index))
+    exp = pipeline.run_matching_indexed(cfg, sub, cpu_index)
     t2 = time.perf_counter()
     check(same_result(got, exp), "cuda and cpu MatchResults differ")
     check_result(got, sub, ts, cfg)
@@ -1199,6 +1270,35 @@ def match_phases(dev) -> tuple:
         check(same_result(alt, got), f"{name}={value}: MatchResult differs on cuda")
         print(f"parity: {name}={value} on cuda identical to the default run "
               f"({time.perf_counter() - t0:.2f}s)", flush=True)
+    pair_cap = parity_t["pairs"] // 2
+    streaming = {
+        "NoDedup": (dataclasses.replace(cfg, NoDedup=True), None),
+        f"{len(STREAM_WINDOWS)} windows (0, 2, ..., {STREAM_WINDOWS[-1]})":
+            (dataclasses.replace(cfg, Windows=list(STREAM_WINDOWS)), None),
+        f"_MAX_PAIR_CAP {pair_cap}, below the batch's {parity_t['pairs']} pairs":
+            (cfg, pair_cap),
+    }
+    for label, (c, cap) in streaming.items():
+        saved_cap = pipeline._MAX_PAIR_CAP
+        pipeline._MAX_PAIR_CAP = cap or saved_cap
+        try:
+            t0 = time.perf_counter()
+            tg, tc = {}, {}
+            alt = pipeline.run_matching_indexed(c, sub, index, timings=tg)
+            t1 = time.perf_counter()
+            alt_cpu = pipeline.run_matching_indexed(c, sub, cpu_index, timings=tc)
+            t2 = time.perf_counter()
+        finally:
+            pipeline._MAX_PAIR_CAP = saved_cap
+        check(tg["chunks"] > 0 and tc["chunks"] > 0, f"{label}: the streaming expand did not run")
+        check(same_result(alt, alt_cpu), f"{label}: cuda and cpu MatchResults differ")
+        check_result(alt, sub, ts, c)
+        if c.Windows == cfg.Windows:
+            check(same_result(alt, got), f"{label}: MatchResult differs from the default run")
+        print(f"parity, streaming expand, {label}: {len(alt.read_row)} matches identical on "
+              f"cuda ({t1 - t0:.2f}s, {tg['chunks']} chunks) and cpu ({t2 - t1:.2f}s)"
+              + (", and to the default run" if c.Windows == cfg.Windows else ""), flush=True)
+    del cpu_index
 
     # The flagship through the main path: one warm-up run, then the
     # counted and timed run; then the same through the switched path.
@@ -1220,18 +1320,57 @@ def match_phases(dev) -> tuple:
     print(f"profile (flagship batch, switched path, {switches}): " + json.dumps(prof_sw),
           flush=True)
 
+    # The flagship through the streaming expand (NoDedup): a warm-up, the
+    # counted and timed run, one profile.
+    cfg_nd = dataclasses.replace(cfg, NoDedup=True)
+    pipeline.run_matching_indexed(cfg_nd, rs, index)
+    mr_nd, flag_nd = flagship_run(dev, cfg_nd, rs, ts, index, STREAM_PATH)
+    check(same_result(mr_nd, mr), "streaming (NoDedup) flagship MatchResult differs")
+    flag_nd["chunks_a_pass"] = -(-flag_nd["pairs"] // STREAM_CHUNK)
+    print("flagship streaming (NoDedup): " + json.dumps(flag_nd), flush=True)
+    prof_nd = kernel_profile(dev, cfg_nd, rs, index)
+    print("profile (flagship batch, streaming path, NoDedup): " + json.dumps(prof_nd),
+          flush=True)
+
     ab = probe_ab(dev, cfg, rs, index)
     print("probe stage A/B (ms, flagship batch): " + json.dumps(ab), flush=True)
     small = probe_small_index(dev, cfg, rs, index)
     print(f"probe stage against a small index (ms, flagship batch, "
           f"K x R = {len(WINDOWS) * BATCH} queries): " + json.dumps(small), flush=True)
-    del index, rs, ts
-    return flag, flag_sw
+    del index
+
+    # The flagship as SHARDS gene-range shards, each built and matched in
+    # turn on the card, ranked over the union.
+    shard_t = {}
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    mr_sh = pipeline.run_matching_gene_sharded(cfg, rs, ts, SHARDS, device=dev,
+                                               timings=shard_t)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    check(same_result(mr_sh, mr), "gene-sharded flagship MatchResult differs")
+    print(f"flagship as {SHARDS} gene-range shards: {len(mr_sh.read_row)} matches, identical "
+          f"to the default run; {wall:.2f}s, shards " + json.dumps(shard_t["shards"]),
+          flush=True)
+    del rs, ts
+    return flag, flag_sw, flag_nd
+
+
+def report_files(results: str) -> dict:
+    """{name: path} of the four report files of a run."""
+    from muscato_tpu_torch.engine import report
+
+    return {"results": results, "nonmatch": report.nonmatch_path(results),
+            "readstats": report._stats_path(results, "readstats"),
+            "genestats": report._stats_path(results, "genestats")}
 
 
 def driver_phase(dev) -> None:
     """The muscato_torch entry point on gendat files (full index size,
-    DRIVER_READS reads) prepared by prep_targets."""
+    DRIVER_READS reads) prepared by prep_targets; then a run that saves an
+    IndexFile and keeps its TempDir, a run that loads that file, and a run
+    that resumes from the kept TempDir, whose report files must each be
+    byte-identical to the first run's."""
     from muscato_tpu_torch.bench import gendat
     from muscato_tpu_torch.io import targets
     from muscato_tpu_torch import cli
@@ -1244,31 +1383,51 @@ def driver_phase(dev) -> None:
             hit_frac=0.9,
         )
         seq, ids = targets.prep_targets(genes, rev=False)
-        cfg = config()
-        cfg.ReadFileName, cfg.GeneFileName, cfg.GeneIdFileName = reads, seq, ids
-        cfg.ResultsFileName = os.path.join(work, "results.txt")
-        cfg.TempDir, cfg.LogDir = os.path.join(work, "tmp"), os.path.join(work, "logs")
-        cfg_path = os.path.join(work, "config.json")
-        cfg.save(cfg_path)
         t1 = time.perf_counter()
-        rc = cli.main_muscato([f"-ConfigFileName={cfg_path}", f"-device={dev}"])
-        t2 = time.perf_counter()
-        check(rc == 0, f"muscato_torch exited {rc}")
-        outs = {
-            "results": cfg.ResultsFileName,
-            "nonmatch": os.path.join(work, "results.nonmatch.txt.fastq"),
-            "readstats": os.path.join(work, "results_readstats.txt"),
-            "genestats": os.path.join(work, "results_genestats.txt"),
-        }
-        sizes = {k: os.path.getsize(p) for k, p in outs.items()}
+
+        def run(tag, **fields):
+            cfg = config()
+            cfg.ReadFileName, cfg.GeneFileName, cfg.GeneIdFileName = reads, seq, ids
+            cfg.ResultsFileName = os.path.join(work, f"{tag}.txt")
+            cfg.TempDir = os.path.join(work, f"tmp_{tag}")
+            cfg.LogDir = os.path.join(work, f"logs_{tag}")
+            for k, v in fields.items():
+                setattr(cfg, k, v)
+            cfg_path = os.path.join(work, f"{tag}.json")
+            cfg.save(cfg_path)
+            t = time.perf_counter()
+            rc = cli.main_muscato([f"-ConfigFileName={cfg_path}", f"-device={dev}"])
+            check(rc == 0, f"muscato_torch ({tag}) exited {rc}")
+            files = report_files(cfg.ResultsFileName)
+            out = {}
+            for k, p in files.items():
+                with open(p, "rb") as f:
+                    out[k] = f.read()
+            return out, time.perf_counter() - t
+
+        plain, t_plain = run("results")
+        sizes = {k: len(v) for k, v in plain.items()}
         check(all(s > 0 for s in sizes.values()), f"empty output: {sizes}")
-        with open(outs["results"], "rb") as f:
-            nres = f.read().count(b"\n")
+        nres = plain["results"].count(b"\n")
         check(nres > DRIVER_READS // 4, f"only {nres} result rows")
         print(f"driver: muscato_torch on {DRIVER_READS} reads (read count cut "
               f"from {NUM_READ}; index size, read length and windows uncut) x "
               f"{NUM_GENE} genes: {nres} result rows, files {sizes}; "
-              f"data+prep {t1 - t0:.1f}s, run {t2 - t1:.1f}s", flush=True)
+              f"data+prep {t1 - t0:.1f}s, run {t_plain:.1f}s", flush=True)
+        index_file = os.path.join(work, "index.npz")
+        saved, t_save = run("index_saved", IndexFile=index_file, NoCleanTemp=True)
+        check(os.path.exists(index_file), "the IndexFile run saved no index file")
+        loaded, t_load = run("index_loaded", IndexFile=index_file)
+        (kept,) = os.listdir(os.path.join(work, "tmp_index_saved"))
+        resumed, t_resume = run(
+            "resumed", ResumeDir=os.path.join(work, "tmp_index_saved", kept))
+        for tag, out in (("IndexFile saved", saved), ("IndexFile loaded", loaded),
+                         ("ResumeDir", resumed)):
+            check(out == plain, f"driver, {tag}: report files differ from the plain run's")
+        print(f"driver: IndexFile saving run {t_save:.1f}s "
+              f"({os.path.getsize(index_file)} bytes), loading run {t_load:.1f}s, "
+              f"ResumeDir run {t_resume:.1f}s; all four report files of each "
+              f"byte-identical to the plain run's", flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1327,13 +1486,14 @@ def main() -> int:
           f"dependent instructions: {json.dumps(measured_int_rates(dev))}", flush=True)
 
     kres = kernel_phase(dev, unstaged, variants, sub_variants)
-    flag, flag_sw = match_phases(dev)
+    flag, flag_sw, flag_nd = match_phases(dev)
     driver_phase(dev)
 
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1],
          "launches": (flag if name in DEFAULT_PATH else flag_sw)["launches"][name],
+         "launches_streaming": flag_nd["launches"][name],
          "max_abs_err": kres[name]["max_abs_err"], "ms": kres[name]["ms"],
          "plain_ms": kres[name]["plain_ms"], "bound_ms": kres[name]["bound_ms"],
          "bound_by": kres[name]["bound_by"], "library_ms": kres[name]["library_ms"],

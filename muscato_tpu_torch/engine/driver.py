@@ -6,12 +6,15 @@ muscato_tmp/<uuid>/ and muscato_logs/<uuid>/, the merged config goes to
 LogDir/config.json, per-stage log files and seqinfo.json land in LogDir,
 reads_sorted.txt.sz and matches.npz go to TempDir (removed at exit unless
 NoCleanTemp), and results.txt, the nonmatch fastq, readstats and genestats
-are written byte for byte as the JAX package writes them.  The compute
-stages run on the ``device`` given to ``run``.
+are written byte for byte as the JAX package writes them.  IndexFile
+loads the sorted target index from its file when the file exists, else
+builds it and saves it there; ResumeDir reuses an earlier run's
+matches.npz and skips the index and the matching.  The compute stages run
+on the ``device`` given to ``run``.
 
-Not ported yet (each raises NotImplementedError naming it): IndexFile,
-ResumeDir, the device mesh (Mesh "DPxMP") and the multi-host runtime
-(Coordinator / ProcessCount).
+Not ported yet (each raises NotImplementedError naming it): the device
+mesh (Mesh "DPxMP") and the multi-host runtime (Coordinator /
+ProcessCount).
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from ..io import targets as targets_io
 
 from ..device import resolve_device
 from . import pipeline, report
-from .index import build_target_index
+from .index import TargetIndex, build_target_index
 
 
 def make_run_dirs(cfg: Config) -> str:
@@ -76,10 +79,6 @@ def _setup_logging(cfg: Config) -> logging.Logger:
 
 
 def _check_ported(cfg: Config) -> None:
-    if cfg.IndexFile:
-        raise NotImplementedError("IndexFile is not ported to muscato_tpu_torch yet")
-    if cfg.ResumeDir:
-        raise NotImplementedError("ResumeDir is not ported to muscato_tpu_torch yet")
     if cfg.Coordinator or cfg.ProcessCount:
         raise NotImplementedError(
             "the multi-host runtime is not ported to muscato_tpu_torch yet"
@@ -114,11 +113,32 @@ def run(cfg: Config, device="cuda") -> None:
             shutil.rmtree(cfg.TempDir, ignore_errors=True)
 
 
+def _build_or_load_index(cfg: Config, ts, device) -> TargetIndex:
+    ilog = logging.getLogger("muscato.index")
+    if cfg.IndexFile and os.path.exists(cfg.IndexFile):
+        t0 = time.time()
+        index = TargetIndex.load(cfg.IndexFile, ts, cfg.WindowWidth, device)
+        ilog.info(
+            "loaded index %s: %d window keys in %.2fs",
+            cfg.IndexFile, index.num_valid, time.time() - t0,
+        )
+        return index
+    t0 = time.time()
+    index = build_target_index(ts, cfg.WindowWidth, device)
+    ilog.info(
+        "built index: %d bases -> %d window keys in %.2fs",
+        index.num_bases, index.num_valid, time.time() - t0,
+    )
+    if cfg.IndexFile:
+        index.save(cfg.IndexFile)
+        ilog.info("saved index to %s", cfg.IndexFile)
+    return index
+
+
 def _run_stages(cfg: Config, logger: logging.Logger, device) -> None:
     t0 = time.time()
     plog = logging.getLogger("muscato.prep")
     rlog = logging.getLogger("muscato.report")
-    ilog = logging.getLogger("muscato.index")
 
     sys.stderr.write("Preparing reads...\n")
     ts_prep = time.time()
@@ -147,33 +167,39 @@ def _run_stages(cfg: Config, logger: logging.Logger, device) -> None:
         ts.num_genes, ts.size, time.time() - ts_tgt,
     )
 
-    sys.stderr.write("Screening and confirming...\n")
-
-    def _match():
-        ti = time.time()
-        index = build_target_index(ts, cfg.WindowWidth, device)
-        ilog.info(
-            "built index: %d bases -> %d window keys in %.2fs",
-            index.num_bases, index.num_valid, time.time() - ti,
+    resume = os.path.join(cfg.ResumeDir, "matches.npz") if cfg.ResumeDir else ""
+    if resume and os.path.exists(resume):
+        # Stage-artifact resume: reuse a previous run's verified matches.
+        sys.stderr.write(f"Resuming matches from {resume}...\n")
+        d = np.load(resume)
+        mr = pipeline.MatchResult(
+            read_row=d["read_row"], gene=d["gene"],
+            start=d["start"], nmiss=d["nmiss"],
         )
-        return pipeline.run_matching_indexed(cfg, rs, index)
-
-    if cfg.CPUProfile:
-        # The reference's --CPUProfile profiles the screen; here the
-        # matching stage runs under torch.profiler (CPU and, on a GPU,
-        # CUDA activity) and the trace lands in LogDir.
-        import torch
-
-        acts = [torch.profiler.ProfilerActivity.CPU]
-        if device.type == "cuda":
-            acts.append(torch.profiler.ProfilerActivity.CUDA)
-        trace = os.path.join(cfg.LogDir, "trace.json")
-        with torch.profiler.profile(activities=acts) as prof:
-            mr = _match()
-        prof.export_chrome_trace(trace)
-        logger.info("profiler trace written to %s", trace)
+        logger.info("resumed %d matches from %s", len(mr.read_row), resume)
     else:
-        mr = _match()
+        sys.stderr.write("Screening and confirming...\n")
+
+        def _match():
+            index = _build_or_load_index(cfg, ts, device)
+            return pipeline.run_matching_indexed(cfg, rs, index)
+
+        if cfg.CPUProfile:
+            # The reference's --CPUProfile profiles the screen; here the
+            # matching stage runs under torch.profiler (CPU and, on a GPU,
+            # CUDA activity) and the trace lands in LogDir.
+            import torch
+
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            trace = os.path.join(cfg.LogDir, "trace.json")
+            with torch.profiler.profile(activities=acts) as prof:
+                mr = _match()
+            prof.export_chrome_trace(trace)
+            logger.info("profiler trace written to %s", trace)
+        else:
+            mr = _match()
 
     logger.info("retained %d matches", len(mr.read_row))
     np.savez(

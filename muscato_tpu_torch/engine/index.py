@@ -15,7 +15,10 @@ arrays are uploaded to an explicit device:
 
 The second hash word never goes to the device: the probe joins on key1
 alone, and key1 collisions between distinct wide k-mers die in the
-byte-true verify.
+byte-true verify.  The host keeps the sorted (key1, key2, position)
+arrays for ``TargetIndex.save``, whose file ``TargetIndex.load`` reads
+back instead of building; the file is the JAX package's index file, and
+each package reads the other's.
 """
 
 from __future__ import annotations
@@ -33,6 +36,8 @@ from ..ops import windows as winops
 
 INVALID_KEY = np.uint32(0xFFFFFFFF)
 
+INDEX_FORMAT_VERSION = 2
+
 
 @dataclass
 class TargetIndex:
@@ -44,6 +49,8 @@ class TargetIndex:
     width: int
     num_valid: int
     num_bases: int
+    # Host copies of the sorted (skeys, skeys2, spos) that save() writes.
+    host_arrays: tuple | None = field(default=None, repr=False)
     build_timings: dict | None = field(default=None, repr=False)
     _trows: tuple | None = field(default=None, repr=False)
     _gblock: tuple | None = field(default=None, repr=False)
@@ -66,6 +73,43 @@ class TargetIndex:
             gb, steps = pops.build_gene_block(self.gene_start_np, self.num_bases)
             self._gblock = (torch.from_numpy(gb).to(self.device), steps)
         return self._gblock
+
+    def save(self, path: str) -> None:
+        """Write the sorted key arrays (npz: version, width, num_valid,
+        num_bases, skeys, skeys2, spos), so that later runs skip the build
+        sort; tpacked and gene_start are recomputed from the TargetSet."""
+        k1, k2, sp = self.host_arrays
+        np.savez(
+            path,
+            version=np.int64(INDEX_FORMAT_VERSION),
+            width=np.int64(self.width),
+            num_valid=np.int64(self.num_valid),
+            num_bases=np.int64(self.num_bases),
+            skeys=k1, skeys2=k2, spos=sp,
+        )
+
+    @classmethod
+    def load(cls, path: str, ts: TargetSet, width: int, device) -> "TargetIndex":
+        """An index file written by ``save`` (or by the JAX package) for
+        the TargetSet ``ts`` at ``width``, on ``device``; raises ValueError
+        for another format version, width or base count."""
+        device = torch.device(device)
+        d = np.load(path)
+        if int(d["version"]) != INDEX_FORMAT_VERSION:
+            raise ValueError(f"index file {path}: unsupported version {int(d['version'])}")
+        if int(d["width"]) != width or int(d["num_bases"]) != int(ts.gene_start[-1]):
+            raise ValueError(
+                f"index file {path} was built for a different width/target set"
+            )
+        k1, k2, sp = d["skeys"], d["skeys2"], d["spos"]
+        gene_start_np = np.asarray(ts.gene_start, dtype=np.int64).astype(np.int32)
+        return cls(
+            tpacked=_upload(pops.pack_stream(np.asarray(ts.tcat)), device),
+            gene_start=_upload(gene_start_np, device), gene_start_np=gene_start_np,
+            skeys=_upload(k1, device), spos=_upload(sp, device), width=width,
+            num_valid=int(d["num_valid"]), num_bases=int(d["num_bases"]),
+            host_arrays=(k1, k2, sp),
+        )
 
 
 def _boundary_cumsum_np(gene_start: np.ndarray, s: int) -> np.ndarray:
@@ -130,14 +174,16 @@ def build_target_index(ts: TargetSet, width: int, device) -> TargetIndex:
     s = int(ts.gene_start[-1])
     if s > np.iinfo(np.int32).max:
         raise NotImplementedError(
-            "gene-range sharding (targets above 2**31-1 bases) is not "
-            "ported to muscato_tpu_torch yet"
+            "single-shard target index limited to 2**31-1 positions; "
+            "shard by gene range (pipeline.run_matching_gene_sharded) for "
+            "larger databases"
         )
     gene_start_np = np.asarray(ts.gene_start, dtype=np.int64).astype(np.int32)
     t0 = time.perf_counter()
-    k1, _k2, sp, nvalid = _host_index_arrays(np.asarray(ts.tcat), gene_start_np, width)
+    k1, k2, sp, nvalid = _host_index_arrays(np.asarray(ts.tcat), gene_start_np, width)
     if nvalid == 0:
         k1 = np.array([INVALID_KEY], np.uint32)
+        k2 = np.array([INVALID_KEY], np.uint32)
         sp = np.array([-1], np.int32)
     t_host = time.perf_counter()
     tpacked_np = pops.pack_stream(np.asarray(ts.tcat))
@@ -156,5 +202,5 @@ def build_target_index(ts: TargetSet, width: int, device) -> TargetIndex:
     return TargetIndex(
         tpacked=tpacked, gene_start=gene_start, gene_start_np=gene_start_np,
         skeys=skeys, spos=spos, width=width, num_valid=nvalid, num_bases=s,
-        build_timings=timings,
+        host_arrays=(k1, k2, sp), build_timings=timings,
     )

@@ -1,11 +1,15 @@
 """End-to-end matching on one device (port of
-``muscato_tpu/engine/pipeline.py``'s single-device dedup path).
+``muscato_tpu/engine/pipeline.py``'s single-device engine).
 
 Unique reads stream through the resident target index in batches; each
 batch runs probe -> expand -> verify -> rank on the device
 (``ops/fused.py``) and only the retained rows come back to the host.
 Multi-batch runs re-apply the per-group MaxMatches cap and the dedup/rank
-over the union on the host, as the JAX engine does.
+over the union on the host, as the JAX engine does.  A batch takes the
+diagonal-dedup expand, or, for NoDedup, more than 31 windows or a pair
+total above ``_MAX_PAIR_CAP``, the streaming expand, as in the JAX engine.
+Targets above 2**31-1 bases run as sequential gene-range shards
+(``run_matching_gene_sharded``).
 
 The JAX package's switches select the same alternatives here, read when a
 run starts: ``MUSCATO_PJOIN=0`` takes the sort-merge probe instead of the
@@ -13,12 +17,10 @@ sorted join (unset or ``1`` keeps the join, as ``TUNED.json`` sets it), and
 ``MUSCATO_PEXPAND_SUB=1`` runs the pair expansion on the sub-chunked B6
 kernel instead of B2.  Both give the same MatchResult.
 
-Not ported yet (each raises NotImplementedError naming it): the streaming
-expand (NoDedup, more than 31 windows, or a pair total above
-``_MAX_PAIR_CAP``), the search and direct probes, and gene-range sharding.
-The JAX engine's kernel-disable net and its window-overflow ladders are
-not ported at all: they exist for Mosaic's windows, and the GPU kernels
-have none.
+Not ported yet: the search and direct probes (``probe="search"`` raises
+NotImplementedError; the sorted join gives the same results).  The JAX
+engine's kernel-disable net and its window-overflow ladders are not ported
+at all: they exist for Mosaic's windows, and the GPU kernels have none.
 """
 
 from __future__ import annotations
@@ -59,8 +61,8 @@ def _round_up(n: int, to: int) -> int:
 
 
 # Pair-buffer floor for the dedup expand (sized per batch from the probe's
-# pair total in quarter-power-of-two buckets), and the ceiling past which
-# the JAX engine streams the expansion instead.
+# pair total in quarter-power-of-two buckets), the ceiling past which a
+# batch streams the expansion instead, and the first survivor capacity.
 _PAIR_FLOOR = 1 << 18
 _MAX_PAIR_CAP = 1 << 26
 _SURV_CAP0 = 1 << 16
@@ -90,8 +92,65 @@ def _switch(name: str, default: bool) -> bool:
 def run_matching(cfg: Config, rs: ReadSet, ts: TargetSet, *, device,
                  index: TargetIndex | None = None) -> MatchResult:
     if index is None:
+        if int(ts.gene_start[-1]) > np.iinfo(np.int32).max:
+            # Past the int32 position limit the targets run as sequential
+            # gene-range shards on the one device.
+            nsh = int(-(-int(ts.gene_start[-1]) // (3 << 29)))
+            return run_matching_gene_sharded(cfg, rs, ts, nsh, device=device)
         index = build_target_index(ts, cfg.WindowWidth, device)
     return run_matching_indexed(cfg, rs, index)
+
+
+def run_matching_gene_sharded(cfg: Config, rs: ReadSet, ts: TargetSet,
+                              nshards: int, *, device,
+                              timings: dict | None = None) -> MatchResult:
+    """Sequential gene-range sharding on one device: build and probe one
+    contiguous gene-range index at a time, then run the cap, dedup and
+    rank over the union.  Candidate sets are disjoint across gene ranges,
+    so the result is the single-index run's.  ``timings``, when given,
+    receives 'shards': per shard its gene range, the index build seconds
+    and the matching seconds (host clock, ending in a synchronise)."""
+    bounds = np.searchsorted(
+        np.asarray(ts.gene_start),
+        np.linspace(0, int(ts.gene_start[-1]), nshards + 1),
+    ).astype(np.int64)
+    bounds[0], bounds[-1] = 0, ts.num_genes
+    parts = []
+    shard_times = []
+    for si in range(nshards):
+        lo, hi = int(bounds[si]), int(bounds[si + 1])
+        if hi <= lo:
+            continue
+        start = int(ts.gene_start[lo])
+        end = int(ts.gene_start[hi])
+        sub = TargetSet(
+            tcat=np.asarray(ts.tcat[start:end]),
+            gene_start=np.asarray(ts.gene_start[lo : hi + 1]) - start,
+            names=list(ts.names[lo:hi]),
+            lengths=np.asarray(ts.lengths[lo:hi]),
+        )
+        t0 = time.perf_counter()
+        index = build_target_index(sub, cfg.WindowWidth, device)
+        t1 = time.perf_counter()
+        rows = run_matching_indexed(cfg, rs, index, _defer_rank=True)
+        del index
+        rows[:, 1] += lo  # shard-local gene -> global gene
+        parts.append(rows)
+        shard_times.append(dict(genes=[lo, hi], build_s=t1 - t0,
+                                match_s=time.perf_counter() - t1))
+        logger.info(
+            "gene shard %d/%d (genes [%d,%d)): %d survivors",
+            si + 1, nshards, lo, hi, len(rows),
+        )
+    if timings is not None:
+        timings["shards"] = shard_times
+    if not sum(len(p) for p in parts):
+        z = np.zeros(0, dtype=np.int32)
+        return MatchResult(z, z, z, z)
+    rows = np.concatenate(parts)
+    r, g, s, nx, grp, grp2, win = (rows[:, i] for i in range(fused.NCOL))
+    r, g, s, nx = _apply_max_matches(cfg, r, g, s, nx, grp, grp2, win)
+    return _dedup_and_rank(cfg, r, g, s, nx)
 
 
 class _StageClock:
@@ -124,26 +183,26 @@ class _StageClock:
 
 def run_matching_indexed(cfg: Config, rs: ReadSet, index: TargetIndex,
                          probe: str | None = None,
-                         timings: dict | None = None) -> MatchResult:
+                         timings: dict | None = None,
+                         _defer_rank: bool = False):
     """Match a ReadSet against a prebuilt index on the index's device.
 
     probe: None or 'sort' (the sorted-join probe, or the sort-merge probe
     under MUSCATO_PJOIN=0; their results are exact like the search
-    probe's).  MUSCATO_PEXPAND_SUB=1 expands on B6.  timings, when given,
-    receives per-stage seconds under 'stages' (probe, expand_verify, rank;
-    CUDA-event device time on a GPU), the host seconds spent packing and
-    uploading read batches ('read_prep_s') and fetching and unpacking the
-    retained rows ('fetch_s'), 'pairs' (the candidate pair total) and
-    'batches'."""
+    probe's).  MUSCATO_PEXPAND_SUB=1 expands on B6.  _defer_rank returns
+    the raw (N, NCOL) rows, ranked per batch with every column, instead of
+    the MatchResult (gene-range sharding ranks the union of its shards).
+    timings, when given, receives per-stage seconds under 'stages' (probe,
+    expand_verify, rank; CUDA-event device time on a GPU), the host
+    seconds spent packing and uploading read batches ('read_prep_s') and
+    fetching and unpacking the retained rows ('fetch_s'), 'pairs' (the
+    candidate pair total), 'batches', and 'chunks' (the streaming
+    expand's chunks run, re-runs after a survivor overflow included; 0
+    when every batch took the dedup expand)."""
     if probe not in (None, "sort"):
         raise NotImplementedError(
             f"the {probe!r} probe is not ported to muscato_tpu_torch; the "
             "sorted-join probe gives the same results"
-        )
-    if len(cfg.Windows) > 31 or cfg.NoDedup:
-        raise NotImplementedError(
-            "the streaming expand (NoDedup or more than 31 windows) is not "
-            "ported to muscato_tpu_torch yet"
         )
     probe_fn = (fused._probe_windows_pjoin_impl if _switch("MUSCATO_PJOIN", True)
                 else fused._probe_windows_impl)
@@ -157,6 +216,7 @@ def run_matching_indexed(cfg: Config, rs: ReadSet, index: TargetIndex,
         vops.mismatch_budget_table(cfg.PMatch, cfg.MaxReadLength)
     ).to(device)
     vchunk = cfg.MaxPairChunk or (1 << 20)
+    pair_chunk = cfg.MaxPairChunk or (1 << 17)
     q1s = tuple(int(q) for q in cfg.Windows)
 
     # The reference aborts when a window seeds no reads
@@ -174,11 +234,13 @@ def run_matching_indexed(cfg: Config, rs: ReadSet, index: TargetIndex,
     surv_cap = _SURV_CAP0
     # Single-batch retained rows come back 64-bit packed; the multi-batch
     # path re-caps across batches and needs the group columns.
-    pack_bits = _fetch_pack_bits(index, batch, cfg) if nbatches == 1 else None
+    full_cols = _defer_rank or nbatches > 1
+    pack_bits = None if full_cols else _fetch_pack_bits(index, batch, cfg)
     clock = _StageClock(device) if timings is not None else None
 
     surv_rows = []
     total_pairs = 0
+    chunks = 0
     read_prep_s = 0.0
     for b0 in range(0, nreads, batch):
         t_batch = time.perf_counter()
@@ -198,30 +260,43 @@ def run_matching_indexed(cfg: Config, rs: ReadSet, index: TargetIndex,
                 "2**30 expansion limit; re-run with a smaller ReadBatch (or "
                 "raise MinDinuc)"
             )
-        if total > _MAX_PAIR_CAP:
-            raise NotImplementedError(
-                f"a batch with {total} candidate pairs needs the streaming "
-                "expand, which is not ported to muscato_tpu_torch yet; "
-                "re-run with a smaller ReadBatch"
-            )
         if clock:
             clock.mark("expand_verify")
-        pair_cap = max(_PAIR_FLOOR, _bucket_ceil(total))
-        ver = fused.expand_verify_dedup(
-            pr, q1s, rpacked, lengths, index.spos, index.gene_start, budget,
-            width=width, max_read_length=cfg.MaxReadLength, pair_cap=pair_cap,
-            vchunk=min(vchunk, pair_cap), smax=index.num_bases, trows=trows,
-            gblock=gblock, gsteps=gsteps, subchunk=subchunk,
-        )
-        nsurv = int(ver.nsurv)
-        # Survivor-capacity regrow: the sorted survivors are all on the
-        # device, so growing the buffer re-runs nothing.
-        while nsurv > surv_cap:
-            surv_cap = max(surv_cap * 2, _bucket_ceil(nsurv))
-        buf = fused.survivor_rows(
-            ver, pr.keyf, pr.key2f, nreads=rpacked.shape[0], nwin=len(q1s),
-            surv_cap=surv_cap,
-        )
+        if len(q1s) <= 31 and not cfg.NoDedup and total <= _MAX_PAIR_CAP:
+            pair_cap = max(_PAIR_FLOOR, _bucket_ceil(total))
+            ver = fused.expand_verify_dedup(
+                pr, q1s, rpacked, lengths, index.spos, index.gene_start, budget,
+                width=width, max_read_length=cfg.MaxReadLength, pair_cap=pair_cap,
+                vchunk=min(vchunk, pair_cap), smax=index.num_bases, trows=trows,
+                gblock=gblock, gsteps=gsteps, subchunk=subchunk,
+            )
+            nsurv = int(ver.nsurv)
+            # Survivor-capacity regrow: the sorted survivors are all on the
+            # device, so growing the buffer re-runs nothing.
+            while nsurv > surv_cap:
+                surv_cap = max(surv_cap * 2, _bucket_ceil(nsurv))
+            buf = fused.survivor_rows(
+                ver, pr.keyf, pr.key2f, nreads=rpacked.shape[0], nwin=len(q1s),
+                surv_cap=surv_cap,
+            )
+        else:
+            # The streaming expand writes survivors in chunk order and drops
+            # those past the buffer, so an overflow re-runs the stage with
+            # the grown capacity (the probe is reused), as the JAX engine does.
+            while True:
+                st = fused.expand_verify_streamed(
+                    pr, q1s, rpacked, lengths, index.spos, index.gene_start,
+                    budget, width=width, max_read_length=cfg.MaxReadLength,
+                    pair_chunk=pair_chunk, surv_cap=surv_cap,
+                    smax=index.num_bases, trows=trows, gblock=gblock,
+                    gsteps=gsteps, total=total, subchunk=subchunk,
+                )
+                chunks += st.chunks
+                nsurv = int(st.nsurv)
+                if nsurv <= surv_cap:
+                    break
+                surv_cap = max(surv_cap * 2, _bucket_ceil(nsurv))
+            buf = st.surv
         if clock:
             clock.mark("rank")
         total_pairs += total
@@ -229,7 +304,7 @@ def run_matching_indexed(cfg: Config, rs: ReadSet, index: TargetIndex,
         if nsurv:
             rows_dev, count_d = fused.rank_survivors(
                 buf, nsurv, cfg.MaxMatches, cfg.MMTol,
-                match_mode=cfg.MatchMode, full_cols=nbatches > 1,
+                match_mode=cfg.MatchMode, full_cols=full_cols,
                 pack_bits=pack_bits,
             )
             count = int(count_d)
@@ -257,11 +332,16 @@ def run_matching_indexed(cfg: Config, rs: ReadSet, index: TargetIndex,
         timings["fetch_s"] = time.perf_counter() - t_fetch
         timings["pairs"] = total_pairs
         timings["batches"] = nbatches
+        timings["chunks"] = chunks
     logger.info(
         "windows %s: %d candidate pairs, %d retained",
         cfg.Windows, total_pairs, sum(len(x) for x in fetched),
     )
 
+    if _defer_rank:
+        if not fetched:
+            return np.zeros((0, fused.NCOL), dtype=np.int32)
+        return np.concatenate(fetched)
     if not fetched:
         z = np.zeros(0, dtype=np.int32)
         return MatchResult(z, z, z, z)

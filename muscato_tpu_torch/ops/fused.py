@@ -16,6 +16,13 @@ function named in its docstring:
   rank     MaxMatches cap, (read, gene, start) dedup and per-read
            best+MMTol over the survivors, with a B3 segment-min broadcast.
 
+Where the dedup expand cannot run (NoDedup, more than 31 windows, or a
+pair total above the engine's pair-buffer ceiling) the streaming stage
+``expand_verify_streamed`` replaces expand and verify: fixed-size chunks
+of pair lanes, each expanded by B2 (or B6) over its window of probe
+slots, its postings fetched by B3 and each pair verified on its own, the
+survivors appended to one buffer.
+
 The JAX package's main-path configuration is the default: the pjoin probe,
 PEXPAND, MGATHER and DORDER, which on the GPU are simply the way the stage
 runs.  The engine takes the sort-merge probe and the B6 expand on the JAX
@@ -37,7 +44,7 @@ import torch
 from . import join as _join
 from .expand import expand_owners
 from .gather import monotone_gather
-from .packed import M32, to_i32, u64, verify_diagonals_packed
+from .packed import M32, to_i32, u64, verify_diagonals_packed, verify_pairs_packed
 from .window_queries import window_queries
 
 NCOL = 7  # r, g, s, nx, group1, group2, window
@@ -61,6 +68,21 @@ def _key_u(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """int64 whose signed order is the lexicographic unsigned order of
     (a, b), both int64 values in [0, 2**32)."""
     return (a - _TWO31) * _TWO32 + b
+
+
+def _forward_fill(flag: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """out[i] = v[j] for the last j <= i with flag[j]; flag[0] must be set.
+    Where v never decreases over the flagged lanes this is the running max
+    of where(flag, v, min), computed with no scan: each flagged lane
+    writes its value at its group id (the other lanes at a dump slot past
+    the end), and every lane reads its group's entry back by a monotone
+    B3 gather.  v must fit int32."""
+    n = flag.shape[0]
+    gid = (torch.cumsum(flag, 0) - 1).to(torch.int32)
+    tab = torch.zeros(n + 1, dtype=torch.int32, device=flag.device)
+    tab[torch.where(flag, gid, n)] = v.to(torch.int32)
+    out, _ = monotone_gather(tab, gid)
+    return out
 
 
 def _lexsort(keys) -> torch.Tensor:
@@ -151,7 +173,7 @@ def _probe_windows_impl(rpacked, lengths, q1s, skeys, *, width, min_dinuc):
     is_idx = (pay_s == -1).to(torch.int64)
     ie = torch.cumsum(is_idx, 0) - is_idx  # index rows strictly before j
     del is_idx
-    seg_ie = torch.cummax(torch.where(seg, ie, -1), 0).values  # ie at my run start
+    seg_ie = _forward_fill(seg, ie)  # ie at my run start
     del seg
     counts_m = torch.where(pay_s >= 0, ie - seg_ie, 0).to(torch.int32)
     del ie
@@ -362,6 +384,107 @@ def expand_verify_dedup(pr: Probe, q1s, rpacked, lengths, spos, gene_start,
     )
 
 
+# ---- streaming expand + verify ---------------------------------------------
+
+
+class Streamed(NamedTuple):
+    surv: torch.Tensor  # (surv_cap, NCOL) survivor rows in chunk order
+    nsurv: torch.Tensor  # 0-d int64; above surv_cap, the rows past it were dropped
+    chunks: int  # chunks of pair lanes run
+
+
+def _stream_slots(counts_m, lo_m, qid_m, *, pair_chunk: int, total: int):
+    """The probe slots padded for the chunk windows (oexcl with the pair
+    total, lo with 0, qid with -1, pair_chunk + 1 slots each, as the JAX
+    function pads them) and each chunk's first owner slot, as host ints:
+    one searchsorted over every chunk base and one host copy."""
+    dev = counts_m.device
+    span = pair_chunk + 1
+    offsets = torch.cumsum(counts_m, 0)
+    oexcl = (offsets - counts_m).to(torch.int32)
+
+    def pad(x, value):
+        return torch.cat([x, torch.full((span,), value, dtype=torch.int32, device=dev)])
+
+    bases = torch.arange(-(-total // pair_chunk), dtype=torch.int64, device=dev) * pair_chunk
+    obs = torch.searchsorted(offsets, bases, right=True).clamp(max=counts_m.shape[0])
+    return pad(oexcl, total), pad(lo_m, 0), pad(qid_m, -1), obs.tolist()
+
+
+def _chunk_window(oexcl_p, lo_p, qid_p, ob: int, base: int, span: int):
+    """Slots [ob, ob + span) rebased to the chunk that starts at pair lane
+    ``base``: (oexcl - base, lo, qid), where the first slot, the only one
+    that starts at or before ``base`` (the live slots precede the empty
+    ones), gets oexcl 0 and its lo advanced by ``base - oexcl``.  B2 over
+    these gives each chunk lane its owner's qid and postings index."""
+    rel = oexcl_p[ob : ob + span] - base
+    return rel.clamp(min=0), lo_p[ob : ob + span] - rel.clamp(max=0), qid_p[ob : ob + span]
+
+
+def _expand_verify_impl(counts_m, lo_m, qid_m, keyf, key2f, q1s, rpacked, lengths,
+                        spos, gene_start, budget, trows, gblock, *, nreads, width,
+                        max_read_length, pair_chunk, surv_cap, smax, gsteps,
+                        total: int, subchunk=False) -> Streamed:
+    """Streaming expand + verify (port of ``fused._expand_verify_impl``):
+    the ``total`` pair lanes in chunks of ``pair_chunk``.  Each chunk finds
+    its lanes' owners with B2 (B6 with ``subchunk``) over its window of
+    pair_chunk + 1 slots, fetches their postings with B3 (the slots are in
+    lo order, so the stream is piecewise monotone), verifies each pair
+    with its own window offset, and writes its survivors (r, g, s, nx,
+    group1, group2, window) at ``nsurv + cumsum(keep) - 1``; rows past
+    ``surv_cap`` go to a dump row and are dropped.  ``nsurv`` stays on the
+    device until the caller reads it."""
+    dev = counts_m.device
+    nflat = keyf.shape[0]
+    span = pair_chunk + 1
+    oexcl_p, lo_p, qid_p, obs = _stream_slots(
+        counts_m, lo_m, qid_m, pair_chunk=pair_chunk, total=total
+    )
+    q1t = torch.tensor(q1s, dtype=torch.int32, device=dev)
+    lane = torch.arange(pair_chunk, dtype=torch.int32, device=dev)
+    buf = torch.zeros((surv_cap + 1, NCOL), dtype=torch.int32, device=dev)
+    nsurv = torch.zeros((), dtype=torch.int64, device=dev)
+    for ci, ob in enumerate(obs):
+        base = ci * pair_chunk
+        qid, sidx = expand_owners(
+            *_chunk_window(oexcl_p, lo_p, qid_p, ob, base, span),
+            pair_cap=pair_chunk, subchunk=subchunk,
+        )
+        in_range = (lane < total - base) & (qid >= 0)
+        site, _ = monotone_gather(spos, sidx.clamp(0, spos.shape[0] - 1))
+        qpos = qid.clamp(min=0)
+        k_lane = qpos // nreads
+        r = torch.where(in_range, qpos - k_lane * nreads, -1)
+        p = torch.where(in_range, site, -1)
+        keep, nx, g, s = verify_pairs_packed(
+            r, p, rpacked, lengths, gene_start, budget, q1t[k_lane.long()],
+            width, max_read_length, smax, trows, gblock, gsteps,
+        )
+        qc = qid.clamp(0, nflat - 1).long()
+        pos = nsurv + torch.cumsum(keep, 0) - 1
+        buf[torch.where(keep & (pos < surv_cap), pos, surv_cap)] = torch.stack(
+            [r, g, s, nx, keyf[qc], key2f[qc], k_lane], dim=1
+        )
+        nsurv = nsurv + keep.sum()
+    return Streamed(buf[:surv_cap], nsurv, len(obs))
+
+
+def expand_verify_streamed(pr: Probe, q1s, rpacked, lengths, spos, gene_start,
+                           budget, *, width, max_read_length, pair_chunk,
+                           surv_cap, smax, trows, gblock, gsteps, total: int,
+                           subchunk=False) -> Streamed:
+    """Streaming expand + verify of one batch from its probe; ``total`` is
+    the probe's pair total, read by the caller.  Memory is O(pair_chunk)
+    whatever the pair count, and it verifies any number of windows."""
+    return _expand_verify_impl(
+        pr.counts, pr.lo, pr.qid, pr.keyf, pr.key2f, tuple(q1s), rpacked,
+        lengths, spos, gene_start, budget, trows, gblock,
+        nreads=rpacked.shape[0], width=width, max_read_length=max_read_length,
+        pair_chunk=pair_chunk, surv_cap=surv_cap, smax=smax, gsteps=gsteps,
+        total=total, subchunk=subchunk,
+    )
+
+
 # ---- rank ----------------------------------------------------------------
 
 
@@ -439,7 +562,7 @@ def _rank_core_packed(buf, live, mm, mmtol, *, match_mode, pack_bits):
     newgrp = _cat_first(
         (dw[1:] != dw[:-1]) | (grp_u[1:] != grp_u[:-1]) | (grp2_u[1:] != grp2_u[:-1])
     )
-    seg_start = torch.cummax(torch.where(newgrp, iota, 0), 0).values
+    seg_start = _forward_fill(newgrp, iota)
     cap = mm + (1 if match_mode == "first" else 0)
     keep = (dw < (1 << 16)) & ((iota - seg_start) < cap)
 
@@ -500,7 +623,7 @@ def _rank_core(buf, live, mm, mmtol, *, match_mode, full_cols=True,
     newgrp = _cat_first(
         (win[1:] != win[:-1]) | (grp[1:] != grp[:-1]) | (grp2[1:] != grp2[:-1])
     )
-    seg_start = torch.cummax(torch.where(newgrp, iota, 0), 0).values
+    seg_start = _forward_fill(newgrp, iota)
     cap = mm + (1 if match_mode == "first" else 0)
     keep = (dead_s == 0) & ((iota - seg_start) < cap)
     extras = (grp, grp2, win) if full_cols else ()

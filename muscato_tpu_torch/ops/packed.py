@@ -7,9 +7,12 @@ little-endian nibble order.  Packed words are stored as int32 bit patterns
 on int64 copies holding values in [0, 2**32), because torch has no logical
 right shift on int32 and no uint32 shifts on the CPU.
 
-Only the engine's main path is ported here: ``verify_diagonals_packed`` in
+Two verifies are ported: ``verify_diagonals_packed``, the dedup path's, in
 diagonal-major order with the target-row view (``trows``) fetched by the
-B4 row gather and the gene lookup on the B3 gather.
+B4 row gather and the gene lookup on the B3 gather; and
+``verify_pairs_packed``, the streaming path's, one pair a lane in the
+probe's lo order, whose row and gene streams are not monotone and are
+fetched by plain indexing.
 """
 
 from __future__ import annotations
@@ -120,6 +123,14 @@ def _trows_select(t: torch.Tensor, woff: torch.Tensor, nwords: int) -> torch.Ten
     return t[:, : nwords + 1]
 
 
+def _trows_fetch(trows: torch.Tensor, dc: torch.Tensor, nwords: int) -> torch.Tensor:
+    """Words tpacked[dc>>3 : (dc>>3) + nwords + 1] of each lane: one row
+    gather by plain indexing, then the 3-level column select."""
+    base = dc >> 3
+    t = trows[(base >> 3).clamp(0, trows.shape[0] - 1).long()]
+    return _trows_select(t, base & 7, nwords)
+
+
 def build_gene_block(gene_start_np: np.ndarray, smax: int):
     """Host-built block table for the gene lookup: gblock[b] = owning gene
     of stream position b*256, plus the refine step count (log2 of the
@@ -132,6 +143,23 @@ def build_gene_block(gene_start_np: np.ndarray, smax: int):
     span = int((gb[1:] - gb[:-1]).max(initial=0))
     steps = max(span, 1).bit_length()
     return gb, steps
+
+
+def gene_of_pos_block(gene_start, gblock, p, steps: int):
+    """Owning gene of each position of a position stream p in any order:
+    bounds from two adjacent gblock entries, then ``steps`` branchless
+    refines, each fetch a plain gather."""
+    g = gene_start.shape[0] - 1
+    nb = gblock.shape[0]
+    b = p >> GENE_BLOCK_BITS
+    lo = gblock[b.clamp(0, nb - 1).long()]
+    hi = gblock[(b + 1).clamp(0, nb - 1).long()]
+    for _ in range(steps):
+        mid = (lo + hi + 1) >> 1
+        up = gene_start[mid.clamp(0, g).long()] <= p
+        lo = torch.where(up, mid, lo)
+        hi = torch.where(up, hi, mid - 1)
+    return lo
 
 
 def gene_of_pos_block_mono(gene_start, gblock, p, steps: int):
@@ -234,3 +262,70 @@ def verify_diagonals_packed(
 
     okbits = torch.where(active & budget_ok, okbits, 0)
     return nx, g.to(torch.int32), s_local.to(torch.int32), okbits
+
+
+def verify_pairs_packed(
+    r: torch.Tensor,  # (P,) int32 read rows (-1 = inactive lane)
+    p: torch.Tensor,  # (P,) int32 global window positions (-1 = inactive)
+    rpacked: torch.Tensor,  # (R, NW) int32 nibble-packed reads
+    lengths: torch.Tensor,  # (R,) int32
+    gene_start: torch.Tensor,  # (G+1,) int32
+    budget: torch.Tensor,  # (max_read_length+1,) int32
+    q1,  # int or (P,) int32: the window offset of each pair lane
+    width: int,
+    max_read_length: int,
+    smax: int,
+    trows: torch.Tensor,  # (T, NW+9) int32 target-row view
+    gblock: torch.Tensor,  # gene block table
+    gsteps: int,
+):
+    """Verify one (read, window position) pair a lane, each with its own
+    window offset q1.  Returns (keep, nx, g, s): keep says the pair passes
+    (window region exact, left and right-tail fit including the
+    reference's pos-0 cap quirk, mismatch budget); s is the read start in
+    the gene."""
+    nwords = rpacked.shape[1]
+    active = (r >= 0) & (p >= 0)
+    rc = r.clamp(0, rpacked.shape[0] - 1).long()
+    pc = p.clamp(0, smax - 1)
+    q1 = torch.as_tensor(q1, dtype=torch.int32, device=r.device).expand(r.shape)
+
+    g = gene_of_pos_block(gene_start, gblock, pc, gsteps)
+    gstart = gene_start[g.long()]
+    glen = gene_start[(g + 1).long()] - gstart
+    p_local = pc - gstart
+    rlen = lengths[rc]
+
+    s_local = p_local - q1
+    left_ok = s_local >= 0
+    # Right-tail fit with the reference's pos-0 cap quirk: here the quirk
+    # keys on the window position, not on the read start.
+    q2 = q1 + width
+    cap_norm = p_local + width + (max_read_length - q2)
+    is_pos0 = (p_local == 0) & (q1 == 0)
+    cap_abs = torch.where(is_pos0, 100 - q2, cap_norm)
+    fit_ok = (rlen - q2) <= torch.minimum(glen, cap_abs) - (p_local + width)
+
+    # ---- SWAR mismatch count over the aligned diagonal ----
+    dc = (pc - q1).clamp(min=0)
+    rshift = ((dc & 7) * 4).to(torch.int64)[:, None]
+    tw = u64(_trows_fetch(trows, dc, nwords))
+    lowpart = tw[:, :-1] >> rshift
+    hipart = torch.where(
+        rshift == 0, 0, (tw[:, 1:] << ((32 - rshift) & 31)) & M32
+    )
+    x = (lowpart | hipart) ^ u64(rpacked[rc])
+    wordbase = torch.arange(nwords, dtype=torch.int64, device=r.device) * BASES_PER_WORD
+    x = x & _nibble_mask(rlen[:, None].to(torch.int64) - wordbase[None, :])
+    nz = (x | (x >> 1) | (x >> 2) | (x >> 3)) & _NIB1
+    nx = popcount32(nz).sum(dim=1).to(torch.int32)
+
+    q1w = q1.to(torch.int64)[:, None] - wordbase[None, :]
+    win_mask = _nibble_mask(q1w + width) & ~_nibble_mask(q1w)
+    win_mm = popcount32(nz & win_mask).sum(dim=1)
+
+    keep = (
+        active & left_ok & fit_ok & (win_mm == 0)
+        & (nx <= budget[rlen.clamp(0, budget.shape[0] - 1).long()])
+    )
+    return keep, nx, g.to(torch.int32), s_local.to(torch.int32)

@@ -1,7 +1,8 @@
 """The port's driver, CLI and report writers against the JAX package's on
 the same inputs: results.txt, the nonmatch fastq, readstats and genestats
-must be byte-identical.  Each package gets its own ReadSet, TargetSet and
-Config."""
+must be byte-identical, also for runs that load an index file or resume
+from an earlier run's matches, written by either package.  Each package
+gets its own ReadSet, TargetSet and Config."""
 
 import dataclasses
 import json
@@ -109,10 +110,60 @@ def test_driver_outputs_match_jax(files):
     assert os.listdir(d / "tmp_torch") == []  # TempDir cleaned up
 
 
+@pytest.fixture(scope="module")
+def first_runs(files):
+    """A JAX driver run that saves its index file and keeps its TempDir, and
+    a port run on the CPU that does the same: per package the index file,
+    the kept TempDir (with matches.npz) and the four report files' bytes."""
+    d = files[0]
+    out = {}
+    for name, config, run in (("jax", jconfig, jdriver.run),
+                              ("port", tconfig, lambda c: tdriver.run(c, device="cpu"))):
+        cfg = _cfg(files, f"{name}_first", config=config)
+        config.apply_defaults(cfg)
+        cfg.NoCleanTemp = True
+        cfg.IndexFile = str(d / f"{name}_index.npz")
+        run(cfg)  # sets cfg.TempDir to the run's own directory
+        assert os.path.exists(cfg.IndexFile)
+        out[name] = dict(index=cfg.IndexFile, temp=cfg.TempDir,
+                         reports=_outputs(cfg.ResultsFileName))
+    assert out["port"]["reports"] == out["jax"]["reports"]
+    return out
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_driver_index_file_matches_jax(files, first_runs, writer):
+    """The port's driver loads an index file written by either package and
+    writes the reports of the run that built it."""
+    cfg = _cfg(files, f"index_from_{writer}")
+    tconfig.apply_defaults(cfg)
+    cfg.IndexFile = first_runs[writer]["index"]
+    mtime = os.path.getmtime(cfg.IndexFile)
+    tdriver.run(cfg, device="cpu")
+    assert os.path.getmtime(cfg.IndexFile) == mtime  # loaded, not rewritten
+    with open(os.path.join(cfg.LogDir, "muscato_index.log")) as f:
+        assert "loaded index" in f.read()
+    assert _outputs(cfg.ResultsFileName) == first_runs["jax"]["reports"]
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_driver_resume_matches_jax(files, first_runs, writer):
+    """ResumeDir set to an earlier run's kept TempDir (its matches.npz
+    written by either package) skips the matching and writes that run's
+    reports."""
+    cfg = _cfg(files, f"resume_from_{writer}")
+    tconfig.apply_defaults(cfg)
+    cfg.ResumeDir = first_runs[writer]["temp"]
+    tdriver.run(cfg, device="cpu")
+    with open(os.path.join(cfg.LogDir, "muscato.log")) as f:
+        assert "resumed" in f.read()
+    assert os.path.getsize(os.path.join(cfg.LogDir, "muscato_screen.log")) == 0
+    assert _outputs(cfg.ResultsFileName) == first_runs["jax"]["reports"]
+
+
 @pytest.mark.parametrize(
     "field,value",
-    [("IndexFile", "x.npz"), ("ResumeDir", "prev"), ("Mesh", "2x4"),
-     ("Coordinator", "host:1")],
+    [("Mesh", "2x4"), ("Coordinator", "host:1")],
 )
 def test_driver_unported_options_raise(files, field, value):
     cfg = dataclasses.replace(_cfg(files, "unported"), **{field: value})

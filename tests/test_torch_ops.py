@@ -352,6 +352,26 @@ def test_verify_tail_matches_jax(stages):
     assert rows(surv.numpy()) == rows(surv_j)
 
 
+@pytest.mark.parametrize("n,density", [(1, 1.0), (5000, 0.01), (100_000, 0.3)])
+def test_forward_fill_matches_cummax(n, density):
+    """The rank's and the sort-merge probe's forward fill against
+    torch.cummax: random flags, the first lane always flagged, values
+    nondecreasing over the flagged lanes (as at every call site)."""
+    rng = np.random.default_rng(n)
+    flag = torch.from_numpy(rng.random(n) < density)
+    flag[0] = True
+    v = torch.from_numpy(np.cumsum(rng.integers(0, 3, n)))
+    exp = torch.cummax(torch.where(flag, v, -1), 0).values
+    got = tfused._forward_fill(flag, v)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), exp.numpy())
+    iota = torch.arange(n)
+    np.testing.assert_array_equal(
+        tfused._forward_fill(flag, iota).numpy(),
+        torch.cummax(torch.where(flag, iota, 0), 0).values.numpy(),
+    )
+
+
 def _rank_buf(seed):
     rng = np.random.default_rng(100 + seed)
     n = 2048

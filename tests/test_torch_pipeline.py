@@ -131,20 +131,11 @@ def test_survivor_capacity_regrows(workload, monkeypatch):
     _assert_same(tpipeline.run_matching(cfg, rs, ts, device="cpu"), exp)
 
 
-def test_unported_paths_raise(workload, monkeypatch):
+def test_unported_paths_raise(workload):
     rs, ts = workload
     index = tpipeline.build_target_index(ts, 20, "cpu")
-    with pytest.raises(NotImplementedError, match="streaming expand"):
-        tpipeline.run_matching_indexed(
-            dataclasses.replace(_cfg(20, (10, 30), 3), NoDedup=True), rs, index
-        )
-    with pytest.raises(NotImplementedError, match="streaming expand"):
-        tpipeline.run_matching_indexed(_cfg(20, tuple(range(32)), 3), rs, index)
     with pytest.raises(NotImplementedError, match="probe"):
         tpipeline.run_matching_indexed(_cfg(20, (10,), 3), rs, index, probe="search")
-    monkeypatch.setattr(tpipeline, "_MAX_PAIR_CAP", 16)
-    with pytest.raises(NotImplementedError, match="streaming expand"):
-        tpipeline.run_matching_indexed(_cfg(20, (10,), 3), rs, index)
 
 
 def test_cuda_is_never_picked_silently():
