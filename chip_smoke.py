@@ -51,7 +51,8 @@ qid in the ring or not, lanes a warp, register cut), all at once, then:
      identical; then through the streaming expand, each on cuda and on cpu:
      NoDedup, 32 windows (0, 2, ..., 62), and _MAX_PAIR_CAP set below the
      batch's pair total; the first and the last must also equal the
-     default run;
+     default run (these runs ask for the sorted join: at 100k reads the
+     engine would pick the search probe);
   4. runs the flagship (4M reads x 100 bp against 100,000 genes x 1,000 bp,
      windows 10,30,50,70 at width 20) through run_matching_indexed with
      every launch counter set to 0 first, prints reads/s, matches, the
@@ -68,9 +69,27 @@ qid in the ring or not, lanes a warp, register cut), all at once, then:
      the rank), counted, timed and profiled, whose MatchResult must equal
      the default run's; then times the probe stage of the flagship
      batch with B5 and with its plain twin, in turns, and with each probe
-     against small sorted prefixes of the index; then matches the
+     against small sorted prefixes of the index; then matches the 100k
+     reads of step 3 through probe="search" in direct mode and in binary
+     mode (forced by lowering engine.index.MAX_DIRECT_BITS while the aux
+     is built), each on cuda and on cpu, equal to the sorted join's
+     result, with each aux's build seconds and device bytes; then times
+     the probe stage on the direct and the binary search probe and the
+     sorted join
+     at 16,384, 65,536, 262,144 and 1,048,576 reads a batch (the first 4
+     batches of each); then runs the flagship in batches of 262,144 reads
+     (16 batches; the engine must auto-select the direct probe) and of
+     1,048,576 reads (4 batches, sorted join) with the next batch's probe
+     queued ahead of the wait on the current batch's total and under
+     MUSCATO_PREFETCH_PROBE=0 (the upload goes ahead in both), in turns,
+     each counted, timed and profiled once (busy share), each MatchResult
+     equal to the default run's, and times the host's cross-batch cap
+     and rank over the union of the 4 batches' rows; then matches the
      flagship as 3 gene-range shards (run_matching_gene_sharded), equal
      to the default run, with each shard's build and match times; then
+     runs the benchmark runner's twin (muscato_tpu_torch.bench.runner):
+     _bench_one on the flagship arrays, and its main entry point on the
+     small workload, whose JSON line must name reads_per_sec_chip; then
      runs the muscato_torch entry point on gendat files prepared by
      prep_targets (same index size, fewer reads) and checks its four
      output files, then runs it with an IndexFile that it saves, with the
@@ -135,6 +154,19 @@ STREAM_PATH = ("window_queries", "sorted_join", "expand_owners", "monotone_gathe
 STREAM_CHUNK = 1 << 17  # the engine's pair_chunk when MaxPairChunk is 0
 STREAM_WINDOWS = tuple(range(0, 64, 2))  # 32 windows: more than the dedup verify takes
 SHARDS = 3
+# The search probe's path (the direct or binary probe: no B1), which the
+# engine auto-selects when the index holds more than 64 keys a query of a
+# batch: the flagship in batches of SMALL_BATCH reads (16 batches).  The
+# flagship in MULTI_BATCH batches (4) takes the sorted join; it runs with
+# the next batch's probe queued ahead (MUSCATO_PREFETCH_PROBE) and without
+# (the next batch's upload goes ahead in both).  The probe stage is timed on each probe at the batch sizes
+# of CROSSOVER_BATCHES, over the first CROSSOVER_DEPTH batches of each.
+SEARCH_PATH = ("window_queries", "expand_owners", "monotone_gather", "monotone_gather_rows")
+SMALL_BATCH, MULTI_BATCH = 1 << 18, 1 << 20
+CROSSOVER_BATCHES = (1 << 14, 1 << 16, 1 << 18, 1 << 20)
+CROSSOVER_DEPTH = 4
+RUNNER_REPEATS = 2
+RUNNER_SMALL = ["--Workload", "small", "--NumRead", "1000000", "--Repeats", "2"]
 # Where the engine calls each kernel wrapper (module, attribute; fused
 # reaches B1 through its reference to the join module), and each kernel's
 # CUDA symbol as a profile names it.
@@ -985,19 +1017,22 @@ def cpu_copy(index):
 
     return dataclasses.replace(
         index, tpacked=index.tpacked.cpu(), gene_start=index.gene_start.cpu(),
-        skeys=index.skeys.cpu(), spos=index.spos.cpu(), _trows=None, _gblock=None,
+        skeys=index.skeys.cpu(), spos=index.spos.cpu(), _aux=None, _trows=None,
+        _gblock=None,
     )
 
 
 def flagship_run(dev, cfg, rs, ts, index, path) -> tuple:
     """One counted, timed run of the flagship through run_matching_indexed:
     every launch counter is set to 0 just before it and read just after;
-    fails unless each kernel of ``path`` launched.  Returns (MatchResult,
-    numbers)."""
+    fails unless each kernel of ``path`` launched.  The reads' device copy
+    that an earlier single-batch run left on the ReadSet is dropped first,
+    so that the run uploads them.  Returns (MatchResult, numbers)."""
     import torch
 
     from muscato_tpu_torch.engine import pipeline
 
+    rs._dev_cache = None
     wr = wrappers()
     for fn in wr.values():
         fn.launches = 0
@@ -1017,6 +1052,10 @@ def flagship_run(dev, cfg, rs, ts, index, path) -> tuple:
         pairs=timings["pairs"], wall_s=wall, reads_per_s=NUM_READ / wall,
         stage_s=stages, stages_sum_s=sum(stages.values()),
         host_read_prep_s=timings["read_prep_s"], host_fetch_s=timings["fetch_s"],
+        loop_s=timings["device_s"],
+        after_fetch_s=wall - timings["device_s"] - timings["fetch_s"],
+        batches=timings["batches"],
+        probe_kind=timings["probe_kind"],
         peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
         launches=launches, streaming_chunks=timings["chunks"],
     )
@@ -1223,6 +1262,169 @@ def probe_small_index(dev, cfg, rs, index) -> dict:
     return out
 
 
+def search_parity(cfg, sub, index, cpu_index, got) -> dict:
+    """The PARITY_READS reads through probe="search" against the full
+    index, in direct mode and in binary mode (forced by lowering
+    index.MAX_DIRECT_BITS below the direct table's bits while the aux is
+    built), each on cuda and on cpu: the two must be identical and equal
+    to the sorted join's MatchResult ``got``.  Prints each aux's build
+    seconds and device bytes; returns {mode: the cuda aux}, the index
+    keeping the direct one."""
+    from muscato_tpu_torch.engine import index as index_mod
+    from muscato_tpu_torch.engine import pipeline
+
+    auxes = {}
+    for mode in ("direct", "binary"):
+        saved = index_mod.MAX_DIRECT_BITS
+        if mode == "binary":
+            index_mod.MAX_DIRECT_BITS = auxes["direct"].bucket_bits - 1
+        try:
+            for idx in (index, cpu_index):
+                idx._aux = None
+                idx.search_aux()
+        finally:
+            index_mod.MAX_DIRECT_BITS = saved
+        aux = auxes[mode] = index._aux
+        check(aux.mode == mode and cpu_index._aux.mode == mode, f"{mode}: aux mode {aux.mode}")
+        t0 = time.perf_counter()
+        tg = {}
+        alt = pipeline.run_matching_indexed(cfg, sub, index, probe="search", timings=tg)
+        t1 = time.perf_counter()
+        alt_cpu = pipeline.run_matching_indexed(cfg, sub, cpu_index, probe="search")
+        t2 = time.perf_counter()
+        check(tg["probe_kind"] == mode, f"search parity ran the {tg['probe_kind']} probe")
+        check(same_result(alt, alt_cpu), f"search probe, {mode}: cuda and cpu MatchResults differ")
+        check(same_result(alt, got), f"search probe, {mode}: MatchResult differs from the sorted join's")
+        print(f"parity, search probe, {mode} mode ({aux.bucket_bits} bucket bits"
+              + (f", {aux.probe_steps} steps" if mode == "binary" else "")
+              + f"): aux built in {aux.build_s:.2f}s (cpu copy {cpu_index._aux.build_s:.2f}s), "
+              f"{aux.nbytes} device bytes; {len(alt.read_row)} matches identical on cuda "
+              f"({t1 - t0:.2f}s) and cpu ({t2 - t1:.2f}s) and to the sorted join's", flush=True)
+    index._aux = auxes["direct"]
+    cpu_index._aux = None
+    return auxes
+
+
+def probe_crossover(dev, cfg, rs, index, auxes) -> dict:
+    """The probe stage (probe_windows) on each probe, the direct and the
+    binary search probe and the sorted join, on the first CROSSOVER_DEPTH
+    batches of each size in CROSSOVER_BATCHES against the full index:
+    CUDA-event ms a batch (time_ms, reps 3), the arms in turns (reversed
+    on every other batch)."""
+    from muscato_tpu_torch.engine import pipeline
+    from muscato_tpu_torch.ops import fused
+
+    l_eff = int(rs.lengths.max())
+    arms = {"direct": auxes["direct"], "binary": auxes["binary"], "sort": None}
+    out = {}
+    for size in CROSSOVER_BATCHES:
+        times = {arm: [] for arm in arms}
+        for i, b0 in enumerate(range(0, CROSSOVER_DEPTH * size, size)):
+            rpacked, lengths = pipeline._device_read_batch(rs, b0, b0 + size, l_eff, dev)
+            for arm in (list(arms) if i % 2 == 0 else list(arms)[::-1]):
+                times[arm].append(time_ms(lambda: fused.probe_windows(
+                    rpacked, lengths, tuple(cfg.Windows), index.skeys,
+                    width=cfg.WindowWidth, min_dinuc=cfg.MinDinuc,
+                    index_aux=arms[arm]), reps=3))
+        out[f"ReadBatch={size}"] = dict(
+            queries=len(WINDOWS) * size,
+            auto="search" if index.skeys.shape[0] > 64 * len(WINDOWS) * size else "sort",
+            **{arm: dict(median_ms=statistics.median(t), ms=t) for arm, t in times.items()})
+    return out
+
+
+def batched_flagships(dev, cfg, rs, ts, index, mr) -> tuple:
+    """The flagship in SMALL_BATCH batches (16; the engine must pick the
+    direct probe) and in MULTI_BATCH batches (4, sorted join) with the next
+    batch's probe queued ahead and without (MUSCATO_PREFETCH_PROBE=0; the
+    upload goes ahead in both), in turns: each a warm-up, then counted and timed runs whose
+    MatchResult must equal the one-batch flagship's ``mr`` (each read lies
+    in one batch, and MaxMatches does not bind).  One profile of each
+    multi-batch arm gives the device's busy share of the loop window.
+    Returns the counted small-batch and prefetching multi-batch runs'
+    numbers."""
+    import dataclasses
+
+    from muscato_tpu_torch.engine import pipeline
+
+    cfg_sb = dataclasses.replace(cfg, ReadBatch=SMALL_BATCH)
+    pipeline.run_matching_indexed(cfg_sb, rs, index)
+    mr_sb, flag_sb = flagship_run(dev, cfg_sb, rs, ts, index, SEARCH_PATH)
+    check(same_result(mr_sb, mr), "small-batch flagship MatchResult differs")
+    check(flag_sb["probe_kind"] == "direct" and flag_sb["launches"]["sorted_join"] == 0,
+          f"small-batch flagship took the {flag_sb['probe_kind']} probe")
+    prof = kernel_profile(dev, cfg_sb, rs, index)
+    print(f"flagship in batches of {SMALL_BATCH} reads (auto-selected probe): "
+          + json.dumps(flag_sb) + "; profile " + json.dumps({k: prof[k] for k in (
+              "wall_s", "window_ms", "busy_ms", "busy_share")}), flush=True)
+
+    cfg_mb = dataclasses.replace(cfg, ReadBatch=MULTI_BATCH)
+    arms = {"prefetch": "1", "no_prefetch": "0"}
+    for value in arms.values():
+        with switched(MUSCATO_PREFETCH_PROBE=value):
+            pipeline.run_matching_indexed(cfg_mb, rs, index)
+    runs = {arm: [] for arm in arms}
+    for arm in ("prefetch", "no_prefetch", "no_prefetch", "prefetch"):
+        with switched(MUSCATO_PREFETCH_PROBE=arms[arm]):
+            mr_mb, flag_mb = flagship_run(dev, cfg_mb, rs, ts, index, DEFAULT_PATH)
+        check(same_result(mr_mb, mr), f"multi-batch flagship ({arm}) MatchResult differs")
+        check(flag_mb["batches"] == -(-NUM_READ // MULTI_BATCH)
+              and flag_mb["probe_kind"] == "sorted_join", "multi-batch flagship shape")
+        runs[arm].append(flag_mb)
+    for arm, value in arms.items():
+        with switched(MUSCATO_PREFETCH_PROBE=value):
+            prof = kernel_profile(dev, cfg_mb, rs, index)
+        keep = ("wall_s", "reads_per_s", "host_read_prep_s", "host_fetch_s", "loop_s",
+                "after_fetch_s", "stage_s", "stages_sum_s")
+        print(f"flagship in batches of {MULTI_BATCH} reads, {arm} (MUSCATO_PREFETCH_PROBE="
+              f"{value}): runs " + json.dumps([{k: r[k] for k in keep} for r in runs[arm]])
+              + "; profile " + json.dumps({k: prof[k] for k in (
+                  "wall_s", "window_ms", "busy_ms", "busy_share")}), flush=True)
+    print(f"flagship in batches of {MULTI_BATCH} reads, prefetch, launches and the rest: "
+          + json.dumps(runs["prefetch"][-1]), flush=True)
+    # The host's share after the fetch: the cross-batch cap and rank over
+    # the union of the batches' rows, each timed on its own.
+    rows = pipeline.run_matching_indexed(cfg_mb, rs, index, _defer_rank=True)
+    t0 = time.perf_counter()
+    capped = pipeline._apply_max_matches(cfg_mb, *(rows[:, i] for i in range(rows.shape[1])))
+    t1 = time.perf_counter()
+    ranked = pipeline._dedup_and_rank(cfg_mb, *capped)
+    t2 = time.perf_counter()
+    check(same_result(ranked, mr), "multi-batch union rank differs")
+    print(f"flagship in batches of {MULTI_BATCH} reads, the host's union of {len(rows)} rows: "
+          f"cap {t1 - t0:.3f}s, dedup and rank {t2 - t1:.3f}s", flush=True)
+    return flag_sb, runs["prefetch"][-1]
+
+
+def runner_phase(dev, cfg, rs, ts, mr) -> None:
+    """The benchmark runner's twin: _bench_one on the flagship arrays
+    (its own index build, RUNNER_REPEATS timed repetitions), whose detail
+    is printed; then its entry point, main(RUNNER_SMALL), on the card,
+    whose one JSON line must name reads_per_sec_chip."""
+    import contextlib
+    import io
+
+    from muscato_tpu_torch.bench import runner
+
+    t0 = time.perf_counter()
+    res = runner._bench_one(cfg, rs, ts, NUM_READ, RUNNER_REPEATS, dev)
+    detail = runner._detail(res)
+    check(res.probe_kind == "sorted_join" and res.matches > 0, "runner twin on the flagship")
+    print(f"runner twin, _bench_one on the flagship ({time.perf_counter() - t0:.1f}s): "
+          + json.dumps(detail), flush=True)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with switched(MUSCATO_BENCH_LOG="0"), contextlib.redirect_stdout(out):
+        rc = runner.main(RUNNER_SMALL)
+    lines = out.getvalue().strip().splitlines()
+    check(rc == 0 and len(lines) == 1, f"runner main printed {len(lines)} lines")
+    line = json.loads(lines[0])
+    check(line["metric"] == "reads_per_sec_chip" and line["value"] > 0,
+          f"runner main: {line['metric']} {line['value']}")
+    print(f"runner twin, main({' '.join(RUNNER_SMALL)}) ({time.perf_counter() - t0:.1f}s): "
+          + lines[0], flush=True)
+
+
 def match_phases(dev) -> tuple:
     import dataclasses
 
@@ -1254,9 +1456,11 @@ def match_phases(dev) -> tuple:
     cpu_index = cpu_copy(index)
     t0 = time.perf_counter()
     parity_t = {}
-    got = pipeline.run_matching_indexed(cfg, sub, index, timings=parity_t)
+    # At this batch size the engine would pick the search probe; these
+    # runs hold the sorted join (and the switched probe) to the CPU.
+    got = pipeline.run_matching_indexed(cfg, sub, index, probe="sort", timings=parity_t)
     t1 = time.perf_counter()
-    exp = pipeline.run_matching_indexed(cfg, sub, cpu_index)
+    exp = pipeline.run_matching_indexed(cfg, sub, cpu_index, probe="sort")
     t2 = time.perf_counter()
     check(same_result(got, exp), "cuda and cpu MatchResults differ")
     check_result(got, sub, ts, cfg)
@@ -1266,7 +1470,7 @@ def match_phases(dev) -> tuple:
     for name, value in SWITCHES.items():
         t0 = time.perf_counter()
         with switched(**{name: value}):
-            alt = pipeline.run_matching_indexed(cfg, sub, index)
+            alt = pipeline.run_matching_indexed(cfg, sub, index, probe="sort")
         check(same_result(alt, got), f"{name}={value}: MatchResult differs on cuda")
         print(f"parity: {name}={value} on cuda identical to the default run "
               f"({time.perf_counter() - t0:.2f}s)", flush=True)
@@ -1284,9 +1488,10 @@ def match_phases(dev) -> tuple:
         try:
             t0 = time.perf_counter()
             tg, tc = {}, {}
-            alt = pipeline.run_matching_indexed(c, sub, index, timings=tg)
+            alt = pipeline.run_matching_indexed(c, sub, index, probe="sort", timings=tg)
             t1 = time.perf_counter()
-            alt_cpu = pipeline.run_matching_indexed(c, sub, cpu_index, timings=tc)
+            alt_cpu = pipeline.run_matching_indexed(c, sub, cpu_index, probe="sort",
+                                                    timings=tc)
             t2 = time.perf_counter()
         finally:
             pipeline._MAX_PAIR_CAP = saved_cap
@@ -1298,7 +1503,6 @@ def match_phases(dev) -> tuple:
         print(f"parity, streaming expand, {label}: {len(alt.read_row)} matches identical on "
               f"cuda ({t1 - t0:.2f}s, {tg['chunks']} chunks) and cpu ({t2 - t1:.2f}s)"
               + (", and to the default run" if c.Windows == cfg.Windows else ""), flush=True)
-    del cpu_index
 
     # The flagship through the main path: one warm-up run, then the
     # counted and timed run; then the same through the switched path.
@@ -1320,13 +1524,18 @@ def match_phases(dev) -> tuple:
     print(f"profile (flagship batch, switched path, {switches}): " + json.dumps(prof_sw),
           flush=True)
 
-    # The flagship through the streaming expand (NoDedup): a warm-up, the
-    # counted and timed run, one profile.
+    # The flagship through the streaming expand (NoDedup): a warm-up from
+    # the first survivor capacity (the runs above grew the process-wide
+    # hint), then the counted and timed run, which starts from the
+    # capacity its warm-up grew, then one profile.
     cfg_nd = dataclasses.replace(cfg, NoDedup=True)
-    pipeline.run_matching_indexed(cfg_nd, rs, index)
+    pipeline._CAP_HINT[0] = pipeline._SURV_CAP0
+    cold = {}
+    pipeline.run_matching_indexed(cfg_nd, rs, index, timings=cold)
     mr_nd, flag_nd = flagship_run(dev, cfg_nd, rs, ts, index, STREAM_PATH)
     check(same_result(mr_nd, mr), "streaming (NoDedup) flagship MatchResult differs")
     flag_nd["chunks_a_pass"] = -(-flag_nd["pairs"] // STREAM_CHUNK)
+    flag_nd["warm_up_chunks"] = cold["chunks"]
     print("flagship streaming (NoDedup): " + json.dumps(flag_nd), flush=True)
     prof_nd = kernel_profile(dev, cfg_nd, rs, index)
     print("profile (flagship batch, streaming path, NoDedup): " + json.dumps(prof_nd),
@@ -1337,6 +1546,15 @@ def match_phases(dev) -> tuple:
     small = probe_small_index(dev, cfg, rs, index)
     print(f"probe stage against a small index (ms, flagship batch, "
           f"K x R = {len(WINDOWS) * BATCH} queries): " + json.dumps(small), flush=True)
+    # The search probe's parity comes after the flagship cells, so that
+    # their peak memory does not hold its two auxes (4.1 GB together).
+    auxes = search_parity(cfg, sub, index, cpu_index, got)
+    del cpu_index
+    cross = probe_crossover(dev, cfg, rs, index, auxes)
+    print(f"probe stage by batch size (ms a batch over the first {CROSSOVER_DEPTH} "
+          f"batches; {index.num_valid} index keys): " + json.dumps(cross), flush=True)
+    del auxes
+    flag_sb, flag_mb = batched_flagships(dev, cfg, rs, ts, index, mr)
     del index
 
     # The flagship as SHARDS gene-range shards, each built and matched in
@@ -1352,8 +1570,9 @@ def match_phases(dev) -> tuple:
     print(f"flagship as {SHARDS} gene-range shards: {len(mr_sh.read_row)} matches, identical "
           f"to the default run; {wall:.2f}s, shards " + json.dumps(shard_t["shards"]),
           flush=True)
+    runner_phase(dev, cfg, rs, ts, mr)
     del rs, ts
-    return flag, flag_sw, flag_nd
+    return flag, flag_sw, flag_nd, flag_sb, flag_mb
 
 
 def report_files(results: str) -> dict:
@@ -1486,7 +1705,7 @@ def main() -> int:
           f"dependent instructions: {json.dumps(measured_int_rates(dev))}", flush=True)
 
     kres = kernel_phase(dev, unstaged, variants, sub_variants)
-    flag, flag_sw, flag_nd = match_phases(dev)
+    flag, flag_sw, flag_nd, flag_sb, flag_mb = match_phases(dev)
     driver_phase(dev)
 
     line = {"kernels": [
@@ -1494,6 +1713,8 @@ def main() -> int:
          "replaces": KERNELS[name][1],
          "launches": (flag if name in DEFAULT_PATH else flag_sw)["launches"][name],
          "launches_streaming": flag_nd["launches"][name],
+         "launches_small_batch": flag_sb["launches"][name],
+         "launches_multi_batch": flag_mb["launches"][name],
          "max_abs_err": kres[name]["max_abs_err"], "ms": kres[name]["ms"],
          "plain_ms": kres[name]["plain_ms"], "bound_ms": kres[name]["bound_ms"],
          "bound_by": kres[name]["bound_by"], "library_ms": kres[name]["library_ms"],

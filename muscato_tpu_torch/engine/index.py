@@ -19,6 +19,11 @@ byte-true verify.  The host keeps the sorted (key1, key2, position)
 arrays for ``TargetIndex.save``, whose file ``TargetIndex.load`` reads
 back instead of building; the file is the JAX package's index file, and
 each package reads the other's.
+
+The search probe, which the engine takes when the index is much larger
+than a read batch's queries, reads a unique-key view of the same arrays
+(``SearchAux``), built once per index on the host from the host arrays and
+uploaded to the index's device.
 """
 
 from __future__ import annotations
@@ -32,11 +37,57 @@ import torch
 from ..io.targets import TargetSet
 
 from ..ops import packed as pops
+from ..ops import search as sops
 from ..ops import windows as winops
 
 INVALID_KEY = np.uint32(0xFFFFFFFF)
 
 INDEX_FORMAT_VERSION = 2
+
+DIRECT_BUCKET_WIDTH = 16  # max records fetched per direct probe
+MAX_DIRECT_BITS = 26  # 268MB bucket-table cap
+
+
+@dataclass
+class SearchAux:
+    """Unique-key view + bucket table for the search probe (device tensors
+    are int32 bit patterns of the JAX package's uint32 arrays).
+
+    Duplicate-key runs collapse to one entry, so bucket depth tracks
+    distinct keys.  Two probe modes:
+
+    mode='direct': the bucket table is sized so that no bucket holds more
+    than DIRECT_BUCKET_WIDTH distinct keys (hash-uniform keys, which wide
+    windows give, always qualify).  A probe fetches its bucket's bounds and
+    then the bucket's 16-byte (k1, k2, start, count) records in ``urec``:
+    no search loop.
+
+    mode='binary': the fallback for skewed keys, a bounded binary search
+    within the bucket over the interleaved key pairs ``ukk``, probe_steps
+    dependent gather pairs a query.
+    """
+
+    mode: str
+    sbucket: torch.Tensor  # (2**bucket_bits+1,) int32 per-bucket bounds
+    bucket_bits: int
+    upshift: int
+    # direct mode
+    urec: torch.Tensor | None = None  # (U*4 + pad,) [k1, k2, start, count]
+    # binary mode
+    ukeys: torch.Tensor | None = None  # (U,) key1
+    ukeys2: torch.Tensor | None = None  # (U,) key2
+    ustart: torch.Tensor | None = None  # (U,) run start in spos
+    ucount: torch.Tensor | None = None  # (U,) run length
+    ukk: torch.Tensor | None = None  # (2U,) interleaved [k1, k2]
+    probe_steps: int = 0
+    build_s: float = 0.0  # host build and upload seconds
+
+    @property
+    def nbytes(self) -> int:
+        """Device bytes of the aux's tensors."""
+        return sum(t.numel() * t.element_size() for t in (
+            self.sbucket, self.urec, self.ukeys, self.ukeys2, self.ustart,
+            self.ucount, self.ukk) if t is not None)
 
 
 @dataclass
@@ -52,6 +103,7 @@ class TargetIndex:
     # Host copies of the sorted (skeys, skeys2, spos) that save() writes.
     host_arrays: tuple | None = field(default=None, repr=False)
     build_timings: dict | None = field(default=None, repr=False)
+    _aux: SearchAux | None = field(default=None, repr=False)
     _trows: tuple | None = field(default=None, repr=False)
     _gblock: tuple | None = field(default=None, repr=False)
 
@@ -73,6 +125,25 @@ class TargetIndex:
             gb, steps = pops.build_gene_block(self.gene_start_np, self.num_bases)
             self._gblock = (torch.from_numpy(gb).to(self.device), steps)
         return self._gblock
+
+    def search_aux(self) -> SearchAux:
+        """Build (once) the unique-key + bucket view for the search probe,
+        from the host arrays, on the index's device."""
+        if self._aux is None:
+            t0 = time.perf_counter()
+            k1, k2, _ = self.host_arrays
+            new_run = np.concatenate(
+                [[True], (k1[1:] != k1[:-1]) | (k2[1:] != k2[:-1])]
+            )
+            starts = np.flatnonzero(new_run).astype(np.int32)
+            counts = np.diff(np.append(starts, len(k1))).astype(np.int32)
+            self._aux = build_search_aux(
+                k1[starts], k2[starts], starts, counts, self.width, self.device
+            )
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self._aux.build_s = time.perf_counter() - t0
+        return self._aux
 
     def save(self, path: str) -> None:
         """Write the sorted key arrays (npz: version, width, num_valid,
@@ -110,6 +181,47 @@ class TargetIndex:
             num_valid=int(d["num_valid"]), num_bases=int(d["num_bases"]),
             host_arrays=(k1, k2, sp),
         )
+
+
+def build_search_aux(uk1, uk2, starts, counts, width: int, device) -> SearchAux:
+    """Pick the search-probe layout for a unique-key table and upload it.
+
+    Prefers 'direct': the smallest bucket table whose largest bucket holds
+    at most DIRECT_BUCKET_WIDTH distinct keys; skewed distributions fall
+    back to the bounded binary search."""
+    device = torch.device(device)
+    u = len(uk1)
+    upshift = sops.bucket_shift(width)
+    # The key's top 32-bit image; its bucket at `bits` is its top `bits` bits.
+    top32 = ((uk1.astype(np.uint64) << np.uint64(upshift)) & np.uint64(0xFFFFFFFF)).astype(
+        np.uint32
+    )
+    start_bits = max(16, int(np.ceil(np.log2(max(u, 1) / 4 + 1))))
+    for bits in range(start_bits, MAX_DIRECT_BITS + 1):
+        b = (top32 >> np.uint32(32 - bits)).astype(np.int64)
+        per = np.bincount(b, minlength=1 << bits)
+        if int(per.max(initial=0)) <= DIRECT_BUCKET_WIDTH:
+            bucket = np.zeros((1 << bits) + 1, np.int32)
+            np.cumsum(per, out=bucket[1:])
+            rec = np.empty((u + DIRECT_BUCKET_WIDTH, 4), np.uint32)
+            rec[:u, 0] = uk1
+            rec[:u, 1] = uk2
+            rec[:u, 2] = starts.astype(np.uint32)
+            rec[:u, 3] = counts.astype(np.uint32)
+            # Padding records: never equal to a live query's key1 + key2.
+            rec[u:] = (0xFFFFFFFF, 0xFFFFFFFF, 0, 0)
+            return SearchAux(
+                mode="direct", sbucket=_upload(bucket, device), bucket_bits=bits,
+                upshift=upshift, urec=_upload(rec.reshape(-1), device),
+            )
+    bucket, probe_steps, bucket_bits = sops.build_buckets_host(uk1, upshift)
+    return SearchAux(
+        mode="binary", sbucket=_upload(bucket, device), bucket_bits=bucket_bits,
+        upshift=upshift, ukeys=_upload(uk1, device), ukeys2=_upload(uk2, device),
+        ustart=_upload(starts, device), ucount=_upload(counts, device),
+        ukk=_upload(np.stack([uk1, uk2], axis=1).reshape(-1), device),
+        probe_steps=probe_steps,
+    )
 
 
 def _boundary_cumsum_np(gene_start: np.ndarray, s: int) -> np.ndarray:

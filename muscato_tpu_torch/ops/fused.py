@@ -6,7 +6,10 @@ function named in its docstring:
   probe    B5 window keys of every (window, read), a query sort, the B1
            sorted join against the resident index, and a compaction in lo
            order (or, with MUSCATO_PJOIN=0, the sort-merge probe: one sort
-           of index and query keys together, no B1);
+           of index and query keys together, no B1; or, for an index much
+           larger than the batch's queries, the search probe over the
+           index's SearchAux: a direct bucket fetch, or a bucketed binary
+           search for skewed keys, no B1);
   expand   B2 pair expansion (B6 with MUSCATO_PEXPAND_SUB=1), the B3
            postings fetch, the (diagonal, read) pair sort and the
            unique-(read, diagonal) compaction;
@@ -42,6 +45,8 @@ from typing import NamedTuple
 import torch
 
 from . import join as _join
+from . import search as sops
+from . import windows as winops
 from .expand import expand_owners
 from .gather import monotone_gather
 from .packed import M32, to_i32, u64, verify_diagonals_packed, verify_pairs_packed
@@ -189,6 +194,137 @@ def _probe_windows_impl(rpacked, lengths, q1s, skeys, *, width, min_dinuc):
         qid=qid_m[order], keyf=keyf, key2f=key2f,
         total=counts_c.sum(dtype=torch.int64),
     )
+
+
+def _sorted_queries(rpacked, lengths, q1s, *, width, min_dinuc):
+    """The search probes' query order: B5's window queries sorted by (key1,
+    key2) as uint32, ties by qid (one stable sort of a packed int64 key, so
+    the order is deterministic where the JAX sort leaves equal keys in no
+    defined order).  Returns (keyf0, key2f0, validf) in qid order and
+    (key1, key2, valid, qid) in sorted order."""
+    keyf0, key2f0, validf0 = window_queries(
+        rpacked, lengths, q1s, width=width, min_dinuc=min_dinuc
+    )
+    _, order = torch.sort(_key_u(u64(keyf0), u64(key2f0)), stable=True)
+    return (keyf0, key2f0), (keyf0[order], key2f0[order], validf0[order],
+                             order.to(torch.int32))
+
+
+def _compact_lo_order(loc, counts, qid, keyf0, key2f0) -> Probe:
+    """Active slots first, in lo order, the rest after (one stable sort
+    keyed (inactive, lo)), as the JAX search probes compact them."""
+    inactive = (counts == 0).to(torch.int64)
+    _, order = torch.sort(inactive * _TWO32 + loc.to(torch.int64), stable=True)
+    counts_c = counts[order]
+    return Probe(
+        counts=counts_c, lo=loc[order].to(torch.int32), qid=qid[order],
+        keyf=keyf0, key2f=key2f0, total=counts_c.sum(dtype=torch.int64),
+    )
+
+
+DIRECT_CHUNK = 1 << 20  # queries a chunk of the direct probe's record fetch
+
+
+def _probe_windows_direct_impl(rpacked, lengths, q1s, urec, sbucket, *, width,
+                               min_dinuc, upshift, bucket_bits, bucket_width):
+    """Direct-bucket probe (port of ``fused._probe_windows_direct_impl``):
+    no bucket of the index's SearchAux holds more than ``bucket_width``
+    distinct keys, so a query fetches its bucket's bounds and then the
+    bucket's (k1, k2, start, count) records, with no search loop.  The
+    queries run in chunks of DIRECT_CHUNK, which bounds the (C, 4w) record
+    fetch, as the JAX function's ``lax.map`` does.  Returns the Probe
+    contract: active slots in lo order, keyf/key2f in qid order."""
+    use_k2 = winops.uses_second_key(width)
+    (keyf0, key2f0), (keyf, key2f, validf, qid) = _sorted_queries(
+        rpacked, lengths, q1s, width=width, min_dinuc=min_dinuc
+    )
+    nflat = keyf.shape[0]
+    dev = keyf.device
+    w = bucket_width
+    recs = urec.view(-1, 4)  # 16-byte records
+    lane = torch.arange(w, dtype=torch.int64, device=dev)
+    counts = torch.zeros(nflat, dtype=torch.int32, device=dev)
+    loc = torch.zeros(nflat, dtype=torch.int32, device=dev)
+    for c0 in range(0, nflat, DIRECT_CHUNK):
+        keyc = keyf[c0 : c0 + DIRECT_CHUNK]
+        b = sops.bucket_of(keyc, upshift, bucket_bits)
+        lo = sbucket[b].to(torch.int64)
+        nb = sbucket[b + 1].to(torch.int64) - lo
+        rec = recs[lo[:, None] + lane[None, :]]  # (C, w, 4)
+        hit_j = (lane[None, :] < nb[:, None]) & (rec[:, :, 0] == keyc[:, None])
+        if use_k2:
+            hit_j = hit_j & (rec[:, :, 1] == key2f[c0 : c0 + DIRECT_CHUNK, None])
+        hit = validf[c0 : c0 + DIRECT_CHUNK] & hit_j.any(dim=1)
+        c = torch.where(hit_j, rec[:, :, 3], 0).sum(dim=1, dtype=torch.int32)
+        counts[c0 : c0 + DIRECT_CHUNK] = torch.where(hit, c, 0)
+        loc[c0 : c0 + DIRECT_CHUNK] = torch.where(hit_j, rec[:, :, 2], 0).sum(
+            dim=1, dtype=torch.int32)
+    return _compact_lo_order(loc, counts, qid, keyf0, key2f0)
+
+
+def _probe_windows_search_impl(rpacked, lengths, q1s, ukeys, ukeys2, ukk, ustart,
+                               ucount, sbucket, *, width, min_dinuc, upshift,
+                               probe_steps, bucket_bits):
+    """Bucketed binary-search probe (port of
+    ``fused._probe_windows_search_impl``): the sorted queries search the
+    index's unique keys from their bucket's bounds, ``probe_steps`` gather
+    pairs each.  Same Probe contract as the other probes."""
+    use_k2 = winops.uses_second_key(width)
+    (keyf0, key2f0), (keyf, key2f, validf, qid) = _sorted_queries(
+        rpacked, lengths, q1s, width=width, min_dinuc=min_dinuc
+    )
+    nuniq = ukeys.shape[0]
+    lo_u = sops.searchsorted2_bucketed(
+        ukeys, ukeys2, keyf, key2f, sbucket, upshift=upshift, steps=probe_steps,
+        use_k2=use_k2, bucket_bits=bucket_bits, interleaved=ukk,
+    )
+    loc = lo_u.clamp(max=nuniq - 1)
+    eq = ukeys[loc] == keyf
+    if use_k2:
+        eq = eq & (ukeys2[loc] == key2f)
+    hit = validf & eq & (lo_u < nuniq)
+    counts = torch.where(hit, ucount[loc], 0)
+    loc = torch.where(hit, ustart[loc], 0)
+    return _compact_lo_order(loc, counts, qid, keyf0, key2f0)
+
+
+def probe_kind(index_aux=None, allow_pjoin: bool = True) -> str:
+    """The probe ``probe_windows`` runs for these arguments: 'direct' or
+    'binary' (the search probe in the aux's mode), 'sorted_join' or
+    'sort_merge'."""
+    if index_aux is not None:
+        return index_aux.mode
+    return "sorted_join" if allow_pjoin else "sort_merge"
+
+
+def probe_windows(rpacked, lengths, q1s, skeys, *, width, min_dinuc,
+                  index_aux=None, allow_pjoin=True) -> Probe:
+    """Probe stage of one batch (port of ``fused.probe_windows``).
+    ``index_aux``, the index's SearchAux, selects the search probe in its
+    mode (direct or binary); without it the sorted join runs, or the
+    sort-merge probe when ``allow_pjoin`` is false (MUSCATO_PJOIN=0).
+    Every probe returns the same Probe."""
+    q1s = tuple(int(q) for q in q1s)
+    kind = probe_kind(index_aux, allow_pjoin)
+    if kind == "direct":
+        from ..engine.index import DIRECT_BUCKET_WIDTH
+
+        aux = index_aux
+        return _probe_windows_direct_impl(
+            rpacked, lengths, q1s, aux.urec, aux.sbucket, width=width,
+            min_dinuc=min_dinuc, upshift=aux.upshift, bucket_bits=aux.bucket_bits,
+            bucket_width=DIRECT_BUCKET_WIDTH,
+        )
+    if kind == "binary":
+        aux = index_aux
+        return _probe_windows_search_impl(
+            rpacked, lengths, q1s, aux.ukeys, aux.ukeys2, aux.ukk, aux.ustart,
+            aux.ucount, aux.sbucket, width=width, min_dinuc=min_dinuc,
+            upshift=aux.upshift, probe_steps=aux.probe_steps,
+            bucket_bits=aux.bucket_bits,
+        )
+    impl = _probe_windows_pjoin_impl if kind == "sorted_join" else _probe_windows_impl
+    return impl(rpacked, lengths, q1s, skeys, width=width, min_dinuc=min_dinuc)
 
 
 # ---- expand --------------------------------------------------------------
@@ -665,3 +801,46 @@ def rank_survivors(buf, nsurv, mm, mmtol, *, match_mode, full_cols=True,
     live = torch.arange(buf.shape[0], device=buf.device) < nsurv
     return _rank_core(buf, live, mm, mmtol, match_mode=match_mode,
                       full_cols=full_cols, pack_bits=pack_bits)
+
+
+# ---- one call ------------------------------------------------------------
+
+
+def match_windows(rpacked, lengths, q1s, skeys, spos, gene_start, budget, *,
+                  width, min_dinuc, max_read_length, pair_chunk, surv_cap, smax,
+                  trows, gblock, gsteps, index_aux=None):
+    """Probe + streaming expand/verify in one call (port of
+    ``fused.match_windows``, which takes ``tpacked`` where this takes the
+    verify's ``trows``).  Returns (survivor rows, nsurv, pair total), the
+    JAX function's result less its float total; rows past ``surv_cap`` are
+    dropped, as in the streaming stage."""
+    pr = probe_windows(rpacked, lengths, q1s, skeys, width=width,
+                       min_dinuc=min_dinuc, index_aux=index_aux)
+    total = int(pr.total)
+    st = expand_verify_streamed(
+        pr, q1s, rpacked, lengths, spos, gene_start, budget, width=width,
+        max_read_length=max_read_length, pair_chunk=pair_chunk,
+        surv_cap=surv_cap, smax=smax, trows=trows, gblock=gblock,
+        gsteps=gsteps, total=total,
+    )
+    return st.surv, st.nsurv, total
+
+
+def match_windows_dedup(rpacked, lengths, q1s, skeys, spos, gene_start, budget, *,
+                        width, min_dinuc, max_read_length, pair_cap, vchunk,
+                        surv_cap, smax, trows, gblock, gsteps, index_aux=None):
+    """Probe + diagonal-dedup expand/verify in one call (port of
+    ``fused.match_windows_dedup``, with the verify's ``trows`` in place of
+    ``tpacked``).  Returns (survivor rows, nsurv, pair total), the JAX
+    function's result less its float total; the first min(nsurv, surv_cap)
+    rows are the survivors, those of the lowest (window, read) queries."""
+    pr = probe_windows(rpacked, lengths, q1s, skeys, width=width,
+                       min_dinuc=min_dinuc, index_aux=index_aux)
+    ver = expand_verify_dedup(
+        pr, q1s, rpacked, lengths, spos, gene_start, budget, width=width,
+        max_read_length=max_read_length, pair_cap=pair_cap, vchunk=vchunk,
+        smax=smax, trows=trows, gblock=gblock, gsteps=gsteps,
+    )
+    surv = survivor_rows(ver, pr.keyf, pr.key2f, nreads=rpacked.shape[0],
+                         nwin=len(tuple(q1s)), surv_cap=surv_cap)
+    return surv, ver.nsurv, pr.total

@@ -43,6 +43,14 @@ def _imports(path: pathlib.Path):
             yield node.module
 
 
+def test_scan_covers_every_port_module():
+    """The scan finds its files by itself: the search probe's module and
+    the benchmark runner's twin are among them."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"muscato_tpu_torch/ops/search.py", "muscato_tpu_torch/bench/runner.py",
+            "muscato_tpu_torch/engine/pipeline.py", "chip_smoke.py"} <= names
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_file_imports_nothing_of_jax_package(path):
     bad = [m for m in _imports(path) if _forbidden(m)]

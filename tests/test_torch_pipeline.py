@@ -2,9 +2,10 @@
 against the JAX engine's run_matching on the same realistic workload.
 
 MatchResult must be identical: width 10 and width 20, single-batch and
-multi-batch (a small ReadBatch), and a binding MaxMatches cap.  The JAX
-run takes whichever probe it auto-selects; the port takes the sorted-join
-probe, or under the JAX package's switches the sort-merge probe
+multi-batch (a small ReadBatch), and a binding MaxMatches cap.  Both
+packages auto-select the probe (here the sorted join: the index is small
+against the batch's queries); under the JAX package's switches the port
+takes the sort-merge probe
 (MUSCATO_PJOIN=0) and the sub-chunked B6 expand (MUSCATO_PEXPAND_SUB=1) —
 the retained set is the contract.  Each package gets its own ReadSet,
 TargetSet and Config, made by its own gendat and config module.
@@ -123,19 +124,15 @@ def test_switched_paths_match_jax(workload, jax_workload, cfg, switch, monkeypat
 
 def test_survivor_capacity_regrows(workload, monkeypatch):
     """A survivor buffer smaller than the batch's survivors grows to the
-    bucket that covers them, with the same results."""
+    bucket that covers them, with the same results, and the grown
+    capacity is kept for later runs (the process-wide hint)."""
     rs, ts = workload
     cfg = _cfg(20, (10, 30, 50, 70), 3)
     exp = tpipeline.run_matching(cfg, rs, ts, device="cpu")
     monkeypatch.setattr(tpipeline, "_SURV_CAP0", 64)
+    monkeypatch.setattr(tpipeline, "_CAP_HINT", [64])
     _assert_same(tpipeline.run_matching(cfg, rs, ts, device="cpu"), exp)
-
-
-def test_unported_paths_raise(workload):
-    rs, ts = workload
-    index = tpipeline.build_target_index(ts, 20, "cpu")
-    with pytest.raises(NotImplementedError, match="probe"):
-        tpipeline.run_matching_indexed(_cfg(20, (10,), 3), rs, index, probe="search")
+    assert tpipeline._CAP_HINT[0] >= len(exp.read_row)
 
 
 def test_cuda_is_never_picked_silently():

@@ -238,6 +238,7 @@ def test_streaming_runs_match_jax(workload, jax_workload, case, batch, monkeypat
         monkeypatch.setattr(tpipeline, "_MAX_PAIR_CAP", cap)
     if case == "surv-cap":
         monkeypatch.setattr(tpipeline, "_SURV_CAP0", 64)
+        monkeypatch.setattr(tpipeline, "_CAP_HINT", [64])
     cfg = _cfg(batch=batch, **kw)
     rs, ts = workload
     index = tpipeline.build_target_index(ts, 20, "cpu")
