@@ -90,6 +90,19 @@ qid in the ring or not, lanes a warp, register cut), all at once, then:
      runs the benchmark runner's twin (muscato_tpu_torch.bench.runner):
      _bench_one on the flagship arrays, and its main entry point on the
      small workload, whose JSON line must name reads_per_sec_chip; then
+     the device mesh (muscato_tpu_torch.parallel): the flagship over a
+     1x1 mesh of this process on NCCL, its one shard built by
+     shard_targets, in turns with the plain run (mesh, plain, plain,
+     mesh), each equal to the default run; then a 2x2 mesh of four gloo
+     processes of this script that share the card (NCCL refuses two
+     ranks on one card), each holding half the gene set and half of
+     each batch, memory-mapping the flagship arrays this process writes
+     once: the flagship, whose rank-0 MatchResult must equal the default
+     run's, and the 100k parity reads under both switches and with
+     NoDedup, each equal to its single-device run above; every kernel of
+     each path must launch on every rank, and each rank's stage times,
+     all-gather and rank-0 gather seconds and bytes, peak memory and
+     launches are printed; then
      runs the muscato_torch entry point on gendat files prepared by
      prep_targets (same index size, fewer reads) and checks its four
      output files, then runs it with an IndexFile that it saves, with the
@@ -97,7 +110,9 @@ qid in the ring or not, lanes a warp, register cut), all at once, then:
      run's kept TempDir: each run's four files must equal the first's.
 
 Every phase checks its results and any failure exits non-zero.  The line
-before the last is a JSON object with each kernel's numbers; the last line
+before the last is a JSON object with each kernel's numbers (its
+launches_mesh: rank 0's launches on the 2x2 flagship, B6's from its
+switched run); the last line
 is {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero
 and prints no result.
 """
@@ -166,6 +181,12 @@ SMALL_BATCH, MULTI_BATCH = 1 << 18, 1 << 20
 CROSSOVER_BATCHES = (1 << 14, 1 << 16, 1 << 18, 1 << 20)
 CROSSOVER_DEPTH = 4
 RUNNER_REPEATS = 2
+# The device mesh: a 1x1 mesh of this process on NCCL, and a 2x2 mesh of
+# MESH_RANKS gloo processes that share the one card (NCCL refuses two
+# ranks on one card); the parent waits MESH_TIMEOUT seconds for them.
+MESH_DP, MESH_MP = 2, 2
+MESH_RANKS = MESH_DP * MESH_MP
+MESH_TIMEOUT = 900
 RUNNER_SMALL = ["--Workload", "small", "--NumRead", "1000000", "--Repeats", "2"]
 # Where the engine calls each kernel wrapper (module, attribute; fused
 # reaches B1 through its reference to the join module), and each kernel's
@@ -1425,6 +1446,236 @@ def runner_phase(dev, cfg, rs, ts, mr) -> None:
           + lines[0], flush=True)
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def mesh_run(dev, cfg, rs, ts, shard, mesh, path) -> tuple:
+    """One counted, timed run_matching_sharded on this rank: every launch
+    counter is set to 0 just before it and read just after; fails unless
+    each kernel of ``path`` launched here, and on rank 0 unless the
+    MatchResult passes check_result.  The ranks meet at a barrier first,
+    so that no rank's time holds its wait for rank 0's host rank of the
+    run before.  Returns (MatchResult, numbers)."""
+    import torch
+    import torch.distributed as tdist
+
+    from muscato_tpu_torch.parallel import mesh as pmesh
+
+    wr = wrappers()
+    for fn in wr.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    timings = {}
+    torch.cuda.synchronize(dev)
+    tdist.barrier(group=mesh.host_group)
+    t0 = time.perf_counter()
+    mr = pmesh.run_matching_sharded(cfg, rs, shard, mesh, timings=timings)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in wr.items()}
+    check(all(launches[k] > 0 for k in path),
+          f"rank {mesh.rank}: a kernel never launched: {launches}")
+    if mesh.rank == 0:
+        check_result(mr, rs, ts, cfg)
+    return mr, dict(
+        wall_s=wall, matches=len(mr.read_row), stage_s=timings["stages"],
+        **{k: timings[k] for k in ("pack_s", "upload_s", "device_s", "fetch_s",
+                                   "allgather_s", "allgather_bytes", "gather_s",
+                                   "gather_bytes", "batches")},
+        peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2**30, launches=launches,
+    )
+
+
+def mesh_one_phase(dev, cfg, rs, ts, index, mr) -> None:
+    """run_matching_sharded over a 1x1 mesh of this process on NCCL (a
+    world of one: the all-gather runs on NCCL over a group of one), its
+    one shard built by shard_targets; a warm-up, then the mesh and the
+    plain run_matching_indexed on the flagship in turns (mesh, plain,
+    plain, mesh), each counted, timed and equal to the flagship's ``mr``."""
+    import torch.distributed as tdist
+
+    from muscato_tpu_torch.parallel import dist as pdist
+    from muscato_tpu_torch.parallel import mesh as pmesh
+
+    pdist.initialize(f"localhost:{free_port()}", 1, 0, device=dev)
+    try:
+        check(tdist.get_backend() == "nccl", f"1x1 mesh backend {tdist.get_backend()}")
+        mesh = pmesh.make_mesh(1, 1, dev)
+        t0 = time.perf_counter()
+        shard = pmesh.shard_targets(ts, WIDTH, 1, 0, dev)
+        build_s = time.perf_counter() - t0
+        pmesh.run_matching_sharded(cfg, rs, shard, mesh)
+        runs = {"mesh": [], "plain": []}
+        for arm in ("mesh", "plain", "plain", "mesh"):
+            if arm == "mesh":
+                got, num = mesh_run(dev, cfg, rs, ts, shard, mesh, DEFAULT_PATH)
+            else:
+                got, num = flagship_run(dev, cfg, rs, ts, index, DEFAULT_PATH)
+            check(same_result(got, mr), f"1x1 mesh phase: the {arm} MatchResult differs")
+            runs[arm].append(num)
+        print(f"1x1 mesh on NCCL: {len(mr.read_row)} matches, identical to the flagship; "
+              f"shard index built in {build_s:.1f}s; wall s in turns: mesh "
+              + json.dumps([r["wall_s"] for r in runs["mesh"]]) + ", plain "
+              + json.dumps([r["wall_s"] for r in runs["plain"]]) + "; the last mesh run: "
+              + json.dumps(runs["mesh"][-1]), flush=True)
+        del shard
+    finally:
+        tdist.destroy_process_group()
+
+
+def mesh_rank(rank: int, port: int, work: str, device: str) -> None:
+    """One rank of the 2x2 mesh on the shared card (``--mesh-rank``):
+    gloo, half the gene set, half of each batch.  It memory-maps the
+    flagship arrays the parent wrote, builds its shard, and runs a
+    warm-up, then counted runs of the flagship, of the PARITY_READS reads
+    under both switches, and of them with NoDedup; it writes rank 0's
+    MatchResults and its own numbers into ``work``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from muscato_tpu_torch.io.reads import ReadSet
+    from muscato_tpu_torch.io.targets import TargetSet
+    from muscato_tpu_torch.parallel import dist as pdist
+    from muscato_tpu_torch.parallel import mesh as pmesh
+
+    torch.set_num_threads(2)  # the ranks share the host's cores
+    pdist.initialize(f"localhost:{port}", MESH_RANKS, rank, backend="gloo", device=device)
+    import torch.distributed as tdist
+
+    try:
+        mesh = pmesh.make_mesh(MESH_DP, MESH_MP, device)
+        dev = mesh.device
+        a = {k: np.load(os.path.join(work, f"{k}.npy"), mmap_mode="r")
+             for k in ("codes", "lengths", "counts", "tcat", "gene_start")}
+        rs = ReadSet(codes=a["codes"], lengths=a["lengths"], counts=a["counts"],
+                     num_total=NUM_READ)
+        ngenes = len(a["gene_start"]) - 1
+        ts = TargetSet(tcat=a["tcat"], gene_start=a["gene_start"],
+                       names=[b""] * ngenes, lengths=np.diff(a["gene_start"]))
+        t0 = time.perf_counter()
+        shard = pmesh.shard_targets(ts, WIDTH, MESH_MP, mesh.m, dev)
+        stats = dict(rank=rank, d=mesh.d, m=mesh.m, genes=list(shard.genes),
+                     index_build_s=time.perf_counter() - t0)
+        cfg = config()
+        pmesh.run_matching_sharded(cfg, rs, shard, mesh)
+        n = PARITY_READS
+        sub = ReadSet(codes=a["codes"][:n], lengths=a["lengths"][:n], counts=a["counts"][:n],
+                      num_total=n)
+        results = {}
+        results["flagship"], stats["flagship"] = mesh_run(dev, cfg, rs, ts, shard, mesh,
+                                                         DEFAULT_PATH)
+        with switched(**SWITCHES):
+            results["switched"], stats["switched"] = mesh_run(dev, cfg, sub, ts, shard, mesh,
+                                                             SWITCHED_PATH)
+        results["NoDedup"], stats["NoDedup"] = mesh_run(
+            dev, dataclasses.replace(cfg, NoDedup=True), sub, ts, shard, mesh, STREAM_PATH)
+        if rank == 0:
+            for k, mr in results.items():
+                np.savez(os.path.join(work, f"result_{k}.npz"), read_row=mr.read_row,
+                         gene=mr.gene, start=mr.start, nmiss=mr.nmiss)
+        with open(os.path.join(work, f"stats_{rank}.json"), "w") as f:
+            json.dump(stats, f)
+    finally:
+        tdist.destroy_process_group()
+
+
+def wait_ranks(procs, logs, timeout: float) -> None:
+    """Wait for every rank; when one fails or the time is up, kill the
+    others and fail with the failing rank's log."""
+    deadline = time.monotonic() + timeout
+    while True:
+        codes = [p.poll() for p in procs]
+        bad = [r for r, c in enumerate(codes) if c not in (None, 0)]
+        late = time.monotonic() > deadline
+        if bad or late:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            r = bad[0] if bad else 0
+            with open(logs[r]) as f:
+                tail = f.read()[-4000:]
+            raise RuntimeError(
+                f"chip_smoke check failed: mesh rank {r} "
+                f"{'exited ' + str(codes[r]) if bad else 'passed the time limit'}:\n{tail}")
+        if all(c == 0 for c in codes):
+            return
+        time.sleep(0.5)
+
+
+def mesh_ranks_phase(dev, rs, ts, mr, got, got_nd) -> dict:
+    """The 2x2 mesh on the one card: MESH_RANKS processes of this script
+    (``--mesh-rank``), gloo by choice, each holding half the gene set and
+    half of each batch.  This process writes the flagship arrays once for
+    them to memory-map.  Rank 0's flagship MatchResult must equal ``mr``,
+    and its results on the PARITY_READS reads under both switches and
+    with NoDedup must equal the single-device runs of the same reads
+    (``got``, ``got_nd``); every kernel of each path must have launched on
+    every rank.  Prints each rank's numbers; returns rank 0's launches on
+    the flagship (B6's from its switched run)."""
+    import numpy as np
+    import subprocess as sp
+    import torch
+
+    from muscato_tpu_torch.engine.pipeline import MatchResult
+
+    torch.cuda.empty_cache()  # the ranks share this card's memory
+    work = tempfile.mkdtemp(prefix="muscato_chip_smoke_mesh_")
+    procs = []
+    try:
+        t0 = time.perf_counter()
+        for k, v in (("codes", rs.codes), ("lengths", rs.lengths), ("counts", rs.counts),
+                     ("tcat", ts.tcat), ("gene_start", ts.gene_start)):
+            np.save(os.path.join(work, f"{k}.npy"), np.asarray(v))
+        t_write = time.perf_counter() - t0
+        port = free_port()
+        env = {k: v for k, v in os.environ.items() if k != "LOCAL_RANK"}
+        logs = [os.path.join(work, f"rank{r}.log") for r in range(MESH_RANKS)]
+        t0 = time.perf_counter()
+        for r in range(MESH_RANKS):
+            with open(logs[r], "w") as log:
+                procs.append(sp.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--mesh-rank", str(r),
+                     str(port), work, dev.type], stdout=log, stderr=sp.STDOUT, env=env))
+        wait_ranks(procs, logs, MESH_TIMEOUT)
+        wall = time.perf_counter() - t0
+        stats = []
+        for r in range(MESH_RANKS):
+            with open(os.path.join(work, f"stats_{r}.json")) as f:
+                stats.append(json.load(f))
+        res = {}
+        for k in ("flagship", "switched", "NoDedup"):
+            z = np.load(os.path.join(work, f"result_{k}.npz"))
+            res[k] = MatchResult(z["read_row"], z["gene"], z["start"], z["nmiss"])
+        check(same_result(res["flagship"], mr), "2x2 mesh flagship MatchResult differs")
+        check(same_result(res["switched"], got),
+              "2x2 mesh, switched: MatchResult differs from the single-device run")
+        check(same_result(res["NoDedup"], got_nd),
+              "2x2 mesh, NoDedup: MatchResult differs from the single-device run")
+        print(f"2x2 mesh, {MESH_RANKS} gloo ranks on one card: flagship {len(mr.read_row)} "
+              f"matches, {PARITY_READS} reads under {' '.join(f'{k}={v}' for k, v in SWITCHES.items())} "
+              f"and with NoDedup: each identical to its single-device run; arrays written in "
+              f"{t_write:.1f}s, ranks started to end {wall:.1f}s", flush=True)
+        for st in stats:
+            print(f"2x2 mesh rank {st['rank']}: " + json.dumps(st), flush=True)
+        launches = dict(stats[0]["flagship"]["launches"])
+        launches["expand_owners_sub"] = stats[0]["switched"]["launches"]["expand_owners_sub"]
+        return launches
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def match_phases(dev) -> tuple:
     import dataclasses
 
@@ -1498,6 +1749,8 @@ def match_phases(dev) -> tuple:
         check(tg["chunks"] > 0 and tc["chunks"] > 0, f"{label}: the streaming expand did not run")
         check(same_result(alt, alt_cpu), f"{label}: cuda and cpu MatchResults differ")
         check_result(alt, sub, ts, c)
+        if c.NoDedup:
+            got_nd = alt
         if c.Windows == cfg.Windows:
             check(same_result(alt, got), f"{label}: MatchResult differs from the default run")
         print(f"parity, streaming expand, {label}: {len(alt.read_row)} matches identical on "
@@ -1555,6 +1808,7 @@ def match_phases(dev) -> tuple:
           f"batches; {index.num_valid} index keys): " + json.dumps(cross), flush=True)
     del auxes
     flag_sb, flag_mb = batched_flagships(dev, cfg, rs, ts, index, mr)
+    mesh_one_phase(dev, cfg, rs, ts, index, mr)
     del index
 
     # The flagship as SHARDS gene-range shards, each built and matched in
@@ -1571,8 +1825,9 @@ def match_phases(dev) -> tuple:
           f"to the default run; {wall:.2f}s, shards " + json.dumps(shard_t["shards"]),
           flush=True)
     runner_phase(dev, cfg, rs, ts, mr)
+    launches_mesh = mesh_ranks_phase(dev, rs, ts, mr, got, got_nd)
     del rs, ts
-    return flag, flag_sw, flag_nd, flag_sb, flag_mb
+    return flag, flag_sw, flag_nd, flag_sb, flag_mb, launches_mesh
 
 
 def report_files(results: str) -> dict:
@@ -1705,7 +1960,7 @@ def main() -> int:
           f"dependent instructions: {json.dumps(measured_int_rates(dev))}", flush=True)
 
     kres = kernel_phase(dev, unstaged, variants, sub_variants)
-    flag, flag_sw, flag_nd, flag_sb, flag_mb = match_phases(dev)
+    flag, flag_sw, flag_nd, flag_sb, flag_mb, launches_mesh = match_phases(dev)
     driver_phase(dev)
 
     line = {"kernels": [
@@ -1715,6 +1970,7 @@ def main() -> int:
          "launches_streaming": flag_nd["launches"][name],
          "launches_small_batch": flag_sb["launches"][name],
          "launches_multi_batch": flag_mb["launches"][name],
+         "launches_mesh": launches_mesh[name],
          "max_abs_err": kres[name]["max_abs_err"], "ms": kres[name]["ms"],
          "plain_ms": kres[name]["plain_ms"], "bound_ms": kres[name]["bound_ms"],
          "bound_by": kres[name]["bound_by"], "library_ms": kres[name]["library_ms"],
@@ -1734,4 +1990,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        mesh_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
+        sys.exit(0)
     sys.exit(main())

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 
@@ -17,4 +19,14 @@ def resolve_device(name) -> torch.device:
         )
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {str(dev)!r}")
+    return dev
+
+
+def rank_device(name) -> torch.device:
+    """This process's device for ``name``: as ``resolve_device``, except
+    that a bare "cuda" names the card ``cuda:{LOCAL_RANK}`` (torchrun sets
+    the variable; 0 when it is unset), one card a process."""
+    dev = resolve_device(name)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
     return dev

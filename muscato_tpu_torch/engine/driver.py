@@ -12,9 +12,13 @@ builds it and saves it there; ResumeDir reuses an earlier run's
 matches.npz and skips the index and the matching.  The compute stages run
 on the ``device`` given to ``run``.
 
-Not ported yet (each raises NotImplementedError naming it): the device
-mesh (Mesh "DPxMP") and the multi-host runtime (Coordinator /
-ProcessCount).
+A multi-process run starts its process group from ``--Coordinator``/
+``--ProcessCount``/``--ProcessIndex``, or from torchrun's environment
+(``parallel/dist.py``; MUSCATO_DIST_BACKEND=gloo lets processes share one
+card), and runs one process a device: each parses its byte range of the
+read file, the Mesh ("auto", "off" or "DPxMP") shards the index over
+"mp" and the reads over "dp" (``parallel/mesh.py``), and rank 0 alone
+writes matches.npz and the reports.
 """
 
 from __future__ import annotations
@@ -32,7 +36,11 @@ from ..config import Config
 from ..io import reads as reads_io
 from ..io import targets as targets_io
 
-from ..device import resolve_device
+import torch.distributed as torch_dist
+
+from ..device import rank_device
+from ..parallel import dist as pdist
+from ..parallel import mesh as pmesh
 from . import pipeline, report
 from .index import TargetIndex, build_target_index
 
@@ -78,22 +86,8 @@ def _setup_logging(cfg: Config) -> logging.Logger:
     return logger
 
 
-def _check_ported(cfg: Config) -> None:
-    if cfg.Coordinator or cfg.ProcessCount:
-        raise NotImplementedError(
-            "the multi-host runtime is not ported to muscato_tpu_torch yet"
-        )
-    spec = (cfg.Mesh or "").strip().lower()
-    if spec not in ("", "auto", "off", "none", "single", "1x1"):
-        raise NotImplementedError(
-            f"the device mesh (Mesh={cfg.Mesh!r}) is not ported to "
-            "muscato_tpu_torch yet"
-        )
-
-
 def run(cfg: Config, device="cuda") -> None:
-    _check_ported(cfg)
-    dev = resolve_device(device)
+    dev = rank_device(device)
     for label, path in (
         ("ReadFileName", cfg.ReadFileName),
         ("GeneFileName", cfg.GeneFileName),
@@ -106,11 +100,57 @@ def run(cfg: Config, device="cuda") -> None:
     logger = _setup_logging(cfg)
     cfg.save(os.path.join(cfg.LogDir, "config.json"))
 
+    own_group = False
     try:
+        if not torch_dist.is_initialized() and (
+            cfg.Coordinator or cfg.ProcessCount
+            or int(os.environ.get("WORLD_SIZE", "1")) > 1
+        ):
+            pdist.initialize(
+                coordinator_address=cfg.Coordinator or None,
+                num_processes=cfg.ProcessCount or None,
+                process_id=int(cfg.ProcessIndex) if cfg.ProcessIndex != "" else None,
+                backend=os.environ.get("MUSCATO_DIST_BACKEND") or None,
+                device=dev,
+            )
+            own_group = True
+            logger.info(
+                "process group: rank %d of %d (%s)", torch_dist.get_rank(),
+                torch_dist.get_world_size(), torch_dist.get_backend(),
+            )
         _run_stages(cfg, logger, dev)
     finally:
+        if own_group:
+            torch_dist.destroy_process_group()
         if not cfg.NoCleanTemp:
             shutil.rmtree(cfg.TempDir, ignore_errors=True)
+
+
+def _choose_mesh(cfg: Config, n_bases: int, device):
+    """The device mesh of this run, or None for the single-device engine.
+    'auto' (the default) takes a mesh when the world has several
+    processes: the fewest index shards that keep every shard under 1.5e9
+    bases, and the other processes for read parallelism."""
+    spec = (cfg.Mesh or "").strip().lower()
+    if spec in ("off", "none", "single", "1x1"):
+        return None
+    world = torch_dist.get_world_size() if torch_dist.is_initialized() else 1
+    if spec in ("", "auto"):
+        if world <= 1:
+            return None
+        mp = 1
+        while n_bases / mp > 1.5e9 and mp < world:
+            mp *= 2
+        dp = max(1, world // mp)
+    else:
+        try:
+            dp_s, mp_s = spec.split("x")
+            dp, mp = int(dp_s), int(mp_s)
+        except ValueError:
+            raise SystemExit(f"Mesh must be 'auto', 'off', or 'DPxMP'; got {cfg.Mesh!r}")
+        if dp * mp == 1:
+            return None
+    return pmesh.make_mesh(dp, mp, device)
 
 
 def _build_or_load_index(cfg: Config, ts, device) -> TargetIndex:
@@ -142,7 +182,13 @@ def _run_stages(cfg: Config, logger: logging.Logger, device) -> None:
 
     sys.stderr.write("Preparing reads...\n")
     ts_prep = time.time()
-    if cfg.PrepChunk:
+    if torch_dist.is_initialized() and torch_dist.get_world_size() > 1:
+        # Range-sharded prep: each process parses its byte range of the
+        # read file and the unique sets merge on every process.
+        rs = pdist.build_readset_multihost(
+            cfg.ReadFileName, cfg.MinReadLength, cfg.MaxReadLength
+        )
+    elif cfg.PrepChunk:
         rs = reads_io.build_readset_chunked(
             cfg.ReadFileName, cfg.MinReadLength, cfg.MaxReadLength,
             chunk_reads=cfg.PrepChunk,
@@ -181,6 +227,11 @@ def _run_stages(cfg: Config, logger: logging.Logger, device) -> None:
         sys.stderr.write("Screening and confirming...\n")
 
         def _match():
+            mesh = _choose_mesh(cfg, ts.size, device)
+            if mesh is not None:
+                logger.info("mesh run: dp=%d mp=%d, rank %d", mesh.dp, mesh.mp, mesh.rank)
+                shard = pmesh.shard_targets(ts, cfg.WindowWidth, mesh.mp, mesh.m, device)
+                return pmesh.run_matching_sharded(cfg, rs, shard, mesh)
             index = _build_or_load_index(cfg, ts, device)
             return pipeline.run_matching_indexed(cfg, rs, index)
 
@@ -200,6 +251,12 @@ def _run_stages(cfg: Config, logger: logging.Logger, device) -> None:
             logger.info("profiler trace written to %s", trace)
         else:
             mr = _match()
+
+    if not pdist.is_primary():
+        # Rank 0 ranks the gathered rows and writes the reports; this
+        # process's MatchResult is empty by construction.
+        logger.info("non-primary process: rank and report ran on rank 0")
+        return
 
     logger.info("retained %d matches", len(mr.read_row))
     np.savez(

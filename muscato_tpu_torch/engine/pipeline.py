@@ -31,6 +31,7 @@ kernels have none.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import time
@@ -116,6 +117,19 @@ def run_matching(cfg: Config, rs: ReadSet, ts: TargetSet, *, device,
     return run_matching_indexed(cfg, rs, index)
 
 
+def gene_range(ts: TargetSet, lo: int, hi: int) -> TargetSet:
+    """Genes [lo, hi) of ``ts`` as a TargetSet of their own (gene ids and
+    positions start at 0)."""
+    start = int(ts.gene_start[lo])
+    end = int(ts.gene_start[hi])
+    return TargetSet(
+        tcat=np.asarray(ts.tcat[start:end]),
+        gene_start=np.asarray(ts.gene_start[lo : hi + 1]) - start,
+        names=list(ts.names[lo:hi]),
+        lengths=np.asarray(ts.lengths[lo:hi]),
+    )
+
+
 def run_matching_gene_sharded(cfg: Config, rs: ReadSet, ts: TargetSet,
                               nshards: int, *, device,
                               timings: dict | None = None) -> MatchResult:
@@ -136,16 +150,8 @@ def run_matching_gene_sharded(cfg: Config, rs: ReadSet, ts: TargetSet,
         lo, hi = int(bounds[si]), int(bounds[si + 1])
         if hi <= lo:
             continue
-        start = int(ts.gene_start[lo])
-        end = int(ts.gene_start[hi])
-        sub = TargetSet(
-            tcat=np.asarray(ts.tcat[start:end]),
-            gene_start=np.asarray(ts.gene_start[lo : hi + 1]) - start,
-            names=list(ts.names[lo:hi]),
-            lengths=np.asarray(ts.lengths[lo:hi]),
-        )
         t0 = time.perf_counter()
-        index = build_target_index(sub, cfg.WindowWidth, device)
+        index = build_target_index(gene_range(ts, lo, hi), cfg.WindowWidth, device)
         t1 = time.perf_counter()
         rows = run_matching_indexed(cfg, rs, index, _defer_rank=True)
         del index
@@ -177,7 +183,6 @@ class _StageClock:
     def __init__(self, device: torch.device):
         self.cuda = device.type == "cuda"
         self.spans = []  # (stage name, start, stop): events or times
-        self._open = None
 
     def _now(self):
         if not self.cuda:
@@ -186,13 +191,12 @@ class _StageClock:
         ev.record()
         return ev
 
-    def start(self, name: str) -> None:
-        self._open = (name, self._now())
-
-    def stop(self) -> None:
-        name, a = self._open
+    @contextlib.contextmanager
+    def span(self, name: str):
+        """Time the block as stage ``name``."""
+        a = self._now()
+        yield
         self.spans.append((name, a, self._now()))
-        self._open = None
 
     def sums(self) -> dict:
         if self.cuda:
@@ -265,6 +269,109 @@ def _host_scalar(x: torch.Tensor):
     return lambda: (ev.synchronize(), int(h))[1]
 
 
+class _BatchStages:
+    """The stage calls of one read batch against one index, shared by
+    ``run_matching_indexed`` and the device mesh (``parallel/mesh.py``):
+    the probe, then the expand and verify up to the survivor buffer, with
+    the survivor-capacity regrow.  ``agree`` in ``expand_verify`` gives
+    the value every process of a mesh decides on (the world's maximum of
+    its argument) and is the identity on one device: the 2**30 limit, the
+    choice between the dedup and the streaming expand, and the regrow all
+    follow it, so every process takes the same branch."""
+
+    def __init__(self, cfg: Config, index: TargetIndex, l_eff: int, *,
+                 index_aux=None, clock: "_StageClock | None" = None):
+        sw = switches()
+        self.cfg, self.index, self.l_eff = cfg, index, l_eff
+        self.index_aux, self.clock = index_aux, clock
+        self.allow_pjoin = sw["MUSCATO_PJOIN"]
+        self.subchunk = sw["MUSCATO_PEXPAND_SUB"]
+        self.prefetch = sw["MUSCATO_PREFETCH_PROBE"]
+        self.q1s = tuple(int(q) for q in cfg.Windows)
+        self.budget = torch.from_numpy(
+            vops.mismatch_budget_table(cfg.PMatch, cfg.MaxReadLength)
+        ).to(index.device)
+        self.vchunk = cfg.MaxPairChunk or (1 << 20)
+        self.pair_chunk = cfg.MaxPairChunk or (1 << 17)
+        self.trows = index.trows(packed_ops.packed_width(l_eff))
+        self.gblock, self.gsteps = index.gene_block()
+        self.uploads = _PinnedUploads(index.device) if index.device.type == "cuda" else None
+        self.chunks = 0  # streaming chunks run, re-runs included
+
+    def _span(self, name: str):
+        return self.clock.span(name) if self.clock else contextlib.nullcontext()
+
+    def probe(self, rpacked, lengths) -> fused.Probe:
+        with self._span("probe"):
+            return fused.probe_windows(
+                rpacked, lengths, self.q1s, self.index.skeys,
+                width=self.cfg.WindowWidth, min_dinuc=self.cfg.MinDinuc,
+                index_aux=self.index_aux, allow_pjoin=self.allow_pjoin,
+            )
+
+    def expand_verify(self, pr: fused.Probe, total: int, rpacked, lengths,
+                      surv_cap: int, agree=int) -> tuple:
+        """(survivor buffer, this batch's survivor count, survivor capacity
+        after any regrow).  The buffer holds the live rows first and has
+        ``_bucket_ceil`` of the agreed count rows, no more than the
+        capacity."""
+        cfg, index = self.cfg, self.index
+        most = agree(total)
+        if most > 2**30:
+            raise ValueError(
+                f"candidate pair count {most} in one read batch exceeds the "
+                "2**30 expansion limit; re-run with a smaller ReadBatch (or "
+                "raise MinDinuc)"
+            )
+        common = dict(width=cfg.WindowWidth, max_read_length=cfg.MaxReadLength,
+                      smax=index.num_bases, trows=self.trows, gblock=self.gblock,
+                      gsteps=self.gsteps, subchunk=self.subchunk)
+        with self._span("expand_verify"):
+            if len(self.q1s) <= 31 and not cfg.NoDedup and most <= _MAX_PAIR_CAP:
+                pair_cap = max(_PAIR_FLOOR, _bucket_ceil(total))
+                ver = fused.expand_verify_dedup(
+                    pr, self.q1s, rpacked, lengths, index.spos, index.gene_start,
+                    self.budget, pair_cap=pair_cap,
+                    vchunk=min(self.vchunk, pair_cap), **common,
+                )
+                nsurv = int(ver.nsurv)
+                need = agree(nsurv)
+                # Survivor-capacity regrow: the sorted survivors are all on
+                # the device, so growing the buffer re-runs nothing.
+                while need > surv_cap:
+                    surv_cap = max(surv_cap * 2, _bucket_ceil(need))
+                buf = fused.survivor_rows(
+                    ver, pr.keyf, pr.key2f, nreads=rpacked.shape[0],
+                    nwin=len(self.q1s), surv_cap=min(surv_cap, _bucket_ceil(need)),
+                )
+            else:
+                # The streaming expand writes survivors in chunk order and
+                # drops those past the buffer, so an overflow re-runs the
+                # stage with the grown capacity (the probe is reused), as
+                # the JAX engine does.
+                while True:
+                    st = fused.expand_verify_streamed(
+                        pr, self.q1s, rpacked, lengths, index.spos,
+                        index.gene_start, self.budget, pair_chunk=self.pair_chunk,
+                        surv_cap=surv_cap, total=total, **common,
+                    )
+                    self.chunks += st.chunks
+                    nsurv = int(st.nsurv)
+                    need = agree(nsurv)
+                    if need <= surv_cap:
+                        break
+                    surv_cap = max(surv_cap * 2, _bucket_ceil(need))
+                buf = st.surv[: _bucket_ceil(need)]
+        return buf, nsurv, surv_cap
+
+
+def _read_width(lengths: np.ndarray, ncols: int, width: int) -> int:
+    """Columns of the read matrix that the packed reads keep: the longest
+    read (at least the window width), at most ``ncols``."""
+    l_eff = int(max(int(np.max(lengths, initial=0)), width))
+    return min(l_eff, ncols) or ncols
+
+
 def run_matching_indexed(cfg: Config, rs: ReadSet, index: TargetIndex,
                          probe: str | None = None,
                          timings: dict | None = None,
@@ -295,20 +402,10 @@ def run_matching_indexed(cfg: Config, rs: ReadSet, index: TargetIndex,
     'probe_kind' (direct, binary, sorted_join or sort_merge)."""
     if probe not in (None, "sort", "search"):
         raise ValueError(f"probe must be None, 'sort' or 'search', got {probe!r}")
-    sw = switches()
-    allow_pjoin = sw["MUSCATO_PJOIN"]
-    subchunk = sw["MUSCATO_PEXPAND_SUB"]
-    prefetch = sw["MUSCATO_PREFETCH_PROBE"]
     device = index.device
     width = cfg.WindowWidth
     # Trim the packed read matrix to the longest actual read.
-    l_eff = int(max(int(rs.lengths.max(initial=0)), width))
-    l_eff = min(l_eff, rs.codes.shape[1]) or rs.codes.shape[1]
-    budget = torch.from_numpy(
-        vops.mismatch_budget_table(cfg.PMatch, cfg.MaxReadLength)
-    ).to(device)
-    vchunk = cfg.MaxPairChunk or (1 << 20)
-    pair_chunk = cfg.MaxPairChunk or (1 << 17)
+    l_eff = _read_width(rs.lengths, rs.codes.shape[1], width)
     q1s = tuple(int(q) for q in cfg.Windows)
 
     # The reference aborts when a window seeds no reads
@@ -332,7 +429,9 @@ def run_matching_indexed(cfg: Config, rs: ReadSet, index: TargetIndex,
     else:
         use_search = probe == "search"
     index_aux = index.search_aux() if use_search else None
-    kind = fused.probe_kind(index_aux, allow_pjoin)
+    clock = _StageClock(device) if timings is not None else None
+    stages = _BatchStages(cfg, index, l_eff, index_aux=index_aux, clock=clock)
+    kind = fused.probe_kind(index_aux, stages.allow_pjoin)
     logger.info(
         "probe: %s (%d index keys, %d queries a batch%s)", kind,
         index.skeys.shape[0], nflat,
@@ -340,47 +439,31 @@ def run_matching_indexed(cfg: Config, rs: ReadSet, index: TargetIndex,
         if index_aux is not None else "",
     )
 
-    trows = index.trows(packed_ops.packed_width(l_eff))
-    gblock, gsteps = index.gene_block()
     surv_cap = max(_CAP_HINT[0], _SURV_CAP0)
     # Single-batch retained rows come back 64-bit packed; the multi-batch
     # path re-caps across batches and needs the group columns.
     full_cols = _defer_rank or nbatches > 1
     pack_bits = None if full_cols else _fetch_pack_bits(index, batch, cfg)
-    clock = _StageClock(device) if timings is not None else None
-    uploads = _PinnedUploads(device) if device.type == "cuda" else None
     read_prep_s = 0.0
 
     def load(b0):
         nonlocal read_prep_s
         t = time.perf_counter()
         out = _device_read_batch(rs, b0, b0 + batch, l_eff, device,
-                                 cache_ok=nbatches == 1, uploads=uploads)
+                                 cache_ok=nbatches == 1, uploads=stages.uploads)
         read_prep_s += time.perf_counter() - t
         return out
-
-    def run_probe(rpacked, lengths):
-        if clock:
-            clock.start("probe")
-        pr = fused.probe_windows(
-            rpacked, lengths, q1s, index.skeys, width=width,
-            min_dinuc=cfg.MinDinuc, index_aux=index_aux, allow_pjoin=allow_pjoin,
-        )
-        if clock:
-            clock.stop()
-        return pr
 
     t_run0 = time.perf_counter()
     surv_rows = []
     total_pairs = 0
-    chunks = 0
     nxt = load(0)
     pr_next = None
     for b0 in range(0, nreads, batch):
         t_batch = time.perf_counter()
         b1 = min(b0 + batch, nreads)
         rpacked, lengths = nxt
-        pr = pr_next if pr_next is not None else run_probe(rpacked, lengths)
+        pr = pr_next if pr_next is not None else stages.probe(rpacked, lengths)
         pr_next = None
         get_total = _host_scalar(pr.total)
         if b0 + batch < nreads:
@@ -389,73 +472,25 @@ def run_matching_indexed(cfg: Config, rs: ReadSet, index: TargetIndex,
             # on batch N's total; they read only batch N+1's reads and the
             # index.
             nxt = load(b0 + batch)
-            if prefetch:
-                pr_next = run_probe(*nxt)
+            if stages.prefetch:
+                pr_next = stages.probe(*nxt)
         total = get_total()
-        if total > 2**30:
-            raise ValueError(
-                f"candidate pair count {total} in one read batch exceeds the "
-                "2**30 expansion limit; re-run with a smaller ReadBatch (or "
-                "raise MinDinuc)"
-            )
-        if clock:
-            clock.start("expand_verify")
-        if len(q1s) <= 31 and not cfg.NoDedup and total <= _MAX_PAIR_CAP:
-            pair_cap = max(_PAIR_FLOOR, _bucket_ceil(total))
-            ver = fused.expand_verify_dedup(
-                pr, q1s, rpacked, lengths, index.spos, index.gene_start, budget,
-                width=width, max_read_length=cfg.MaxReadLength, pair_cap=pair_cap,
-                vchunk=min(vchunk, pair_cap), smax=index.num_bases, trows=trows,
-                gblock=gblock, gsteps=gsteps, subchunk=subchunk,
-            )
-            nsurv = int(ver.nsurv)
-            # Survivor-capacity regrow: the sorted survivors are all on the
-            # device, so growing the buffer re-runs nothing.
-            while nsurv > surv_cap:
-                surv_cap = max(surv_cap * 2, _bucket_ceil(nsurv))
-                _CAP_HINT[0] = surv_cap
-            buf = fused.survivor_rows(
-                ver, pr.keyf, pr.key2f, nreads=rpacked.shape[0], nwin=len(q1s),
-                surv_cap=min(surv_cap, _bucket_ceil(nsurv)),
-            )
-        else:
-            # The streaming expand writes survivors in chunk order and drops
-            # those past the buffer, so an overflow re-runs the stage with
-            # the grown capacity (the probe is reused), as the JAX engine does.
-            while True:
-                st = fused.expand_verify_streamed(
-                    pr, q1s, rpacked, lengths, index.spos, index.gene_start,
-                    budget, width=width, max_read_length=cfg.MaxReadLength,
-                    pair_chunk=pair_chunk, surv_cap=surv_cap,
-                    smax=index.num_bases, trows=trows, gblock=gblock,
-                    gsteps=gsteps, total=total, subchunk=subchunk,
-                )
-                chunks += st.chunks
-                nsurv = int(st.nsurv)
-                if nsurv <= surv_cap:
-                    break
-                surv_cap = max(surv_cap * 2, _bucket_ceil(nsurv))
-                _CAP_HINT[0] = surv_cap
-            buf = st.surv[: _bucket_ceil(nsurv)]
-        if clock:
-            clock.stop()
+        buf, nsurv, surv_cap = stages.expand_verify(pr, total, rpacked, lengths, surv_cap)
+        _CAP_HINT[0] = surv_cap
         total_pairs += total
         count = 0
-        if clock:
-            clock.start("rank")
         if nsurv:
             # The rank sorts every row it is given, so it takes the live
-            # rows' bucket, not the (hinted) capacity: both buffers above
-            # hold their live rows first.
-            rows_dev, count_d = fused.rank_survivors(
-                buf, nsurv, cfg.MaxMatches, cfg.MMTol,
-                match_mode=cfg.MatchMode, full_cols=full_cols,
-                pack_bits=pack_bits,
-            )
-            count = int(count_d)
+            # rows' bucket, not the (hinted) capacity: the buffer holds
+            # its live rows first.
+            with stages._span("rank"):
+                rows_dev, count_d = fused.rank_survivors(
+                    buf, nsurv, cfg.MaxMatches, cfg.MMTol,
+                    match_mode=cfg.MatchMode, full_cols=full_cols,
+                    pack_bits=pack_bits,
+                )
+                count = int(count_d)
             surv_rows.append((rows_dev[:count], b0))
-        if clock:
-            clock.stop()
         dt = time.perf_counter() - t_batch
         logger.info(
             "batch reads [%d,%d): %d pairs, %d survivors, %d retained, "
@@ -480,7 +515,7 @@ def run_matching_indexed(cfg: Config, rs: ReadSet, index: TargetIndex,
         timings["fetch_bytes"] = sum(r.numel() * r.element_size() for r, _ in surv_rows)
         timings["pairs"] = total_pairs
         timings["batches"] = nbatches
-        timings["chunks"] = chunks
+        timings["chunks"] = stages.chunks
         timings["probe_kind"] = kind
     logger.info(
         "windows %s: %d candidate pairs, %d retained",
@@ -541,9 +576,7 @@ def preload_device_batch(cfg: Config, rs: ReadSet, device) -> None:
     """Stage a single-batch ReadSet's device arrays ahead of a run (cached
     on the ReadSet, as the JAX package's ``preload_device_batch`` does), so
     that a benchmark's timed runs leave the upload out."""
-    width = cfg.WindowWidth
-    l_eff = int(max(int(rs.lengths.max(initial=0)), width))
-    l_eff = min(l_eff, rs.codes.shape[1]) or rs.codes.shape[1]
+    l_eff = _read_width(rs.lengths, rs.codes.shape[1], cfg.WindowWidth)
     nreads = rs.codes.shape[0]
     batch = cfg.ReadBatch or (1 << 22)
     batch = min(batch, _round_up(nreads, 1024))
@@ -566,22 +599,29 @@ def _device_read_batch(rs: ReadSet, b0: int, b1: int, l_eff: int, device,
     key = (b0, b1, l_eff, str(device))
     if cache is not None and key in cache:
         return cache[key]
-    n = b1 - b0
-    real = rs.codes[b0:b1, :l_eff]
-    lens = np.asarray(rs.lengths[b0 : b0 + real.shape[0]], dtype=np.int32)
-    if device.type == "cuda":
-        codes, lengths = (uploads or _PinnedUploads(device)).upload(real, lens, n)
-    else:
-        codes = torch.zeros((n, l_eff), dtype=torch.uint8)
-        lengths = torch.zeros(n, dtype=torch.int32)
-        codes.numpy()[: real.shape[0]] = real
-        lengths.numpy()[: real.shape[0]] = lens
-    out = (packed_ops.pack_rows(codes), lengths)
+    out = _upload_rows(rs.codes[b0:b1, :l_eff], rs.lengths[b0:b1], b1 - b0,
+                       device, uploads)
     if cache_ok:
         if cache is None:
             cache = rs._dev_cache = {}
         cache[key] = out
     return out
+
+
+def _upload_rows(codes: np.ndarray, lengths: np.ndarray, n: int, device,
+                 uploads: _PinnedUploads | None = None):
+    """Device tensors (rpacked int32 (n, nw), lengths int32 (n,)) of the
+    host rows ``codes`` (uint8, already cut to the packed width) and
+    ``lengths``, then zero rows up to n."""
+    lens = np.asarray(lengths, dtype=np.int32)
+    if device.type == "cuda":
+        dc, dl = (uploads or _PinnedUploads(device)).upload(codes, lens, n)
+    else:
+        dc = torch.zeros((n, codes.shape[1]), dtype=torch.uint8)
+        dl = torch.zeros(n, dtype=torch.int32)
+        dc.numpy()[: codes.shape[0]] = codes
+        dl.numpy()[: codes.shape[0]] = lens
+    return packed_ops.pack_rows(dc), dl
 
 
 def _apply_max_matches(cfg, r, g, s, nx, grp, grp2, win):

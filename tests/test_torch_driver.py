@@ -161,14 +161,67 @@ def test_driver_resume_matches_jax(files, first_runs, writer):
     assert _outputs(cfg.ResultsFileName) == first_runs["jax"]["reports"]
 
 
-@pytest.mark.parametrize(
-    "field,value",
-    [("Mesh", "2x4"), ("Coordinator", "host:1")],
-)
-def test_driver_unported_options_raise(files, field, value):
-    cfg = dataclasses.replace(_cfg(files, "unported"), **{field: value})
-    with pytest.raises(NotImplementedError, match=field if field != "Coordinator" else "multi-host"):
+def test_driver_mesh_larger_than_world_raises(files):
+    """A 2x4 mesh on a world of one process: the JAX message."""
+    cfg = dataclasses.replace(_cfg(files, "mesh_2x4"), Mesh="2x4")
+    with pytest.raises(ValueError, match="mesh 2x4 needs 8 devices, have 1"):
         tdriver.run(cfg, device="cpu")
+
+
+def test_driver_malformed_mesh_exits_as_jax(files):
+    cfg = dataclasses.replace(_cfg(files, "mesh_bad"), Mesh="2by4")
+    with pytest.raises(SystemExit) as exp:
+        jdriver._choose_mesh(dataclasses.replace(_cfg(files, "mesh_bad", config=jconfig),
+                                                 Mesh="2by4"), 1000)
+    with pytest.raises(SystemExit) as got:
+        tdriver.run(cfg, device="cpu")
+    assert str(got.value) == str(exp.value) == "Mesh must be 'auto', 'off', or 'DPxMP'; got '2by4'"
+
+
+@pytest.mark.parametrize("mesh", ["off", "1x1"])
+def test_driver_mesh_off_runs_single_device(files, first_runs, mesh):
+    cfg = dataclasses.replace(_cfg(files, f"mesh_{mesh}"), Mesh=mesh)
+    tconfig.apply_defaults(cfg)
+    tdriver.run(cfg, device="cpu")
+    with open(os.path.join(cfg.LogDir, "muscato.log")) as f:
+        assert "mesh run" not in f.read()
+    assert _outputs(cfg.ResultsFileName) == first_runs["jax"]["reports"]
+
+
+def _files_of(d):
+    return {p.name: p.read_bytes() for p in sorted(d.iterdir()) if p.is_file()}
+
+
+@pytest.mark.parametrize("rev", [False, True])
+def test_cli_prep_targets_matches_jax(tmp_path, rev):
+    """muscato_torch_prep_targets writes muscato_prep_targets' bytes."""
+    from muscato_tpu import cli as jcli
+
+    src = tgendat.generate_big(50, 100, 30, 500, out_dir=str(tmp_path), seed=3)[1]
+    outs = []
+    for name, main in (("jax", jcli.main_prep_targets), ("port", cli.main_prep_targets)):
+        d = tmp_path / name
+        d.mkdir()
+        genes = d / os.path.basename(src)
+        genes.write_bytes(open(src, "rb").read())
+        assert main(["-rev", str(genes)] if rev else [str(genes)]) == 0
+        outs.append(_files_of(d))
+    assert len(outs[0]) == 3 and outs[1] == outs[0]
+
+
+def test_cli_gendat_matches_jax(tmp_path):
+    """muscato_torch_gendat writes muscato_gendat's bytes."""
+    from muscato_tpu import cli as jcli
+
+    args = ["-NumRead", "300", "-ReadLen", "60", "-NumGene", "20", "-GeneLen", "400",
+            "-Seed", "7"]
+    outs = []
+    for name, main in (("jax", jcli.main_gendat), ("port", cli.main_gendat)):
+        d = tmp_path / name
+        d.mkdir()
+        assert main(args + ["-Dir", str(d)]) == 0
+        outs.append(_files_of(d))
+    assert len(outs[0]) >= 2 and outs[1] == outs[0]
 
 
 def test_cli_device_flag():

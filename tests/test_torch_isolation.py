@@ -44,11 +44,12 @@ def _imports(path: pathlib.Path):
 
 
 def test_scan_covers_every_port_module():
-    """The scan finds its files by itself: the search probe's module and
-    the benchmark runner's twin are among them."""
+    """The scan finds its files by itself: the search probe's module, the
+    benchmark runner's twin and the mesh's modules are among them."""
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {"muscato_tpu_torch/ops/search.py", "muscato_tpu_torch/bench/runner.py",
-            "muscato_tpu_torch/engine/pipeline.py", "chip_smoke.py"} <= names
+            "muscato_tpu_torch/engine/pipeline.py", "muscato_tpu_torch/parallel/mesh.py",
+            "muscato_tpu_torch/parallel/dist.py", "chip_smoke.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
