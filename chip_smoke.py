@@ -43,16 +43,27 @@ qid in the ring or not, lanes a warp, register cut), all at once, then:
      against their unstaged variant, and B2, B6 and their variant builds
      against one another at both densities, in turns; B2 and B6 are also
      timed at the streaming expand's launch shape (131,072 lanes over a
-     131,073-slot chunk window);
-  3. matches 100k reads of the flagship workload against the FULL
-     100M-base index on cuda and on cpu (the plain twins), then on cuda
-     under MUSCATO_PJOIN=0 (the sort-merge probe) and under
-     MUSCATO_PEXPAND_SUB=1 (the B6 expand); all MatchResults must be
-     identical; then through the streaming expand, each on cuda and on cpu:
-     NoDedup, 32 windows (0, 2, ..., 62), and _MAX_PAIR_CAP set below the
-     batch's pair total; the first and the last must also equal the
-     default run (these runs ask for the sorted join: at 100k reads the
-     engine would pick the search probe);
+     131,073-slot chunk window); then runs the bench tool
+     pallas_device_check (every kernel at its small shapes, exact against
+     its twin) and micro_verify (the
+     dedup verify's ns a lane in each mode at 2**20 lanes on 100M-base,
+     4M-read tables);
+  3. builds the flagship index on the card (device_build=True, twice),
+     each equal to the host build array for array, with both builds'
+     times and the device build's peak memory; then a shard of 1.5e9
+     bases, the largest the driver's auto mesh gives, built on the card
+     by mesh.shard_targets, with its seconds and peak memory, its window
+     count, key order, positions and sampled keys checked; then matches
+     100k reads of
+     the flagship workload against the FULL 100M-base index through
+     engine_device_check: the default path, MUSCATO_PJOIN=0 (the
+     sort-merge probe), MUSCATO_PEXPAND_SUB=1 (the B6 expand), both, and
+     NoDedup (the streaming expand), each on cuda equal to the default
+     path's cpu run (the plain twins); then through the streaming expand,
+     each on cuda and on cpu: 32 windows (0, 2, ..., 62), and
+     _MAX_PAIR_CAP set below the batch's pair total, the last also equal
+     to the default run (these runs ask for the sorted join: at 100k
+     reads the engine would pick the search probe);
   4. runs the flagship (4M reads x 100 bp against 100,000 genes x 1,000 bp,
      windows 10,30,50,70 at width 20) through run_matching_indexed with
      every launch counter set to 0 first, prints reads/s, matches, the
@@ -72,8 +83,9 @@ qid in the ring or not, lanes a warp, register cut), all at once, then:
      against small sorted prefixes of the index; then matches the 100k
      reads of step 3 through probe="search" in direct mode and in binary
      mode (forced by lowering engine.index.MAX_DIRECT_BITS while the aux
-     is built), each on cuda and on cpu, equal to the sorted join's
-     result, with each aux's build seconds and device bytes; then times
+     is built), engine_device_check's last two paths, each on cuda equal
+     to the sorted join's cpu run, with each aux's build seconds and
+     device bytes, and prints ENGINE_RESULTS (path -> true); then times
      the probe stage on the direct and the binary search probe and the
      sorted join
      at 16,384, 65,536, 262,144 and 1,048,576 reads a batch (the first 4
@@ -84,16 +96,19 @@ qid in the ring or not, lanes a warp, register cut), all at once, then:
      MUSCATO_PREFETCH_PROBE=0 (the upload goes ahead in both), in turns,
      each counted, timed and profiled once (busy share), each MatchResult
      equal to the default run's, and times the host's cross-batch cap
-     and rank over the union of the 4 batches' rows; then matches the
+     and rank over the union of the 4 batches' rows; then profile_match
+     on the flagship index (the top kernels by device time and the stage
+     spans of one profiled run of the reads shifted by one); then matches the
      flagship as 3 gene-range shards (run_matching_gene_sharded), equal
      to the default run, with each shard's build and match times; then
      runs the benchmark runner's twin (muscato_tpu_torch.bench.runner):
      _bench_one on the flagship arrays, and its main entry point on the
      small workload, whose JSON line must name reads_per_sec_chip; then
-     the device mesh (muscato_tpu_torch.parallel): the flagship over a
-     1x1 mesh of this process on NCCL, its one shard built by
-     shard_targets, in turns with the plain run (mesh, plain, plain,
-     mesh), each equal to the default run; then a 2x2 mesh of four gloo
+     the device mesh (muscato_tpu_torch.parallel), whose shards are built
+     on the card: the flagship over a 1x1 mesh of this process on NCCL,
+     its one shard built by shard_targets, in turns with the plain run (mesh, plain, plain,
+     mesh), each equal to the default run, and bench/scaling.py's measure
+     on the flagship in that world (its 1x1 reads/s); then a 2x2 mesh of four gloo
      processes of this script that share the card (NCCL refuses two
      ranks on one card), each holding half the gene set and half of
      each batch, memory-mapping the flagship arrays this process writes
@@ -107,7 +122,9 @@ qid in the ring or not, lanes a warp, register cut), all at once, then:
      prep_targets (same index size, fewer reads) and checks its four
      output files, then runs it with an IndexFile that it saves, with the
      same IndexFile that it loads, and with ResumeDir set to the saving
-     run's kept TempDir: each run's four files must equal the first's.
+     run's kept TempDir: each run's four files must equal the first's;
+  5. runs the bench tool bigtest (100k reads x 100k genes through the
+     muscato_torch driver) through its entry point.
 
 Every phase checks its results and any failure exits non-zero.  The line
 before the last is a JSON object with each kernel's numbers (its
@@ -162,6 +179,11 @@ DEFAULT_PATH = ("sorted_join", "expand_owners", "monotone_gather",
 SWITCHED_PATH = ("expand_owners_sub", "monotone_gather", "monotone_gather_rows",
                  "window_queries")
 SWITCHES = {"MUSCATO_PJOIN": "0", "MUSCATO_PEXPAND_SUB": "1"}
+# engine_device_check's paths that the parity phase runs (its search
+# paths run after the flagship cells; see search_parity).
+ENGINE_PATHS = ("default", "MUSCATO_PJOIN=0", "MUSCATO_PEXPAND_SUB=1",
+                "MUSCATO_PJOIN=0 MUSCATO_PEXPAND_SUB=1", "NoDedup")
+MICRO_VERIFY_LANES = 1 << 20
 # The streaming expand's path (NoDedup): B2 a chunk over its slot window,
 # B3 for the postings and in the rank, no B4 (the row fetch is a plain
 # gather there).
@@ -188,6 +210,10 @@ MESH_DP, MESH_MP = 2, 2
 MESH_RANKS = MESH_DP * MESH_MP
 MESH_TIMEOUT = 900
 RUNNER_SMALL = ["--Workload", "small", "--NumRead", "1000000", "--Repeats", "2"]
+# The largest shard the driver's auto mesh gives (engine/driver.py
+# _choose_mesh keeps every shard under 1.5e9 bases), built on the card as a
+# mesh rank builds it, in genes of 1,000-19,999 bases.
+BIG_SHARD_BASES = 1_500_000_000
 # Where the engine calls each kernel wrapper (module, attribute; fused
 # reaches B1 through its reference to the join module), and each kernel's
 # CUDA symbol as a profile names it.
@@ -1152,9 +1178,9 @@ def kernel_profile(dev, cfg, rs, index) -> dict:
     import re
 
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from muscato_tpu_torch.bench import profile_match
     from muscato_tpu_torch.engine import pipeline
 
     torch.cuda.synchronize(dev)
@@ -1164,21 +1190,14 @@ def kernel_profile(dev, cfg, rs, index) -> dict:
         pipeline.run_matching_indexed(cfg, rs, index)
         torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
-    evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
-                 key=lambda e: e.time_range.start)
+    evs = profile_match.device_events(prof)
     check(evs, "the profiler recorded no device time")
     out = dict(source="torch.profiler", wall_s=wall)
     pats = {k: re.compile(r"(?<![\w])" + sym + r"\b") for k, sym in SYMBOLS.items()}
     per_launch = {k: [(e.time_range.end - e.time_range.start) / 1e3
                       for e in evs if p.search(e.name)] for k, p in pats.items()}
-    by_name = {}
-    for e in evs:
-        short = e.name.replace("(anonymous namespace)::", "").split("(")[0]
-        name = next((k for k, p in pats.items() if p.search(e.name)),
-                    short.removeprefix("void ")[:120])
-        t = by_name.setdefault(name, [0, 0.0])
-        t[0] += 1
-        t[1] += (e.time_range.end - e.time_range.start) / 1e3
+    by_name = profile_match.kernel_table(evs, lambda n: next(
+        (k for k, p in pats.items() if p.search(n)), profile_match.short_name(n)))
     starts = [e.time_range.start for e in evs if pats["window_queries"].search(e.name)]
     fetch = [e.time_range.start for e in evs if "DtoH" in e.name]
     w0 = starts[0] if starts else evs[0].time_range.start
@@ -1191,9 +1210,8 @@ def kernel_profile(dev, cfg, rs, index) -> dict:
             edge = b
     out.update(window_ms=(w1 - w0) / 1e3, busy_ms=busy / 1e3,
                busy_share=busy / max(w1 - w0, 1e-9))
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
-    out["kernels"] = {n: {"launches": c, "ms": ms} for i, (n, (c, ms)) in enumerate(top)
-                      if n in SYMBOLS or i < 25}
+    out["kernels"] = {n: {"launches": c, "ms": ms} for i, (n, (c, ms))
+                      in enumerate(by_name.items()) if n in SYMBOLS or i < 25}
     sites = {}
     for k in SYMBOLS:
         mine = [c for c in calls if c["kernel"] == k]
@@ -1283,46 +1301,30 @@ def probe_small_index(dev, cfg, rs, index) -> dict:
     return out
 
 
-def search_parity(cfg, sub, index, cpu_index, got) -> dict:
+def search_parity(cfg, sub, index, cpu_index, engine) -> dict:
     """The PARITY_READS reads through probe="search" against the full
-    index, in direct mode and in binary mode (forced by lowering
-    index.MAX_DIRECT_BITS below the direct table's bits while the aux is
-    built), each on cuda and on cpu: the two must be identical and equal
-    to the sorted join's MatchResult ``got``.  Prints each aux's build
-    seconds and device bytes; returns {mode: the cuda aux}, the index
-    keeping the direct one."""
-    from muscato_tpu_torch.engine import index as index_mod
-    from muscato_tpu_torch.engine import pipeline
+    index, in direct mode and in binary mode (forced while the aux is
+    built), by engine_device_check: each cuda MatchResult must equal the
+    sorted join's cpu run.  Adds the two paths' verdicts to ``engine``
+    ({path: ok}) and prints all of them as ENGINE_RESULTS, and each aux's
+    build seconds and device bytes; returns {mode: the cuda aux}, the
+    index keeping the direct one."""
+    from muscato_tpu_torch.bench import engine_device_check
 
+    out = engine_device_check.check_paths(cfg, sub, index, cpu_index,
+                                          paths=("search_direct", "search_binary"))
     auxes = {}
-    for mode in ("direct", "binary"):
-        saved = index_mod.MAX_DIRECT_BITS
-        if mode == "binary":
-            index_mod.MAX_DIRECT_BITS = auxes["direct"].bucket_bits - 1
-        try:
-            for idx in (index, cpu_index):
-                idx._aux = None
-                idx.search_aux()
-        finally:
-            index_mod.MAX_DIRECT_BITS = saved
-        aux = auxes[mode] = index._aux
-        check(aux.mode == mode and cpu_index._aux.mode == mode, f"{mode}: aux mode {aux.mode}")
-        t0 = time.perf_counter()
-        tg = {}
-        alt = pipeline.run_matching_indexed(cfg, sub, index, probe="search", timings=tg)
-        t1 = time.perf_counter()
-        alt_cpu = pipeline.run_matching_indexed(cfg, sub, cpu_index, probe="search")
-        t2 = time.perf_counter()
-        check(tg["probe_kind"] == mode, f"search parity ran the {tg['probe_kind']} probe")
-        check(same_result(alt, alt_cpu), f"search probe, {mode}: cuda and cpu MatchResults differ")
-        check(same_result(alt, got), f"search probe, {mode}: MatchResult differs from the sorted join's")
-        print(f"parity, search probe, {mode} mode ({aux.bucket_bits} bucket bits"
-              + (f", {aux.probe_steps} steps" if mode == "binary" else "")
-              + f"): aux built in {aux.build_s:.2f}s (cpu copy {cpu_index._aux.build_s:.2f}s), "
-              f"{aux.nbytes} device bytes; {len(alt.read_row)} matches identical on cuda "
-              f"({t1 - t0:.2f}s) and cpu ({t2 - t1:.2f}s) and to the sorted join's", flush=True)
+    for path, run in out["runs"].items():
+        engine[path] = run["ok"]
+        check(run["ok"], f"engine_device_check {path}: {run['error'] or 'MatchResult differs'}")
+        aux = auxes[run["timings"]["probe_kind"]] = run["aux"]
+        print(f"parity, search probe, {aux.mode} mode ({aux.bucket_bits} bucket bits"
+              + (f", {aux.probe_steps} steps" if aux.mode == "binary" else "")
+              + f"): aux built in {aux.build_s:.2f}s, {aux.nbytes} device bytes; "
+              f"{len(run['result'].read_row)} matches identical to the sorted join's cpu run "
+              f"({run['seconds']:.2f}s with the aux build)", flush=True)
+    print("ENGINE_RESULTS " + json.dumps(engine), flush=True)
     index._aux = auxes["direct"]
-    cpu_index._aux = None
     return auxes
 
 
@@ -1446,14 +1448,6 @@ def runner_phase(dev, cfg, rs, ts, mr) -> None:
           + lines[0], flush=True)
 
 
-def free_port() -> int:
-    import socket
-
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        return sock.getsockname()[1]
-
-
 def mesh_run(dev, cfg, rs, ts, shard, mesh, path) -> tuple:
     """One counted, timed run_matching_sharded on this rank: every launch
     counter is set to 0 just before it and read just after; fails unless
@@ -1496,9 +1490,13 @@ def mesh_one_phase(dev, cfg, rs, ts, index, mr) -> None:
     world of one: the all-gather runs on NCCL over a group of one), its
     one shard built by shard_targets; a warm-up, then the mesh and the
     plain run_matching_indexed on the flagship in turns (mesh, plain,
-    plain, mesh), each counted, timed and equal to the flagship's ``mr``."""
+    plain, mesh), each counted, timed and equal to the flagship's ``mr``;
+    then bench/scaling.py's ``measure`` on the flagship in the same
+    world (its 1x1 reads/s)."""
     import torch.distributed as tdist
 
+    from muscato_tpu_torch.bench import scaling
+    from muscato_tpu_torch.bench.scaling import free_port
     from muscato_tpu_torch.parallel import dist as pdist
     from muscato_tpu_torch.parallel import mesh as pmesh
 
@@ -1519,11 +1517,19 @@ def mesh_one_phase(dev, cfg, rs, ts, index, mr) -> None:
             check(same_result(got, mr), f"1x1 mesh phase: the {arm} MatchResult differs")
             runs[arm].append(num)
         print(f"1x1 mesh on NCCL: {len(mr.read_row)} matches, identical to the flagship; "
-              f"shard index built in {build_s:.1f}s; wall s in turns: mesh "
+              f"shard index built on the card in {build_s:.2f}s "
+              f"{json.dumps(shard.index.build_timings)}; wall s in turns: mesh "
               + json.dumps([r["wall_s"] for r in runs["mesh"]]) + ", plain "
               + json.dumps([r["wall_s"] for r in runs["plain"]]) + "; the last mesh run: "
               + json.dumps(runs["mesh"][-1]), flush=True)
         del shard
+        t0 = time.perf_counter()
+        rows = scaling.measure(cfg, rs, ts, dev, 2, log=lambda *a, **k: None)
+        check([r["mesh"] for r in rows] == ["1x1"] and rows[0]["reads_per_sec"] > 0,
+              f"scaling: {rows}")
+        print(f"scaling.measure on the flagship in this world of one on NCCL "
+              f"({time.perf_counter() - t0:.1f}s, its shard built, a warm-up, the best of 2): "
+              + json.dumps(rows[0]), flush=True)
     finally:
         tdist.destroy_process_group()
 
@@ -1562,7 +1568,8 @@ def mesh_rank(rank: int, port: int, work: str, device: str) -> None:
         t0 = time.perf_counter()
         shard = pmesh.shard_targets(ts, WIDTH, MESH_MP, mesh.m, dev)
         stats = dict(rank=rank, d=mesh.d, m=mesh.m, genes=list(shard.genes),
-                     index_build_s=time.perf_counter() - t0)
+                     index_build_s=time.perf_counter() - t0,
+                     index_build_detail=shard.index.build_timings)
         cfg = config()
         pmesh.run_matching_sharded(cfg, rs, shard, mesh)
         n = PARITY_READS
@@ -1624,6 +1631,7 @@ def mesh_ranks_phase(dev, rs, ts, mr, got, got_nd) -> dict:
     import subprocess as sp
     import torch
 
+    from muscato_tpu_torch.bench.scaling import free_port
     from muscato_tpu_torch.engine.pipeline import MatchResult
 
     torch.cuda.empty_cache()  # the ranks share this card's memory
@@ -1676,12 +1684,100 @@ def mesh_ranks_phase(dev, rs, ts, mr, got, got_nd) -> dict:
         shutil.rmtree(work, ignore_errors=True)
 
 
+def index_build_phase(dev, ts, index, host_s: float) -> None:
+    """The flagship index built on the card (device_build=True), twice:
+    each must equal the host build ``index`` (built in ``host_s``) array
+    for array (skeys, the second key word, spos, num_valid); prints both
+    builds' seconds and the device build's peak memory above what was
+    allocated before it."""
+    import numpy as np
+    import torch
+
+    from muscato_tpu_torch.engine import pipeline
+
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize(dev)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        dindex = pipeline.build_target_index(ts, WIDTH, dev, device_build=True)
+        torch.cuda.synchronize(dev)
+        runs.append(dict(wall_s=time.perf_counter() - t0, timings=dindex.build_timings,
+                         peak_gib=(torch.cuda.max_memory_allocated(dev) - base) / 2**30))
+        check(dindex.num_valid == index.num_valid and torch.equal(dindex.skeys, index.skeys)
+              and torch.equal(dindex.spos, index.spos)
+              and np.array_equal(dindex.skeys2.cpu().numpy().view(np.uint32),
+                                 index.host_arrays[1]),
+              "the device-built index differs from the host build")
+        del dindex
+    torch.cuda.empty_cache()
+    print(f"index built on the card: {index.num_valid} window keys, skeys, key2 and spos "
+          f"identical to the host build (host build {host_s:.2f}s "
+          f"{json.dumps(index.build_timings)}); device builds " + json.dumps(runs),
+          flush=True)
+
+
+def big_shard_phase(dev) -> None:
+    """A shard of BIG_SHARD_BASES random bases built on the card by
+    ``mesh.shard_targets``, as a mesh rank builds its shard: prints its
+    seconds and its peak memory above what was allocated before it.  The
+    result must have the valid window count of its genes, keys ascending
+    as uint32, the valid positions' sum, and, at 4,096 random entries, the
+    key of the window at the entry's position computed on the host."""
+    import numpy as np
+    import torch
+
+    from muscato_tpu_torch.io.targets import TargetSet
+    from muscato_tpu_torch.parallel import mesh as pmesh
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    lengths = rng.integers(1_000, 20_000, BIG_SHARD_BASES // 1_000)
+    lengths = lengths[: int(np.searchsorted(np.cumsum(lengths), BIG_SHARD_BASES, 'right'))]
+    gs = np.concatenate([[0], np.cumsum(lengths)])
+    ts = TargetSet(tcat=rng.integers(0, 4, int(gs[-1]), dtype=np.uint8), gene_start=gs,
+                   names=[b""] * len(lengths), lengths=lengths)
+    make_s = time.perf_counter() - t0
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    index = pmesh.shard_targets(ts, WIDTH, 1, 0, dev).index
+    torch.cuda.synchronize(dev)
+    build_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    nwin = np.maximum(lengths - WIDTH + 1, 0)
+    first, last = gs[:-1], gs[:-1] + nwin - 1
+    check(index.num_valid == int(nwin.sum()), "big shard: num_valid")
+    u = index.skeys ^ -(1 << 31)  # signed order of these is the uint32 order of skeys
+    check(bool((u[1:] >= u[:-1]).all()), "big shard: skeys do not ascend")
+    del u
+    check(int(index.spos.sum(dtype=torch.int64)) == int(((first + last) * nwin // 2).sum()),
+          "big shard: spos is not the valid positions")
+    at = rng.integers(0, index.num_valid, 4096)
+    sel = torch.from_numpy(at).to(dev)
+    pos, keys = index.spos[sel].cpu().numpy(), index.skeys[sel].cpu().numpy().view(np.uint32)
+    win = ts.tcat[pos[:, None] + np.arange(WIDTH)].astype(np.uint64)
+    exp = np.zeros(len(at), np.uint64)
+    for i in range(WIDTH):
+        exp = (exp * np.uint64(0x9E3779B1) + win[:, i]) & np.uint64(0xFFFFFFFF)
+    check(np.array_equal(keys, exp.astype(np.uint32)), "big shard: keys at sampled entries")
+    print(f"big shard: {int(gs[-1])} bases in {len(lengths)} genes (made in {make_s:.1f}s), "
+          f"{index.num_valid} windows, built on the card by shard_targets in {build_s:.2f}s "
+          f"{json.dumps(index.build_timings)}; peak {peak / 2**30:.2f} GiB above the "
+          f"{base / 2**30:.2f} GiB allocated before, {peak / index.num_valid:.1f} bytes a "
+          f"window; count, order, positions and sampled keys checked", flush=True)
+    del index, ts
+    torch.cuda.empty_cache()
+
+
 def match_phases(dev) -> tuple:
     import dataclasses
 
     import torch
 
-    from muscato_tpu_torch.bench import gendat
+    from muscato_tpu_torch.bench import engine_device_check, gendat, profile_match
     from muscato_tpu_torch.engine import pipeline
     from muscato_tpu_torch.io.reads import ReadSet
 
@@ -1695,8 +1791,11 @@ def match_phases(dev) -> tuple:
           f"({time.perf_counter() - t0:.1f}s)", flush=True)
     t0 = time.perf_counter()
     index = pipeline.build_target_index(ts, WIDTH, dev)
+    host_s = time.perf_counter() - t0
     print(f"index: {index.num_valid} window keys in "
-          f"{time.perf_counter() - t0:.1f}s {index.build_timings}", flush=True)
+          f"{host_s:.1f}s {index.build_timings}", flush=True)
+    index_build_phase(dev, ts, index, host_s)
+    big_shard_phase(dev)
 
     # Parity against the full index: cuda kernels vs cpu plain twins, then
     # each switched path on cuda against the default cuda run, then the
@@ -1705,29 +1804,22 @@ def match_phases(dev) -> tuple:
     sub = ReadSet(codes=rs.codes[:n], lengths=rs.lengths[:n],
                   counts=rs.counts[:n], num_total=n)
     cpu_index = cpu_copy(index)
-    t0 = time.perf_counter()
-    parity_t = {}
-    # At this batch size the engine would pick the search probe; these
-    # runs hold the sorted join (and the switched probe) to the CPU.
-    got = pipeline.run_matching_indexed(cfg, sub, index, probe="sort", timings=parity_t)
-    t1 = time.perf_counter()
-    exp = pipeline.run_matching_indexed(cfg, sub, cpu_index, probe="sort")
-    t2 = time.perf_counter()
-    check(same_result(got, exp), "cuda and cpu MatchResults differ")
+    out = engine_device_check.check_paths(cfg, sub, index, cpu_index, paths=ENGINE_PATHS)
+    runs = out["runs"]
+    engine = {path: run["ok"] for path, run in runs.items()}
+    for path, run in runs.items():
+        check(run["ok"], f"engine_device_check {path}: {run['error'] or 'MatchResult differs'}")
+    got, parity_t = runs["default"]["result"], runs["default"]["timings"]
+    got_nd = runs["NoDedup"]["result"]
     check_result(got, sub, ts, cfg)
-    print(f"parity: {n} reads vs the full index, {len(got.read_row)} matches "
-          f"identical on cuda ({t1 - t0:.2f}s) and cpu ({t2 - t1:.2f}s)",
-          flush=True)
-    for name, value in SWITCHES.items():
-        t0 = time.perf_counter()
-        with switched(**{name: value}):
-            alt = pipeline.run_matching_indexed(cfg, sub, index, probe="sort")
-        check(same_result(alt, got), f"{name}={value}: MatchResult differs on cuda")
-        print(f"parity: {name}={value} on cuda identical to the default run "
-              f"({time.perf_counter() - t0:.2f}s)", flush=True)
+    check(runs["NoDedup"]["timings"]["chunks"] > 0, "NoDedup: the streaming expand did not run")
+    check(parity_t["probe_kind"] == "sorted_join"
+          and runs["MUSCATO_PJOIN=0"]["timings"]["probe_kind"] == "sort_merge", "parity probes")
+    print(f"parity (engine_device_check): {n} reads vs the full index, {len(got.read_row)} "
+          f"matches; each path on cuda identical to the cpu run: " + json.dumps(
+              {path: round(run["seconds"], 2) for path, run in runs.items()}), flush=True)
     pair_cap = parity_t["pairs"] // 2
     streaming = {
-        "NoDedup": (dataclasses.replace(cfg, NoDedup=True), None),
         f"{len(STREAM_WINDOWS)} windows (0, 2, ..., {STREAM_WINDOWS[-1]})":
             (dataclasses.replace(cfg, Windows=list(STREAM_WINDOWS)), None),
         f"_MAX_PAIR_CAP {pair_cap}, below the batch's {parity_t['pairs']} pairs":
@@ -1749,8 +1841,6 @@ def match_phases(dev) -> tuple:
         check(tg["chunks"] > 0 and tc["chunks"] > 0, f"{label}: the streaming expand did not run")
         check(same_result(alt, alt_cpu), f"{label}: cuda and cpu MatchResults differ")
         check_result(alt, sub, ts, c)
-        if c.NoDedup:
-            got_nd = alt
         if c.Windows == cfg.Windows:
             check(same_result(alt, got), f"{label}: MatchResult differs from the default run")
         print(f"parity, streaming expand, {label}: {len(alt.read_row)} matches identical on "
@@ -1801,13 +1891,17 @@ def match_phases(dev) -> tuple:
           f"K x R = {len(WINDOWS) * BATCH} queries): " + json.dumps(small), flush=True)
     # The search probe's parity comes after the flagship cells, so that
     # their peak memory does not hold its two auxes (4.1 GB together).
-    auxes = search_parity(cfg, sub, index, cpu_index, got)
+    auxes = search_parity(cfg, sub, index, cpu_index, engine)
     del cpu_index
     cross = probe_crossover(dev, cfg, rs, index, auxes)
     print(f"probe stage by batch size (ms a batch over the first {CROSSOVER_DEPTH} "
           f"batches; {index.num_valid} index keys): " + json.dumps(cross), flush=True)
     del auxes
     flag_sb, flag_mb = batched_flagships(dev, cfg, rs, ts, index, mr)
+    pm = profile_match.profile(cfg, rs, index, dev)
+    check(pm["matches"] > 0 and pm["kernels"], "profile_match")
+    print("profile_match on the flagship index (the reads shifted by one): "
+          + json.dumps(pm), flush=True)
     mesh_one_phase(dev, cfg, rs, ts, index, mr)
     del index
 
@@ -1906,6 +2000,54 @@ def driver_phase(dev) -> None:
         shutil.rmtree(work, ignore_errors=True)
 
 
+def bench_tool_phases(dev) -> None:
+    """The bench tools that stand on their own: pallas_device_check at its
+    small shapes (every kernel exact against its twin; kernel_phase holds
+    them at the main path's shapes), then micro_verify's modes at
+    MICRO_VERIFY_LANES lanes on its 100M-base, 4M-read tables."""
+    import torch
+
+    from muscato_tpu_torch.bench import micro_verify, pallas_device_check
+
+    t0 = time.perf_counter()
+    res = pallas_device_check.run(dev, ("small",))
+    check(all(res.values()), f"pallas_device_check: {res}")
+    print(f"pallas_device_check ({time.perf_counter() - t0:.1f}s): PALLAS_RESULTS "
+          + json.dumps(res), flush=True)
+    t0 = time.perf_counter()
+    tb = micro_verify.tables(dev, 100_000_000, 4_000_000)
+    out = micro_verify.measure(dev, MICRO_VERIFY_LANES, tb)
+    del tb
+    torch.cuda.empty_cache()
+    print(f"micro_verify at {MICRO_VERIFY_LANES} lanes ({time.perf_counter() - t0:.1f}s): "
+          + json.dumps(out), flush=True)
+
+
+def tool_run_phases(dev) -> None:
+    """bigtest run through its entry point on the card at its defaults
+    (100k reads x 100k genes through the muscato_torch driver) in a
+    temporary directory."""
+    import contextlib
+    import io
+
+    from muscato_tpu_torch.bench import bigtest
+
+    work = tempfile.mkdtemp(prefix="muscato_chip_smoke_bigtest_")
+    try:
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = bigtest.main(["--Dir", work])
+        text = out.getvalue()
+        full = [ln for ln in text.splitlines() if ln.startswith("full run: ")]
+        check(rc == 0 and full and int(full[0].split(", ")[-1].split()[0]) > 0,
+              f"bigtest: {text[-2000:]}")
+        print(f"bigtest at its defaults ({time.perf_counter() - t0:.1f}s):\n" + text.strip(),
+              flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -1960,8 +2102,10 @@ def main() -> int:
           f"dependent instructions: {json.dumps(measured_int_rates(dev))}", flush=True)
 
     kres = kernel_phase(dev, unstaged, variants, sub_variants)
+    bench_tool_phases(dev)
     flag, flag_sw, flag_nd, flag_sb, flag_mb, launches_mesh = match_phases(dev)
     driver_phase(dev)
+    tool_run_phases(dev)
 
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],

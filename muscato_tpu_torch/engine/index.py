@@ -1,28 +1,33 @@
-"""Target index on the device (port of ``muscato_tpu/engine/index.py``'s
-host build).
+"""Target index on the device (port of ``muscato_tpu/engine/index.py``).
 
 The targets are compiled once into the sorted window-key index that read
 batches probe: the window key of every valid window position, sorted as
 uint32 (ties by position), with the positions alongside.  A window
-position p is valid iff the whole window lies inside one gene.  Keys and
-sort run on the host (in C when the native library is present) and the
-arrays are uploaded to an explicit device:
+position p is valid iff the whole window lies inside one gene:
 
   tpacked    (S/8+pad,) int32  nibble-packed gene stream (uint32 bit patterns)
   gene_start (G+1,) int32      gene offsets into the stream
   skeys      (V,)  int32       sorted window keys (uint32 bit patterns)
+  skeys2     (V,)  int32       the second hash word, on a device build
+                               unless keep_k2=False
   spos       (V,)  int32       the window positions, aligned with skeys
 
-The second hash word never goes to the device: the probe joins on key1
-alone, and key1 collisions between distinct wide k-mers die in the
-byte-true verify.  The host keeps the sorted (key1, key2, position)
-arrays for ``TargetIndex.save``, whose file ``TargetIndex.load`` reads
-back instead of building; the file is the JAX package's index file, and
-each package reads the other's.
+Two builds give the same arrays.  The default host build computes keys
+and sort on the host (in C when the native library is present) and
+uploads the sorted arrays; it keeps the host copies of (key1, key2,
+position), and the second hash word never goes to the device: the probe
+joins on key1 alone, and key1 collisions between distinct wide k-mers die
+in the byte-true verify.  ``device_build=True`` uploads the gene stream
+and computes the keys, the validity and the sort on the device
+(``_sorted_windows``, in bounded chunks and sort groups), as the JAX
+mesh builds every shard; it keeps no host copy, so ``save`` and
+``search_aux`` read the arrays back.
 
-The search probe, which the engine takes when the index is much larger
-than a read batch's queries, reads a unique-key view of the same arrays
-(``SearchAux``), built once per index on the host from the host arrays and
+``TargetIndex.save`` writes the JAX package's index file, which
+``TargetIndex.load`` reads back instead of building; each package reads
+the other's.  The search probe, which the engine takes when the index is
+much larger than a read batch's queries, reads a unique-key view of the
+same arrays (``SearchAux``), built once per index on the host and
 uploaded to the index's device.
 """
 
@@ -100,7 +105,11 @@ class TargetIndex:
     width: int
     num_valid: int
     num_bases: int
-    # Host copies of the sorted (skeys, skeys2, spos) that save() writes.
+    # The device build's second key word (the host build keeps it in
+    # host_arrays alone).
+    skeys2: torch.Tensor | None = field(default=None, repr=False)
+    # Host copies of the sorted (skeys, skeys2, spos) that save() writes;
+    # None on a device build.
     host_arrays: tuple | None = field(default=None, repr=False)
     build_timings: dict | None = field(default=None, repr=False)
     _aux: SearchAux | None = field(default=None, repr=False)
@@ -126,12 +135,24 @@ class TargetIndex:
             self._gblock = (torch.from_numpy(gb).to(self.device), steps)
         return self._gblock
 
+    def _sorted_host(self) -> tuple:
+        """The sorted (key1, key2, position) as host uint32, uint32 and
+        int32 arrays: the host build's copies, or a device build's arrays
+        read back."""
+        if self.host_arrays is not None:
+            return self.host_arrays
+        if self.skeys2 is None:
+            raise ValueError("a device build without keep_k2 (a mesh shard) keeps no "
+                             "second key word to write or search")
+        return tuple(t.cpu().numpy().view(dt) for t, dt in (
+            (self.skeys, np.uint32), (self.skeys2, np.uint32), (self.spos, np.int32)))
+
     def search_aux(self) -> SearchAux:
         """Build (once) the unique-key + bucket view for the search probe,
-        from the host arrays, on the index's device."""
+        from the sorted arrays on the host, on the index's device."""
         if self._aux is None:
             t0 = time.perf_counter()
-            k1, k2, _ = self.host_arrays
+            k1, k2, _ = self._sorted_host()
             new_run = np.concatenate(
                 [[True], (k1[1:] != k1[:-1]) | (k2[1:] != k2[:-1])]
             )
@@ -149,7 +170,7 @@ class TargetIndex:
         """Write the sorted key arrays (npz: version, width, num_valid,
         num_bases, skeys, skeys2, spos), so that later runs skip the build
         sort; tpacked and gene_start are recomputed from the TargetSet."""
-        k1, k2, sp = self.host_arrays
+        k1, k2, sp = self._sorted_host()
         np.savez(
             path,
             version=np.int64(INDEX_FORMAT_VERSION),
@@ -280,8 +301,140 @@ def _upload(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(device)
 
 
-def build_target_index(ts: TargetSet, width: int, device) -> TargetIndex:
-    """Compile a TargetSet into a TargetIndex on ``device``."""
+# The device build's memory is bounded in two ways: window keys are
+# computed BUILD_CHUNK positions at a time, and the valid windows are
+# sorted in groups of whole top-key-byte buckets of at most SORT_SPAN
+# windows each (a single bucket larger than that is sorted alone).
+BUILD_CHUNK = 1 << 25
+SORT_SPAN = 1 << 25
+
+
+def _valid_windows(tcat: torch.Tensor, gene_start: torch.Tensor, nreal: int,
+                   width: int) -> torch.Tensor:
+    """(S,) bool on tcat's device: the window at p lies inside one gene and
+    ends before nreal."""
+    s = tcat.shape[0]
+    dev = tcat.device
+    # cum[x] = interior boundaries <= x; a window [p, p+W-1] spans one gene
+    # iff no boundary lies in (p, p+W-1].
+    cum = torch.zeros(s + 1, dtype=torch.int32, device=dev)
+    interior = gene_start[1:-1].to(torch.int64).clamp(0, s)
+    cum.index_add_(0, interior, torch.ones_like(interior, dtype=torch.int32))
+    cum.cumsum_(0)
+    valid = torch.empty(s, dtype=torch.bool, device=dev)
+    for c0 in range(0, s, BUILD_CHUNK):
+        c1 = min(s, c0 + BUILD_CHUNK)
+        end = torch.arange(c0 + width - 1, c1 + width - 1, device=dev)
+        valid[c0:c1] = (end < nreal) & (cum[end.clamp(max=s)] == cum[c0:c1])
+    return valid
+
+
+def _sorted_windows(tcat: torch.Tensor, gene_start: torch.Tensor, nreal: int,
+                    width: int, keep_k2: bool = True):
+    """The valid windows of tcat sorted by (key1, key2, position), each
+    compared as uint32, on tcat's device.  Returns (skeys, skeys2, spos,
+    nvalid): (nvalid,) int32 arrays (uint32 bit patterns for the keys;
+    skeys2 is None unless keep_k2).
+
+    Peak memory is about 26 bytes a valid window (22 without keep_k2)
+    beside tcat and a fixed ~2 GiB: key1, key2, position and the top key
+    byte of each valid window in position order, the three sorted outputs,
+    and one sort group's work."""
+    s = tcat.shape[0]
+    dev = tcat.device
+    valid = _valid_windows(tcat, gene_start, nreal, width)
+    nvalid = int(valid.sum())
+    use_k2 = winops.uses_second_key(width)
+    upshift = sops.bucket_shift(width)  # top byte of the width's key range
+    k1 = torch.empty(nvalid, dtype=torch.int32, device=dev)
+    k2 = torch.zeros(nvalid, dtype=torch.int32, device=dev)
+    pos = torch.empty(nvalid, dtype=torch.int32, device=dev)
+    top = torch.empty(nvalid, dtype=torch.uint8, device=dev)
+    per_top = torch.zeros(256, dtype=torch.int64, device=dev)
+    off = 0
+    for c0 in range(0, s, BUILD_CHUNK):
+        lanes = torch.nonzero(valid[c0 : c0 + BUILD_CHUNK]).squeeze(1)
+        n = lanes.numel()
+        if n == 0:
+            continue
+        seg = tcat[c0 : c0 + BUILD_CHUNK + width - 1]
+        key = winops.sliding_window_keys(seg, width)[lanes]
+        k1[off : off + n] = pops.to_i32(key)
+        t = sops.bucket_of(key, upshift, 8)
+        top[off : off + n] = t.to(torch.uint8)
+        per_top += torch.bincount(t, minlength=256)
+        if use_k2:
+            key2 = winops.sliding_window_keys(seg, width, winops.HASH_MULT2)[lanes]
+            k2[off : off + n] = pops.to_i32(key2)
+        pos[off : off + n] = (lanes + c0).to(torch.int32)
+        off += n
+    del valid
+
+    # Each group holds whole top-byte buckets, and the groups follow in
+    # bucket order, which is the unsigned key1 order: concatenated, the
+    # sorted groups are sorted.  Within a group, the selected windows keep
+    # position order; key1 and key2 are uint32 bit patterns, and
+    # (key1 ^ 0x80000000) as a signed int32 times 2**32 plus key2 as
+    # unsigned is an int64 whose signed order is the unsigned (key1, key2)
+    # order; a stable sort keeps equal (key1, key2) in position order.  So
+    # the order is exactly (key1, key2, position), the host build's.
+    skeys = torch.empty_like(k1)
+    skeys2 = torch.empty_like(k2) if keep_k2 else None
+    spos = torch.empty_like(pos)
+    groups, lo, acc = [], 0, 0
+    for b, c in enumerate(per_top.tolist()):
+        if acc and acc + c > SORT_SPAN:
+            groups.append((lo, b))
+            lo, acc = b, 0
+        acc += c
+    groups.append((lo, 256))
+    off = 0
+    for lo, hi in groups:
+        sel = torch.nonzero((top >= lo) & (top <= hi - 1)).squeeze(1)  # uint8: no 256
+        n = sel.numel()
+        if n == 0:
+            continue
+        key = ((k1[sel] ^ -(1 << 31)).to(torch.int64) * (1 << 32)
+               + (k2[sel].to(torch.int64) & pops.M32))
+        src = sel[torch.sort(key, stable=True)[1]]
+        del key, sel
+        skeys[off : off + n] = k1[src]
+        spos[off : off + n] = pos[src]
+        if keep_k2:
+            skeys2[off : off + n] = k2[src]
+        off += n
+    return skeys, skeys2, spos, nvalid
+
+
+def _index_arrays(tcat: torch.Tensor, gene_start: torch.Tensor, nreal: int, width: int):
+    """Device index build, the JAX function's twin: window keys at every
+    position, validity from the gene-boundary structure, the valid
+    windows sorted (``_sorted_windows``), on tcat's device.
+
+    nreal is the count of real (non-padding) bases; windows must end inside
+    it.  Returns (skeys, skeys2, spos, nvalid) as the JAX function does:
+    (S,) int32 arrays (uint32 bit patterns for the keys) whose first nvalid
+    entries are the valid windows sorted by (key1, key2, position), each
+    compared as uint32, followed by an invalid tail of (0xFFFFFFFF,
+    0xFFFFFFFF, -1) entries."""
+    s = tcat.shape[0]
+    *sorted_, nvalid = _sorted_windows(tcat, gene_start, nreal, width)
+    out = [torch.full((s,), -1, dtype=torch.int32, device=tcat.device) for _ in range(3)]
+    for o, v in zip(out, sorted_):
+        o[:nvalid] = v
+    return (*out, nvalid)
+
+
+def build_target_index(ts: TargetSet, width: int, device, device_build: bool = False,
+                       keep_k2: bool = True) -> TargetIndex:
+    """Compile a TargetSet into a TargetIndex on ``device``.
+
+    The default host build runs the window keys and the (k1, k2, pos) sort
+    on the host and uploads the sorted arrays; ``device_build=True``
+    uploads the gene stream and computes and sorts on the device
+    (``_sorted_windows``).  Both give the same skeys and spos.  A device
+    build with ``keep_k2=False`` (a mesh shard's) keeps no second key
+    word, and then has no index file and no search aux."""
     device = torch.device(device)
     s = int(ts.gene_start[-1])
     if s > np.iinfo(np.int32).max:
@@ -291,28 +444,50 @@ def build_target_index(ts: TargetSet, width: int, device) -> TargetIndex:
             "larger databases"
         )
     gene_start_np = np.asarray(ts.gene_start, dtype=np.int64).astype(np.int32)
+    gene_start = _upload(gene_start_np, device)
     t0 = time.perf_counter()
-    k1, k2, sp, nvalid = _host_index_arrays(np.asarray(ts.tcat), gene_start_np, width)
-    if nvalid == 0:
-        k1 = np.array([INVALID_KEY], np.uint32)
-        k2 = np.array([INVALID_KEY], np.uint32)
-        sp = np.array([-1], np.int32)
-    t_host = time.perf_counter()
+    skeys2 = host_arrays = None
+    if device_build:
+        tcat = torch.from_numpy(np.ascontiguousarray(ts.tcat, dtype=np.uint8)).to(device)
+        _sync(device)
+        t_tcat = time.perf_counter()
+        skeys, skeys2, spos, nvalid = _sorted_windows(tcat, gene_start, s, width, keep_k2)
+        del tcat
+        if nvalid == 0:
+            skeys, spos = (torch.tensor([-1], dtype=torch.int32, device=device)
+                           for _ in range(2))
+            skeys2 = skeys.clone() if keep_k2 else None
+        _sync(device)
+        t_keys = time.perf_counter()
+    else:
+        k1, k2, sp, nvalid = _host_index_arrays(np.asarray(ts.tcat), gene_start_np, width)
+        if nvalid == 0:
+            k1 = np.array([INVALID_KEY], np.uint32)
+            k2 = np.array([INVALID_KEY], np.uint32)
+            sp = np.array([-1], np.int32)
+        host_arrays = (k1, k2, sp)
+        t_keys = time.perf_counter()
     tpacked_np = pops.pack_stream(np.asarray(ts.tcat))
     t_pack = time.perf_counter()
-    skeys = _upload(k1, device)
-    spos = _upload(sp, device)
+    if not device_build:
+        skeys = _upload(k1, device)
+        spos = _upload(sp, device)
     tpacked = _upload(tpacked_np, device)
-    gene_start = _upload(gene_start_np, device)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    timings = {
-        "host_keys_sort_s": t_host - t0,
-        "pack_s": t_pack - t_host,
-        "upload_s": time.perf_counter() - t_pack,
-    }
+    _sync(device)
+    t_up = time.perf_counter()
+    if device_build:
+        timings = {"device_keys_sort_s": t_keys - t_tcat, "pack_s": t_pack - t_keys,
+                   "upload_s": (t_tcat - t0) + (t_up - t_pack)}
+    else:
+        timings = {"host_keys_sort_s": t_keys - t0, "pack_s": t_pack - t_keys,
+                   "upload_s": t_up - t_pack}
     return TargetIndex(
         tpacked=tpacked, gene_start=gene_start, gene_start_np=gene_start_np,
         skeys=skeys, spos=spos, width=width, num_valid=nvalid, num_bases=s,
-        host_arrays=(k1, k2, sp), build_timings=timings,
+        skeys2=skeys2, host_arrays=host_arrays, build_timings=timings,
     )
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

@@ -71,6 +71,13 @@ def pack_rows(codes: torch.Tensor) -> torch.Tensor:
     return (c[..., 0] | (c[..., 1] << 4)).contiguous().view(torch.int32)
 
 
+def unpack_rows(rpacked: torch.Tensor, l: int) -> torch.Tensor:
+    """(R, NW) int32 nibble-packed -> (R, l) uint8 codes."""
+    shifts = torch.arange(BASES_PER_WORD, dtype=torch.int64, device=rpacked.device) * 4
+    nib = (u64(rpacked)[:, :, None] >> shifts[None, None, :]) & 0xF
+    return nib.reshape(rpacked.shape[0], -1)[:, :l].to(torch.uint8)
+
+
 # Tail padding on the packed target stream: enough words that a full
 # max-length read slice starting at the last base stays in bounds
 # (supports MaxReadLength up to 4096).
@@ -182,6 +189,22 @@ def gene_of_pos_block_mono(gene_start, gblock, p, steps: int):
     gstart, _ = monotone_gather(gene_start, lo.clamp(0, g))
     gend, _ = monotone_gather(gene_start, (lo + 1).clamp(0, g))
     return lo, gstart, gend
+
+
+def gene_of_pos(gene_start: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Owning gene of each stream position: the largest g with
+    gene_start[g] <= p, as an unrolled branchless binary search over the
+    (G+1,) offsets table (the plain lookup; the engine's verifies use the
+    block table of ``gene_of_pos_block``)."""
+    g = gene_start.shape[0] - 1  # number of genes
+    lo = torch.zeros(p.shape, dtype=torch.int32, device=p.device)
+    hi = torch.full(p.shape, max(g - 1, 0), dtype=torch.int32, device=p.device)
+    for _ in range(max(1, max(g - 1, 1).bit_length())):
+        mid = (lo + hi + 1) >> 1
+        go_up = gene_start[mid.long()] <= p
+        lo = torch.where(go_up, mid, lo)
+        hi = torch.where(go_up, hi, mid - 1)
+    return lo
 
 
 def _nibble_mask(k: torch.Tensor) -> torch.Tensor:

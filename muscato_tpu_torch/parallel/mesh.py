@@ -7,7 +7,7 @@ The JAX mesh is one ``shard_map`` over the devices of a
   - rank r is position (d, m) = (r // mp, r % mp) and holds one device;
   - shard m of the targets, a contiguous gene range with roughly equal
     base counts (``shard_bounds``, the JAX rule), is indexed by the ranks
-    of column m alone, each building only its own shard;
+    of column m alone, each building only its own shard, on its device;
   - each read batch is padded to a multiple of dp with zero rows and cut
     into dp blocks; the ranks of row d take block d;
   - each rank runs the single-device engine's stages on its block against
@@ -103,10 +103,13 @@ class Shard:
 def shard_targets(ts: TargetSet, width: int, num_shards: int, shard: int,
                   device) -> Shard:
     """Build shard ``shard`` of ``num_shards`` (``shard_bounds``) on
-    ``device``; no other shard is built."""
+    ``device``, keys and sort computed there (``device_build``, as the JAX
+    mesh builds every shard) without the second key word, which the mesh
+    never reads; no other shard is built."""
     bounds = shard_bounds(ts, num_shards)
     lo, hi = bounds[shard], bounds[shard + 1]
-    index = build_target_index(pl.gene_range(ts, lo, hi), width, device)
+    index = build_target_index(pl.gene_range(ts, lo, hi), width, device, device_build=True,
+                               keep_k2=False)
     return Shard(index, (lo, hi))
 
 

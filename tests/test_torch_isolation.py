@@ -45,11 +45,42 @@ def _imports(path: pathlib.Path):
 
 def test_scan_covers_every_port_module():
     """The scan finds its files by itself: the search probe's module, the
-    benchmark runner's twin and the mesh's modules are among them."""
+    mesh's modules, the plain references and every bench tool are among
+    them."""
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {"muscato_tpu_torch/ops/search.py", "muscato_tpu_torch/bench/runner.py",
             "muscato_tpu_torch/engine/pipeline.py", "muscato_tpu_torch/parallel/mesh.py",
-            "muscato_tpu_torch/parallel/dist.py", "chip_smoke.py"} <= names
+            "muscato_tpu_torch/parallel/dist.py", "muscato_tpu_torch/ops/verify.py",
+            "muscato_tpu_torch/ops/windows.py", "chip_smoke.py"} <= names
+    assert {f"muscato_tpu_torch/bench/{t}.py" for t in (
+        "scaling", "engine_device_check", "pallas_device_check", "profile_match",
+        "micro_verify", "bigtest", "prep_rss")} <= names
+
+
+# Modules of the JAX package with no module at the same path in the port,
+# each with its reason.
+NOT_PORTED = {
+    "ops/pallas_join.py": "B1: ported as csrc/join.cu and its wrapper ops/join.py",
+    "ops/pallas_expand.py": "B2 and B6: ported as csrc/expand.cu and ops/expand.py",
+    "ops/pallas_gather.py": "B3 and B4: ported as csrc/gather.cu and ops/gather.py",
+    "ops/pallas_windows.py": "B5: ported as csrc/windows.cu and ops/window_queries.py",
+    "bench/micro_r2.py": "the TPU probe design's sort and gather microbenchmarks (lax.sort)",
+    "bench/probe_ab.py": "a TPU probe A/B; chip_smoke.py times the port's probes by batch size",
+    "bench/dedup_ab.py": "a TPU dedup-or-streaming A/B; chip_smoke.py runs both flagship paths",
+    "bench/mesh_sanity.py": "chip_smoke.mesh_one_phase is its twin",
+}
+
+
+def test_every_jax_module_has_a_counterpart():
+    """Module parity: each module of muscato_tpu has a module at the same
+    relative path in muscato_tpu_torch, except the list above, and the
+    list names only modules that exist and are not ported."""
+    jax_mods = {str(p.relative_to(ROOT / "muscato_tpu"))
+                for p in (ROOT / "muscato_tpu").rglob("*.py")}
+    port_mods = {str(p.relative_to(ROOT / "muscato_tpu_torch"))
+                 for p in (ROOT / "muscato_tpu_torch").rglob("*.py")}
+    assert sorted(jax_mods - port_mods - set(NOT_PORTED)) == []
+    assert set(NOT_PORTED) <= jax_mods - port_mods
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))

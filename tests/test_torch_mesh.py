@@ -2,9 +2,9 @@
 package's on the CPU.
 
 The shard partition: for mp in {1, 2, 3, 4, 8} (8 shards of 5 genes
-included), each of the port's shards, built alone, has the first gene, the
-gene starts and the valid (skeys, spos) of the unpadded row of JAX's
-ShardedIndex.
+included), each of the port's shards, built alone on its device, has the
+first gene, the gene starts and the valid (skeys, spos) of the unpadded
+row of JAX's ShardedIndex.
 
 Worlds of gloo processes, one a mesh position, started by
 tests/torch_mesh_worker.py with torch.multiprocessing, for (dp, mp) in
@@ -14,8 +14,9 @@ default path, MUSCATO_PJOIN=0 with MUSCATO_PEXPAND_SUB=1, NoDedup, a
 forced survivor regrow, and an all-N read) in one start.  Rank 0's
 MatchResult must equal, as a set of (read_row, gene, start, nmiss), JAX's
 run_matching_sharded on the same dp x mp mesh (conftest's 8 CPU devices)
-and the port's single-device run; every other rank's must be empty.  The
-four worlds run at once, beside the JAX runs of this process.
+and the port's single-device run; every other rank's must be empty, and
+every rank's shard must have been built on its device.  The four worlds
+run at once, beside the JAX runs of this process.
 """
 
 import functools
@@ -82,7 +83,9 @@ def test_shard_partition_matches_jax(mp, n_genes):
         spos_j = np.asarray(sidx.spos)[si]
         nvalid = int((spos_j >= 0).sum())
         assert shard.index.num_valid == nvalid
-        k1, _k2, sp = shard.index.host_arrays
+        assert shard.index.host_arrays is None  # built on its device
+        k1 = shard.index.skeys.numpy().view(np.uint32)
+        sp = shard.index.spos.numpy()
         np.testing.assert_array_equal(k1[:nvalid], np.asarray(sidx.skeys)[si, :nvalid])
         np.testing.assert_array_equal(sp[:nvalid], spos_j[:nvalid])
     if n_genes < mp:
@@ -148,6 +151,8 @@ def test_mesh_rank0_matches_jax_and_single_device(worlds, world, case):
     assert len(exp_jax) > 0
     for r in range(1, dp * mp):
         assert got[r].read_row.size == 0  # only rank 0 ranks and reports
+    if case == "default":
+        assert all(bool(got[r].device_built) for r in range(dp * mp))
     if case == "regrow":
         assert all(int(got[r].cap) > 8 for r in range(dp * mp))
     if case == "nrun":

@@ -6,7 +6,8 @@ starts dp * mp ranks with torch.multiprocessing (gloo, one CPU process a
 mesh position).  Every rank runs the same cases in lockstep and writes its
 MatchResult of each to <outdir>/<case>_<rank>.npz:
 
-  default   run_matching_sharded on the test data;
+  default   run_matching_sharded on the test data (with 'device_built':
+            the rank's shard was built on its device);
   switched  the same under MUSCATO_PJOIN=0 and MUSCATO_PEXPAND_SUB=1;
   nodedup   the same with NoDedup (the streaming expand);
   regrow    sharded_match_arrays from a survivor capacity of 8, then the
@@ -103,7 +104,8 @@ def _rank(rank, dp, mp, n_reads, port, outdir):
                      gene=mr.gene, start=mr.start, nmiss=mr.nmiss, **extra)
 
         cfg = Config(**CFG)
-        save("default", pmesh.run_matching_sharded(cfg, rs, shard, mesh))
+        save("default", pmesh.run_matching_sharded(cfg, rs, shard, mesh),
+             device_built=shard.index.host_arrays is None)
         os.environ.update(MUSCATO_PJOIN="0", MUSCATO_PEXPAND_SUB="1")
         save("switched", pmesh.run_matching_sharded(cfg, rs, shard, mesh))
         del os.environ["MUSCATO_PJOIN"], os.environ["MUSCATO_PEXPAND_SUB"]
