@@ -123,13 +123,26 @@ qid in the ring or not, lanes a warp, register cut), all at once, then:
      output files, then runs it with an IndexFile that it saves, with the
      same IndexFile that it loads, and with ResumeDir set to the saving
      run's kept TempDir: each run's four files must equal the first's;
-  5. runs the bench tool bigtest (100k reads x 100k genes through the
+  5. runs the reference-scale job (scale_run_phase): the twin of
+     scripts/gen_parallel.py writes 9,437,184 reads (one ReadBatch of
+     2**23 and a partial second batch) against the 100,000 x 1,000-base
+     gene set, and the twin of scripts/run_100m.py runs the muscato_torch
+     driver on them twice, building and saving the IndexFile, then
+     loading it, under MUSCATO_STAGE_TIMES=1: each run must exit 0, run 2
+     batches with a stage-times line each and launch every kernel of the
+     default path, and both must write the same results.txt; then the
+     first 100,000 reads run through the driver on the CPU, whose rows'
+     first six columns must equal those of the card run's rows of the
+     same read sequences; it prints each run's stage walls (the driver's
+     logs), peak anonymous RSS, reads/s end to end and the host union's
+     seconds;
+  6. runs the bench tool bigtest (100k reads x 100k genes through the
      muscato_torch driver) through its entry point.
 
 Every phase checks its results and any failure exits non-zero.  The line
 before the last is a JSON object with each kernel's numbers (its
 launches_mesh: rank 0's launches on the 2x2 flagship, B6's from its
-switched run); the last line
+switched run; launches_scale_run: the second scale run's); the last line
 is {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero
 and prints no result.
 """
@@ -150,12 +163,24 @@ import time
 import types
 
 SEED = 0
+ROOT = os.path.dirname(os.path.abspath(__file__))
 NUM_READ, READ_LEN, NUM_GENE, GENE_LEN = 4_000_000, 100, 100_000, 1_000
 WINDOWS, WIDTH = (10, 30, 50, 70), 20
 BATCH = 1 << 22  # the engine's default read batch
 PARITY_READS = 100_000
 JOIN_LONG_RUN = 100_000  # equal keys, longer than B1's staged span (6,144)
 DRIVER_READS = 200_000  # the driver phase cuts the read count only
+# The reference-scale run (muscato_tpu_torch/scripts/run_100m.py) at one
+# full ReadBatch of 2**23 reads and a partial second batch of 2**20, its
+# data written by scripts/gen_parallel.py in chunks of SCALE_GEN_CHUNK
+# reads; the first SCALE_GATE_READS reads run again through the driver on
+# the CPU.  (With a second batch of 2**22 the phase took 294-349 s on an
+# H100 80GB HBM3 at 700 W; the limit it keeps to is 300 s.)
+SCALE_READS = (1 << 23) + (1 << 20)
+SCALE_BATCHES = 2
+SCALE_GEN_CHUNK = 1 << 20
+SCALE_GATE_READS = 100_000
+SCALE_TIMEOUT = 900  # seconds for each child process of the phase
 BRANCH_SLOTS, BRANCH_READS = 1 << 20, 300_007  # sizes of B2's and B5's branch cases
 # B6's fewest lanes a warp takes and its ring of slots (csrc/expand.cu
 # kSubMinTiles x kExpTile, kSubRing x kSubSlots): the branch cases place
@@ -276,16 +301,10 @@ def config():
 
 
 def wrappers():
-    from muscato_tpu_torch.ops import expand, gather, join, window_queries
+    """{name: kernel wrapper}, each with its launch count."""
+    from muscato_tpu_torch.engine import pipeline
 
-    return {
-        "sorted_join": join.sorted_join,
-        "expand_owners": expand.expand_owners,
-        "monotone_gather": gather.monotone_gather,
-        "monotone_gather_rows": gather.monotone_gather_rows,
-        "window_queries": window_queries.window_queries,
-        "expand_owners_sub": expand.expand_owners_sub,
-    }
+    return pipeline.KERNELS
 
 
 @functools.lru_cache(maxsize=None)
@@ -2000,6 +2019,185 @@ def driver_phase(dev) -> None:
         shutil.rmtree(work, ignore_errors=True)
 
 
+def run_child(argv, label: str, env=None) -> str:
+    """Run ``python argv`` in a session of its own and return its output
+    (stdout and stderr); fails when it exits non-zero or outlasts
+    SCALE_TIMEOUT, and then kills every process of its session."""
+    import signal
+
+    p = subprocess.Popen([sys.executable, *argv], env=env, cwd=ROOT,
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                         start_new_session=True)
+    try:
+        out, _ = p.communicate(timeout=SCALE_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)
+        out, _ = p.communicate()
+        raise RuntimeError(f"chip_smoke check failed: {label} passed {SCALE_TIMEOUT}s:\n"
+                           f"{out[-4000:]}")
+    check(p.returncode == 0, f"{label} exited {p.returncode}:\n{out[-4000:]}")
+    return out
+
+
+def _log_entries(path: str) -> list:
+    """(seconds since the epoch, logger message) of each line of a driver
+    log file ("%(asctime)s %(name)s: %(message)s")."""
+    import datetime
+
+    out = []
+    with open(path) as f:
+        for ln in f:
+            when = datetime.datetime.strptime(ln[:23], "%Y-%m-%d %H:%M:%S,%f").timestamp()
+            out.append((when, ln[24:].split(": ", 1)[1].rstrip("\n")))
+    return out
+
+
+def scale_run(work: str, dev, tag: str) -> dict:
+    """One run of the reference-scale script (run_100m run) on ``work``:
+    checks its exit, the batch count, one stage-times line a batch and
+    the kernels of the default path launched; returns its run100m.json
+    with the driver log's own stage times and the host union's seconds."""
+    logs = os.path.join(work, "logs")
+    before = set(os.listdir(logs)) if os.path.isdir(logs) else set()
+    t0 = time.perf_counter()
+    run_child(["-m", "muscato_tpu_torch.scripts.run_100m", "run", work, "--device", dev.type],
+              f"run_100m ({tag})", env=dict(os.environ, N_READS=str(SCALE_READS)))
+    wall = time.perf_counter() - t0
+    with open(os.path.join(work, "run100m.json")) as f:
+        rec = json.load(f)
+    check(rec["driver_exit"] == 0, f"run_100m ({tag}): driver exited {rec['driver_exit']}")
+    check(rec["peak_anon_rss_mb"] > 0, f"run_100m ({tag}): no anonymous RSS read")
+    (run_id,) = set(os.listdir(logs)) - before
+    main = _log_entries(os.path.join(logs, run_id, "muscato.log"))
+    screen = _log_entries(os.path.join(logs, run_id, "muscato_screen.log"))
+    said = lambda entries, head: [(t, m) for t, m in entries if m.startswith(head)]  # noqa: E731
+    batches, stage_lines = said(screen, "batch reads ["), said(screen, "stage times [")
+    check(len(batches) == SCALE_BATCHES and len(stage_lines) == SCALE_BATCHES
+          and len(said(screen, "stage sums over ")) == 1,
+          f"run_100m ({tag}): {len(batches)} batches, {len(stage_lines)} stage-times lines")
+    (launch_line,) = said(screen, "kernel launches over ")
+    launches = {k: int(v) for k, v in (
+        kv.split("=") for kv in launch_line[1].split(": ", 1)[1].split())}
+    check(all(launches[k] > 0 for k in DEFAULT_PATH),
+          f"run_100m ({tag}): a kernel never launched: {launches}")
+    # The host union is what follows the row fetch: from the pipeline's
+    # last line (logged after the fetch) to the driver's "retained" line.
+    (fetched,) = said(screen, "windows ")
+    (retained,) = said(main, "retained ")
+    t_first = main[0][0]
+    return dict(rec, tag=tag, command_s=wall, host_union_s=retained[0] - fetched[0],
+                launches=launches,
+                driver_log=[(round(t - t_first, 3), m) for t, m in main],
+                screen_log=[m for _, m in screen])
+
+
+def result_prefixes(path: str, seqs=None) -> list:
+    """The first six columns (readseq, target, pos, nmiss, gene, genelen) of
+    each results row, of every row or of the rows whose read sequence is
+    in ``seqs``, sorted: the columns that depend on the read's sequence
+    alone."""
+    rows = []
+    with open(path, "rb") as f:
+        for ln in f:
+            cols = ln.split(b"\t", 6)
+            if seqs is None or cols[0] in seqs:
+                rows.append(b"\t".join(cols[:6]))
+    rows.sort()
+    return rows
+
+
+def scale_run_phase(dev) -> dict:
+    """The reference-scale job on the card: gen_parallel writes SCALE_READS
+    reads against the 100,000 x 1,000-base gene set, then run_100m runs the
+    muscato_torch driver twice (the first builds and saves the IndexFile,
+    the second loads it): each exits 0, runs SCALE_BATCHES batches with
+    one stage-times line each and launches every kernel of the default
+    path, and both write the same results.txt.  Then the gate: the first
+    SCALE_GATE_READS reads through the driver on the CPU (the plain twins)
+    with the same config and IndexFile, whose rows' first six columns
+    must equal those of the card's rows with the same read sequences (a
+    row depends on its read's sequence alone: MaxMatches 1,000,000 does
+    not bind here, and best+MMTol ranks each read alone).  Returns the
+    second run's kernel launches."""
+    import filecmp
+
+    work = tempfile.mkdtemp(prefix="muscato_chip_smoke_scale_")
+    try:
+        t_phase = time.perf_counter()
+        workers = min(16, os.cpu_count() or 1)
+        t0 = time.perf_counter()
+        run_child(["-m", "muscato_tpu_torch.scripts.gen_parallel", work, str(SCALE_READS),
+                   str(workers)], "gen_parallel",
+                  env=dict(os.environ, GEN_CHUNK=str(SCALE_GEN_CHUNK)))
+        gen_s = time.perf_counter() - t0
+        disk = shutil.disk_usage(work)
+        print(f"scale run: gen_parallel {SCALE_READS} reads, {workers} workers, "
+              f"chunks of {SCALE_GEN_CHUNK}: {gen_s:.1f}s, fastq "
+              f"{os.path.getsize(os.path.join(work, 'reads.fastq'))} bytes; disk free "
+              f"{disk.free / 2**30:.1f} GiB of {disk.total / 2**30:.1f}", flush=True)
+        runs = []
+        for tag in ("IndexFile built", "IndexFile loaded"):
+            rec = scale_run(work, dev, tag)
+            keep = ("n_reads", "prep_targets_s", "driver_s", "driver_exit",
+                    "reads_per_sec_end_to_end", "peak_anon_rss_mb", "result_rows",
+                    "command_s", "host_union_s", "launches")
+            print(f"scale run ({tag}): " + json.dumps(dict(
+                {k: rec[k] for k in keep}, gen_s=gen_s,
+                index_file_bytes=os.path.getsize(os.path.join(work, "index_w20.npz")))),
+                flush=True)
+            print(f"scale run ({tag}), driver log (seconds from its first line): "
+                  + json.dumps(rec["driver_log"]), flush=True)
+            print(f"scale run ({tag}), screen log: " + json.dumps(rec["screen_log"]),
+                  flush=True)
+            os.replace(os.path.join(work, "results.txt"),
+                       os.path.join(work, f"results_{len(runs)}.txt"))
+            runs.append(rec)
+        check(runs[0]["prep_targets_s"] != "cached" and runs[1]["prep_targets_s"] == "cached",
+              "scale run: target prep was not run once and reused once")
+        check(any(m.startswith("saved index to") for _, m in runs[0]["driver_log"])
+              and any(m.startswith("loaded index") for _, m in runs[1]["driver_log"]),
+              "scale run: the IndexFile was not built and saved, then loaded")
+        check(filecmp.cmp(os.path.join(work, "results_0.txt"),
+                          os.path.join(work, "results_1.txt"), shallow=False),
+              "scale run: results.txt differs between the two runs")
+
+        # The gate: the first reads on the CPU, same config and IndexFile.
+        t0 = time.perf_counter()
+        gate = os.path.join(work, "gate")
+        os.makedirs(gate)
+        seqs = set()
+        with open(os.path.join(work, "reads.fastq"), "rb") as f, \
+                open(os.path.join(gate, "reads.fastq"), "wb") as g:
+            for i in range(4 * SCALE_GATE_READS):
+                ln = f.readline()
+                g.write(ln)
+                if i % 4 == 1:
+                    seqs.add(ln.rstrip(b"\n"))
+        with open(os.path.join(work, "config.json")) as f:
+            cfg = json.load(f)
+        cfg.update(ReadFileName=os.path.join(gate, "reads.fastq"),
+                   ResultsFileName=os.path.join(gate, "results.txt"),
+                   TempDir=os.path.join(gate, "tmp"), LogDir=os.path.join(gate, "logs"))
+        cfg_path = os.path.join(gate, "config.json")
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f)
+        run_child(["-c", "from muscato_tpu_torch import cli; "
+                   f"cli.main_muscato(['-ConfigFileName={cfg_path}', '-device=cpu'])"],
+                  "the CPU gate run")
+        cpu_rows = result_prefixes(os.path.join(gate, "results.txt"))
+        card_rows = result_prefixes(os.path.join(work, "results_1.txt"), seqs)
+        check(len(cpu_rows) > SCALE_GATE_READS // 4 and cpu_rows == card_rows,
+              f"scale run gate: {len(cpu_rows)} CPU rows against {len(card_rows)} card rows")
+        print(f"scale run gate: the first {SCALE_GATE_READS} reads through the driver on the "
+              f"CPU ({time.perf_counter() - t0:.1f}s): {len(cpu_rows)} rows, their first six "
+              f"columns equal to the card run's rows of the same {len(seqs)} read sequences",
+              flush=True)
+        print(f"scale run phase: {time.perf_counter() - t_phase:.1f}s", flush=True)
+        return runs[1]["launches"]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def bench_tool_phases(dev) -> None:
     """The bench tools that stand on their own: pallas_device_check at its
     small shapes (every kernel exact against its twin; kernel_phase holds
@@ -2105,6 +2303,7 @@ def main() -> int:
     bench_tool_phases(dev)
     flag, flag_sw, flag_nd, flag_sb, flag_mb, launches_mesh = match_phases(dev)
     driver_phase(dev)
+    launches_scale = scale_run_phase(dev)
     tool_run_phases(dev)
 
     line = {"kernels": [
@@ -2115,6 +2314,7 @@ def main() -> int:
          "launches_small_batch": flag_sb["launches"][name],
          "launches_multi_batch": flag_mb["launches"][name],
          "launches_mesh": launches_mesh[name],
+         "launches_scale_run": launches_scale[name],
          "max_abs_err": kres[name]["max_abs_err"], "ms": kres[name]["ms"],
          "plain_ms": kres[name]["plain_ms"], "bound_ms": kres[name]["bound_ms"],
          "bound_by": kres[name]["bound_by"], "library_ms": kres[name]["library_ms"],

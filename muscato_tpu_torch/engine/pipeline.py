@@ -24,9 +24,10 @@ sorted join (unset or ``1`` keeps the join, as ``TUNED.json`` sets it),
 ``MUSCATO_PEXPAND_SUB=1`` runs the pair expansion on the sub-chunked B6
 kernel instead of B2, and ``MUSCATO_PREFETCH_PROBE=0`` queues each batch's
 probe in its own turn (its upload still goes ahead).  All give the same
-MatchResult.  The JAX engine's kernel-disable net and its window-overflow
-ladders are not ported: they exist for Mosaic's windows, and the GPU
-kernels have none.
+MatchResult.  ``MUSCATO_STAGE_TIMES=1`` logs each batch's stage times and
+their sums, in the JAX engine's words.  The JAX engine's kernel-disable
+net and its window-overflow ladders are not ported: they exist for
+Mosaic's windows, and the GPU kernels have none.
 """
 
 from __future__ import annotations
@@ -44,9 +45,13 @@ from ..config import Config
 from ..io.reads import ReadSet
 from ..io.targets import TargetSet
 
+from ..ops import expand as expand_ops
 from ..ops import fused
+from ..ops import gather as gather_ops
+from ..ops import join as join_ops
 from ..ops import packed as packed_ops
 from ..ops import verify as vops
+from ..ops import window_queries as wq_ops
 from .index import TargetIndex, build_target_index
 
 logger = logging.getLogger("muscato.pipeline")
@@ -97,6 +102,15 @@ def _window_has_reads(rs: ReadSet, q1: int, width: int) -> bool:
 # default: on iff the variable is "1", the default when it is unset.
 SWITCHES = {"MUSCATO_PJOIN": True, "MUSCATO_PEXPAND_SUB": False,
             "MUSCATO_PREFETCH_PROBE": True}
+
+
+# The kernel wrappers, each with its launch count (``launches``), whose
+# launches a run under MUSCATO_STAGE_TIMES=1 logs.
+KERNELS = {"window_queries": wq_ops.window_queries, "sorted_join": join_ops.sorted_join,
+           "expand_owners": expand_ops.expand_owners,
+           "expand_owners_sub": expand_ops.expand_owners_sub,
+           "monotone_gather": gather_ops.monotone_gather,
+           "monotone_gather_rows": gather_ops.monotone_gather_rows}
 
 
 def switches() -> dict:
@@ -178,11 +192,15 @@ class _StageClock:
     """Per-stage times of the batch loop, summed over spans: CUDA events on
     a CUDA device (the device timeline), host perf_counter on the CPU.
     Each stage's work is bracketed by its own start and stop, so a probe
-    queued inside another batch's iteration still counts as probe."""
+    queued inside another batch's iteration still counts as probe; each
+    span is booked to a batch (``tag``: the clock's current one unless
+    the caller names another), so that sums can be taken by batch.  The
+    sums wait for the device once, so a loop reads them after its end."""
 
     def __init__(self, device: torch.device):
         self.cuda = device.type == "cuda"
-        self.spans = []  # (stage name, start, stop): events or times
+        self.spans = []  # (stage name, batch tag, start, stop): events or times
+        self.tag = 0  # the batch that spans are booked to by default
 
     def _now(self):
         if not self.cuda:
@@ -192,19 +210,31 @@ class _StageClock:
         return ev
 
     @contextlib.contextmanager
-    def span(self, name: str):
-        """Time the block as stage ``name``."""
+    def span(self, name: str, tag=None):
+        """Time the block as stage ``name`` of batch ``tag`` (the current
+        batch when None)."""
+        tag = self.tag if tag is None else tag
         a = self._now()
         yield
-        self.spans.append((name, a, self._now()))
+        self.spans.append((name, tag, a, self._now()))
 
-    def sums(self) -> dict:
+    def batch_sums(self) -> dict:
+        """Seconds by stage for each batch: {tag: {stage: seconds}}."""
         if self.cuda:
             torch.cuda.synchronize()
         out = {}
-        for name, a, b in self.spans:
+        for name, tag, a, b in self.spans:
             dt = a.elapsed_time(b) / 1e3 if self.cuda else b - a
-            out[name] = out.get(name, 0.0) + dt
+            sums = out.setdefault(tag, {})
+            sums[name] = sums.get(name, 0.0) + dt
+        return out
+
+    def sums(self) -> dict:
+        """Seconds by stage over every span."""
+        out = {}
+        for sums in self.batch_sums().values():
+            for name, dt in sums.items():
+                out[name] = out.get(name, 0.0) + dt
         return out
 
 
@@ -298,11 +328,13 @@ class _BatchStages:
         self.uploads = _PinnedUploads(index.device) if index.device.type == "cuda" else None
         self.chunks = 0  # streaming chunks run, re-runs included
 
-    def _span(self, name: str):
-        return self.clock.span(name) if self.clock else contextlib.nullcontext()
+    def _span(self, name: str, tag=None):
+        return self.clock.span(name, tag) if self.clock else contextlib.nullcontext()
 
-    def probe(self, rpacked, lengths) -> fused.Probe:
-        with self._span("probe"):
+    def probe(self, rpacked, lengths, tag=None) -> fused.Probe:
+        """The batch's probe, timed as batch ``tag``'s (the clock's current
+        batch when None)."""
+        with self._span("probe", tag):
             return fused.probe_windows(
                 rpacked, lengths, self.q1s, self.index.skeys,
                 width=self.cfg.WindowWidth, min_dinuc=self.cfg.MinDinuc,
@@ -387,8 +419,19 @@ def run_matching_indexed(cfg: Config, rs: ReadSet, index: TargetIndex,
     (unset or "1"), batch N+1's reads are uploaded and its probe queued
     before the loop blocks on batch N's pair total; "0" still uploads
     batch N+1 then, but queues its probe in its own turn, as the JAX
-    switch does.  All of these give the same MatchResult.  _defer_rank returns the raw (N, NCOL) rows, ranked per
-    batch with every column, instead of the MatchResult (gene-range
+    switch does.  All of these give the same MatchResult.
+    MUSCATO_STAGE_TIMES=1 logs, for each batch, the JAX engine's line
+    "stage times [b0,b1): host_stage=... probe=... expand_verify=...
+    rank=... total=..." (host_stage: the host seconds spent staging the
+    next batch, its upload and with prefetch its probe's queuing; probe,
+    expand_verify and rank: the batch's stage spans, CUDA-event device
+    time on a GPU; total: the batch's host wall) and their "stage sums
+    over N batches", then the port's own line "kernel launches over N
+    batches: name=count ..." (each CUDA kernel's launches in this run;
+    none on the CPU, where the plain twins run).  It logs them all after
+    the loop, so that the clock waits for the device once and adds no
+    sync to the loop.  _defer_rank returns the raw (N, NCOL) rows, ranked
+    per batch with every column, instead of the MatchResult (gene-range
     sharding ranks the union of its shards).
 
     timings, when given, receives per-stage seconds under 'stages' (probe,
@@ -429,7 +472,11 @@ def run_matching_indexed(cfg: Config, rs: ReadSet, index: TargetIndex,
     else:
         use_search = probe == "search"
     index_aux = index.search_aux() if use_search else None
-    clock = _StageClock(device) if timings is not None else None
+    stage_times = os.environ.get("MUSCATO_STAGE_TIMES") == "1"
+    if stage_times:
+        launches0 = {k: f.launches for k, f in KERNELS.items()}
+        batch_walls = []  # (b0, b1, host_stage, total) of each batch
+    clock = _StageClock(device) if timings is not None or stage_times else None
     stages = _BatchStages(cfg, index, l_eff, index_aux=index_aux, clock=clock)
     kind = fused.probe_kind(index_aux, stages.allow_pjoin)
     logger.info(
@@ -462,18 +509,23 @@ def run_matching_indexed(cfg: Config, rs: ReadSet, index: TargetIndex,
     for b0 in range(0, nreads, batch):
         t_batch = time.perf_counter()
         b1 = min(b0 + batch, nreads)
+        if clock is not None:
+            clock.tag = b0
         rpacked, lengths = nxt
         pr = pr_next if pr_next is not None else stages.probe(rpacked, lengths)
         pr_next = None
         get_total = _host_scalar(pr.total)
+        st_host = 0.0
         if b0 + batch < nreads:
             # Batch N+1's upload, and with MUSCATO_PREFETCH_PROBE on its
             # probe, go in behind batch N's probe, before the loop blocks
             # on batch N's total; they read only batch N+1's reads and the
             # index.
+            t_hs = time.perf_counter()
             nxt = load(b0 + batch)
             if stages.prefetch:
-                pr_next = stages.probe(*nxt)
+                pr_next = stages.probe(*nxt, tag=b0 + batch)
+            st_host = time.perf_counter() - t_hs
         total = get_total()
         buf, nsurv, surv_cap = stages.expand_verify(pr, total, rpacked, lengths, surv_cap)
         _CAP_HINT[0] = surv_cap
@@ -492,12 +544,36 @@ def run_matching_indexed(cfg: Config, rs: ReadSet, index: TargetIndex,
                 count = int(count_d)
             surv_rows.append((rows_dev[:count], b0))
         dt = time.perf_counter() - t_batch
+        if stage_times:
+            batch_walls.append((b0, b1, st_host, dt))
         logger.info(
             "batch reads [%d,%d): %d pairs, %d survivors, %d retained, "
             "%.2fs (%.0f reads/s)",
             b0, b1, total, nsurv, count, dt, (b1 - b0) / max(dt, 1e-9),
         )
 
+    if stage_times:
+        by_batch = clock.batch_sums()
+        sums = dict.fromkeys(("host_stage", "probe", "expand_verify", "rank"), 0.0)
+        for b0, b1, st_host, dt in batch_walls:
+            sb = {k: by_batch.get(b0, {}).get(k, 0.0) for k in sums}
+            sb["host_stage"] = st_host
+            for k in sums:
+                sums[k] += sb[k]
+            logger.info(
+                "stage times [%d,%d): host_stage=%.3f probe=%.3f "
+                "expand_verify=%.3f rank=%.3f total=%.3f",
+                b0, b1, sb["host_stage"], sb["probe"],
+                sb["expand_verify"], sb["rank"], dt,
+            )
+        logger.info(
+            "stage sums over %d batches: host_stage=%.3f probe=%.3f "
+            "expand_verify=%.3f rank=%.3f",
+            nbatches, sums["host_stage"], sums["probe"],
+            sums["expand_verify"], sums["rank"],
+        )
+        logger.info("kernel launches over %d batches: %s", nbatches, " ".join(
+            f"{k}={f.launches - launches0[k]}" for k, f in KERNELS.items()))
     device_s = time.perf_counter() - t_run0
     t_fetch = time.perf_counter()
     fetched = []

@@ -51,7 +51,8 @@ def test_scan_covers_every_port_module():
     assert {"muscato_tpu_torch/ops/search.py", "muscato_tpu_torch/bench/runner.py",
             "muscato_tpu_torch/engine/pipeline.py", "muscato_tpu_torch/parallel/mesh.py",
             "muscato_tpu_torch/parallel/dist.py", "muscato_tpu_torch/ops/verify.py",
-            "muscato_tpu_torch/ops/windows.py", "chip_smoke.py"} <= names
+            "muscato_tpu_torch/ops/windows.py", "muscato_tpu_torch/scripts/gen_parallel.py",
+            "muscato_tpu_torch/scripts/run_100m.py", "chip_smoke.py"} <= names
     assert {f"muscato_tpu_torch/bench/{t}.py" for t in (
         "scaling", "engine_device_check", "pallas_device_check", "profile_match",
         "micro_verify", "bigtest", "prep_rss")} <= names
@@ -81,6 +82,34 @@ def test_every_jax_module_has_a_counterpart():
                  for p in (ROOT / "muscato_tpu_torch").rglob("*.py")}
     assert sorted(jax_mods - port_mods - set(NOT_PORTED)) == []
     assert set(NOT_PORTED) <= jax_mods - port_mods
+
+
+# Scripts of the repo's scripts/ with no twin in muscato_tpu_torch/scripts/,
+# each with its reason (ROADMAP.md, "Do not port").
+_LADDER = ("the TUNED.json autotune ladder: it tunes the TPU's switches and "
+           "Pallas windows, which the port does not have")
+_RELAY = "a relay queue of TPU measurements; the port measures in chip_smoke.py"
+NOT_PORTED_SCRIPTS = {
+    "autotune_r3.py": _LADDER,
+    "tune_finish.py": _LADDER,
+    "run_ladder_steps.py": _LADDER,
+    "round4_post.py": _LADDER,
+    "round5_queue.py": _RELAY,
+    "round5_queue2.py": _RELAY,
+    "round5_queue3.py": _RELAY,
+    "round5_queue4.py": _RELAY,
+}
+
+
+def test_every_script_has_a_counterpart():
+    """Script parity: each scripts/*.py has a module of the same name in
+    muscato_tpu_torch/scripts/, except the list above, which names only
+    scripts that exist and are not ported."""
+    scripts = {p.name for p in (ROOT / "scripts").glob("*.py")}
+    twins = {p.name for p in (ROOT / "muscato_tpu_torch" / "scripts").glob("*.py")}
+    assert sorted(scripts - twins - set(NOT_PORTED_SCRIPTS)) == []
+    assert set(NOT_PORTED_SCRIPTS) <= scripts - twins
+    assert {"gen_parallel.py", "run_100m.py"} <= twins
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -11,7 +11,10 @@ the retained set is the contract.  Each package gets its own ReadSet,
 TargetSet and Config, made by its own gendat and config module.
 """
 
+import contextlib
 import dataclasses
+import logging
+import re
 
 import numpy as np
 import pytest
@@ -171,3 +174,88 @@ def test_cuda_switched_run_matches_cpu_run(workload, monkeypatch):
     assert join.sorted_join.launches == before[0]
     assert expand.expand_owners_sub.launches == before[1] + 1
     _assert_same(got, tpipeline.run_matching(cfg, rs, ts, device="cpu"))
+
+
+def _two_batch_cfg(rs, config=tconfig):
+    """The w20 config with a ReadBatch that splits ``rs`` into two batches."""
+    cfg = _cfg(20, (10, 30, 50, 70), 3, batch=4096, config=config)
+    assert -(-rs.num_unique // cfg.ReadBatch) == 2
+    return cfg
+
+
+@contextlib.contextmanager
+def _pipeline_log():
+    """The messages logged to "muscato.pipeline" (the logger name of both
+    packages) inside the block, captured by a handler of its own."""
+    lines = []
+    handler = logging.Handler(logging.INFO)
+    handler.emit = lambda rec: lines.append(rec.getMessage())
+    lg = logging.getLogger("muscato.pipeline")
+    level = lg.level
+    lg.setLevel(logging.INFO)
+    lg.addHandler(handler)
+    try:
+        yield lines
+    finally:
+        lg.removeHandler(handler)
+        lg.setLevel(level)
+
+
+def _stage_lines(lines):
+    """The stage lines, numbers masked."""
+    return [re.sub(r"\d+(\.\d+)?", "#", ln) for ln in lines
+            if ln.startswith(("stage times ", "stage sums "))]
+
+
+def test_stage_times_lines_match_jax(workload, jax_workload, monkeypatch):
+    """MUSCATO_STAGE_TIMES=1: one "stage times" line a batch and one
+    "stage sums" line, with the JAX engine's text (numbers masked), and
+    the batch bounds of JAX's lines, then the port's kernel launches;
+    without the switch the port logs none and its MatchResult does not
+    move."""
+    rs, ts = workload
+    cfg = _two_batch_cfg(rs)
+    index = tpipeline.build_target_index(ts, cfg.WindowWidth, "cpu")
+    with _pipeline_log() as quiet:
+        plain = tpipeline.run_matching_indexed(cfg, rs, index)
+    assert _stage_lines(quiet) == []
+    monkeypatch.setenv("MUSCATO_STAGE_TIMES", "1")
+    with _pipeline_log() as jlines:
+        exp = jpipeline.run_matching(_two_batch_cfg(jax_workload[0], jconfig), *jax_workload)
+    with _pipeline_log() as tlines:
+        got = tpipeline.run_matching_indexed(cfg, rs, index)
+    _assert_same(got, exp)
+    _assert_same(plain, exp)
+    masked = _stage_lines(tlines)
+    assert masked == _stage_lines(jlines)
+    assert [ln.startswith("stage times ") for ln in masked] == [True, True, False]
+    (launches,) = [ln for ln in tlines if ln.startswith("kernel launches ")]
+    assert launches == "kernel launches over 2 batches: " + " ".join(
+        f"{k}=0" for k in tpipeline.KERNELS)  # the CPU runs the plain twins
+    bounds = lambda lines: [ln.split(")")[0] for ln in lines if ln.startswith("stage times ")]  # noqa: E731
+    assert bounds(tlines) == bounds(jlines) == [
+        f"stage times [0,{cfg.ReadBatch}", f"stage times [{cfg.ReadBatch},{rs.num_unique}"]
+
+
+def test_stage_clock_sums_by_batch():
+    """The clock books each span to its batch (the current one, or the tag
+    a prefetched probe names), and its sums over every span are the sums
+    of its batches'."""
+    clock = tpipeline._StageClock(torch.device("cpu"))
+    clock.tag = 0
+    with clock.span("probe"):
+        pass
+    with clock.span("probe", 8):
+        pass
+    with clock.span("rank"):
+        pass
+    clock.tag = 8
+    with clock.span("rank"):
+        pass
+    by_batch = clock.batch_sums()
+    assert {t: sorted(s) for t, s in by_batch.items()} == {
+        0: ["probe", "rank"], 8: ["probe", "rank"]}
+    total = clock.sums()
+    assert sorted(total) == ["probe", "rank"]
+    for name in total:
+        assert total[name] == pytest.approx(sum(s[name] for s in by_batch.values()))
