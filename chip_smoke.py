@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout.  It builds the six CUDA kernels from
+Run from the root of a checkout.  It builds the seven CUDA kernels from
 muscato_tpu_torch/csrc with nvcc (one process per source, in parallel),
 a variant of them built with -DMUSCATO_NO_STAGE (B1 and B4 never stage a
 span, B5 stages by a copy loop) and variants of csrc/expand.cu built with
@@ -31,7 +31,14 @@ qid in the ring or not, lanes a warp, register cut), all at once, then:
      cases that reach each branch of their kernels (unsorted queries, an
      equal-key run longer than B1's staged span, unaligned slices,
      flagship-shaped dense verify chunks of 22- and 28-word rows, also
-     timed beside index_select, scattered rows, odd row widths; dead-tail
+     timed beside index_select, scattered rows, odd row widths; B7, the
+     dedup verify's SWAR body, at the flagship's verify chunk (2**20
+     d-sorted lanes of 13-word reads over the 100M-base stream's 22-word
+     rows, planted matches, negative diagonals in front, a dead tail),
+     measured, and on 150- and 200-base reads, an even word count, one
+     and 31 windows, windows past the packed width, lanes at gene starts
+     (the pos-0 quirk), in-word shifts 0 and 28, the last stream
+     position, X codes and budgets at nx; dead-tail
      tiles, empty-slot runs longer than B2's stage and B6's ring, warp
      ranges that start inside such runs, a dead tail that starts inside
      a range, slots that own several tiles or ranges, one slot, fewer
@@ -47,7 +54,8 @@ qid in the ring or not, lanes a warp, register cut), all at once, then:
      pallas_device_check (every kernel at its small shapes, exact against
      its twin) and micro_verify (the
      dedup verify's ns a lane in each mode at 2**20 lanes on 100M-base,
-     4M-read tables);
+     4M-read tables, and in its tuned modes the SWAR body alone: B7
+     beside its plain twin);
   3. builds the flagship index on the card (device_build=True, twice),
      each equal to the host build array for array, with both builds'
      times and the device build's peak memory; then a shard of 1.5e9
@@ -70,10 +78,12 @@ qid in the ring or not, lanes a warp, register cut), all at once, then:
      pair total, per-stage CUDA-event times and peak device memory, and
      fails unless every kernel of the path launched; then profiles one
      more such run with torch.profiler (every device kernel's time and
-     launches, the device's busy share of the stage window, for each
+     launches, PyTorch's elementwise kernels' launches and time, the
+     device's busy share of the stage window, for each
      call site of the port's kernels its launches, time and summed
      bound, and for the postings fetch its step-backs and the 128-byte
-     lines it touches); then the same run and profile with both switches
+     lines it touches; it fails unless B7 launched once a verify chunk,
+     as B4 does); then the same run and profile with both switches
      set (sort-merge probe and B6), whose MatchResult must equal the
      default run's; then the same through the streaming expand
      (NoDedup: B5, B1, one B2 and B3 a chunk of 131,072 pair lanes, B3 in
@@ -196,19 +206,27 @@ KERNELS = {
     "monotone_gather_rows": ("muscato_tpu_torch/csrc/gather.cu", "muscato_tpu/ops/pallas_gather.py:276"),
     "window_queries": ("muscato_tpu_torch/csrc/windows.cu", "muscato_tpu/ops/pallas_windows.py:69"),
     "expand_owners_sub": ("muscato_tpu_torch/csrc/expand.cu", "muscato_tpu/ops/pallas_expand.py:196"),
+    "verify_diagonals_swar": ("muscato_tpu_torch/csrc/verify.cu",
+                              "muscato_tpu/ops/packed.py:269 verify_diagonals_packed (an XLA "
+                              "body, no pl.pallas_call)"),
 }
 # The kernels of each driven path: the default one, and the one the two
 # switches select (sort-merge probe, so no B1; B6 instead of B2).
 DEFAULT_PATH = ("sorted_join", "expand_owners", "monotone_gather",
-                "monotone_gather_rows", "window_queries")
+                "monotone_gather_rows", "window_queries", "verify_diagonals_swar")
 SWITCHED_PATH = ("expand_owners_sub", "monotone_gather", "monotone_gather_rows",
-                 "window_queries")
+                 "window_queries", "verify_diagonals_swar")
 SWITCHES = {"MUSCATO_PJOIN": "0", "MUSCATO_PEXPAND_SUB": "1"}
 # engine_device_check's paths that the parity phase runs (its search
 # paths run after the flagship cells; see search_parity).
 ENGINE_PATHS = ("default", "MUSCATO_PJOIN=0", "MUSCATO_PEXPAND_SUB=1",
                 "MUSCATO_PJOIN=0 MUSCATO_PEXPAND_SUB=1", "NoDedup")
 MICRO_VERIFY_LANES = 1 << 20
+# The dedup verify's SWAR body (B7, verify_phase): the flagship's verify
+# chunk (the engine's vchunk), and its branch cases at VERIFY_BRANCH_LANES
+# lanes over VERIFY_BRANCH_READS reads.
+VERIFY_CHUNK = 1 << 20
+VERIFY_BRANCH_LANES, VERIFY_BRANCH_READS = 1 << 17, 1 << 16
 # The streaming expand's path (NoDedup): B2 a chunk over its slot window,
 # B3 for the postings and in the rank, no B4 (the row fetch is a plain
 # gather there).
@@ -223,7 +241,8 @@ SHARDS = 3
 # the next batch's probe queued ahead (MUSCATO_PREFETCH_PROBE) and without
 # (the next batch's upload goes ahead in both).  The probe stage is timed on each probe at the batch sizes
 # of CROSSOVER_BATCHES, over the first CROSSOVER_DEPTH batches of each.
-SEARCH_PATH = ("window_queries", "expand_owners", "monotone_gather", "monotone_gather_rows")
+SEARCH_PATH = ("window_queries", "expand_owners", "monotone_gather", "monotone_gather_rows",
+               "verify_diagonals_swar")
 SMALL_BATCH, MULTI_BATCH = 1 << 18, 1 << 20
 CROSSOVER_BATCHES = (1 << 14, 1 << 16, 1 << 18, 1 << 20)
 CROSSOVER_DEPTH = 4
@@ -244,12 +263,14 @@ BIG_SHARD_BASES = 1_500_000_000
 # CUDA symbol as a profile names it.
 CALL_POINTS = (("fused", "window_queries"), ("fused", "_join.sorted_join"),
                ("fused", "expand_owners"), ("fused", "monotone_gather"),
-               ("packed", "monotone_gather"), ("packed", "monotone_gather_rows"))
+               ("packed", "monotone_gather"), ("packed", "monotone_gather_rows"),
+               ("packed", "verify_diagonals_swar"))
 SYMBOLS = {
     "sorted_join": "sorted_join_kernel", "expand_owners": "expand_owners_kernel",
     "monotone_gather": "gather_kernel", "monotone_gather_rows": "gather_rows_kernel",
     "window_queries": "window_queries_kernel",
     "expand_owners_sub": "expand_owners_sub_kernel",
+    "verify_diagonals_swar": "verify_diagonals_kernel",
 }
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM peak memory rate (NVIDIA data sheet)
 # 32-bit integer results a clock on one SM, for each of its two integer
@@ -409,10 +430,26 @@ def call_work(kernel: str, args, kw) -> tuple:
       window_queries    a base: a nibble extract, a multiply-add a key,
                         and for the dinucleotide mask a multiply-add, a
                         shift and an or; a popcount and two compares a
-                        (window, read)."""
+                        (window, read);
+      verify_diagonals_swar  a word: a funnel shift, an xor, the length
+                        mask, three shift-ors, an and, a popcount and an
+                        add; an and, a popcount and an add a (window,
+                        word); six compares and selects a (window, lane)
+                        and ten a lane.  Its bytes: (r, d), the lane's
+                        nwords + 1 target words, gstart and gend, the
+                        three outputs, and each read row and length the
+                        lanes touch, once.
+    """
     import torch
 
     from muscato_tpu_torch.ops import windows as winops
+
+    if kernel == "verify_diagonals_swar":
+        r, _, _, rpacked, _, _, _, budget, q1s = args
+        c, (nreads, nw), k = r.numel(), rpacked.shape, len(q1s)
+        rows = torch.unique(r.clamp(0, nreads - 1)).numel()
+        return (c * (8 + 4 * (nw + 1) + 8 + 12) + rows * 4 * (nw + 1) + 4 * budget.numel(),
+                0, c * (nw * (11 + 3 * k) + 6 * k + 10))
 
     if kernel == "window_queries":
         r, nw = args[0].shape
@@ -483,6 +520,21 @@ def time_ms(fn, reps: int = 5, inner: int = 1) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b) / inner)
     return statistics.median(times)
+
+
+def measure_case(name, fn, twin, library, work, shapes) -> dict:
+    """A kernel's numbers at one shape: exact against its twin, its time
+    (one call, and back to back), host time a call, the twin's and the
+    library call's times, and its bounds."""
+    got, exp = fn(), twin()
+    return dict(
+        max_abs_err=_compare(name, got, exp), ms=time_ms(fn),
+        back_to_back_ms=time_ms(fn, inner=10), host_ms=host_ms(fn),
+        plain_ms=time_ms(twin),
+        library_ms=time_ms(library) if library else None,
+        library_back_to_back_ms=time_ms(library, inner=10) if library else None,
+        **bounds(work), shapes=shapes,
+    )
 
 
 def _compare(name, got, exp) -> float:
@@ -681,6 +733,156 @@ def windows_branch_cases(dev, g) -> dict:
     return cases
 
 
+def verify_stream(dev, g, nbases: int) -> dict:
+    """A target stream of ``nbases`` codes 0-3 with X (4) at 2%, in genes
+    of GENE_LEN bases (the last one shorter), packed on ``dev`` as the
+    engine packs it, with its gene tables; ``trows(nwords)`` is its row
+    view for reads of ``nwords`` words."""
+    import numpy as np
+    import torch
+
+    from muscato_tpu_torch.ops import packed as pops
+
+    codes = torch.randint(0, 4, (nbases,), dtype=torch.uint8, device=dev, generator=g)
+    codes[torch.rand(nbases, device=dev, generator=g) < 0.02] = 4
+    tpacked = torch.nn.functional.pad(pops.pack_rows(codes.view(1, -1)).view(-1),
+                                      (0, pops.STREAM_PAD_WORDS))
+    gene_start = np.append(np.arange(0, nbases, GENE_LEN), nbases)
+    gb, steps = pops.build_gene_block(gene_start, nbases)
+    return dict(codes=codes, smax=nbases, gsteps=steps,
+                gene_start=torch.from_numpy(gene_start.astype(np.int32)).to(dev),
+                gblock=torch.from_numpy(gb).to(dev),
+                trows=functools.lru_cache(maxsize=None)(
+                    lambda nwords: pops.build_trows(tpacked, nwords, nbases)))
+
+
+def verify_inputs(dev, g, st, *, lanes, reads, nwords, q1s, width, lengths=None,
+                  x_rate=0.02, subs=4, budget=None, pos0=0, last=0, rshift=None):
+    """Arguments of verify_diagonals_swar for a chunk of ``lanes`` lanes
+    over the stream ``st`` (verify_stream), as _verify_diagonals feeds it:
+    sorted by diagonal, negative diagonals in front (d in [-99, -1]), a
+    dead tail of a tenth of the lanes (r = -1, d = 0, the chunk's
+    padding).  ``reads`` reads of ``nwords`` words, lengths drawn from
+    ``lengths`` (default: all 8 * nwords), codes 0-3 with X at ``x_rate``;
+    a third of the live lanes are planted: each gets a read row of its
+    own, the target under its diagonal with 0 to ``subs`` - 1
+    substitutions.  ``pos0`` live lanes start at gene starts, ``last`` at
+    the last stream position; ``rshift`` fixes every live diagonal's
+    in-word shift (4 * (d & 7)).  The budget table defaults to the
+    flagship's PMatch 0.96.  Returns (args, kw)."""
+    import torch
+
+    from muscato_tpu_torch.ops import packed as pops
+    from muscato_tpu_torch.ops import verify as vops
+
+    smax, nbits = st["smax"], 8 * nwords
+    lo, hi = lengths or (nbits, nbits)
+    ri = lambda a, b, n: torch.randint(a, b, (n,), dtype=torch.int32, device=dev, generator=g)
+    codes = torch.randint(0, 4, (reads, nbits), dtype=torch.uint8, device=dev, generator=g)
+    codes[torch.rand(reads, nbits, device=dev, generator=g) < x_rate] = 4
+    nlive = lanes - lanes // 10
+    d = ri(0, smax, nlive)
+    if rshift is not None:
+        d = ((d & ~7) | (rshift // 4)).clamp(max=smax - 1)
+    ngenes = st["gene_start"].numel() - 1
+    d[:pos0] = st["gene_start"][ri(0, ngenes, pos0).long()]
+    d[pos0:pos0 + last] = smax - 1
+    nneg = min(99, nlive // 8)
+    d[nlive - nneg:] = -torch.arange(1, nneg + 1, dtype=torch.int32, device=dev)
+    d = torch.sort(d).values
+    r = ri(0, reads, nlive)
+    live = torch.nonzero(d >= 0).view(-1)
+    pl = live[torch.randperm(live.numel(), device=dev, generator=g)[:min(live.numel() // 3,
+                                                                         reads)]]
+    rows = torch.randperm(reads, device=dev, generator=g)[:pl.numel()]
+    r[pl] = rows.to(torch.int32)
+    pos = d[pl].long()[:, None] + torch.arange(nbits, device=dev)[None, :]
+    tc = torch.where(pos < smax, st["codes"][pos.clamp(max=smax - 1)], 0)
+    nsub = torch.randint(0, subs, (pl.numel(),), device=dev, generator=g)
+    lane = torch.arange(pl.numel(), device=dev)
+    for i in range(subs - 1):
+        at = torch.randint(0, hi, (pl.numel(),), device=dev, generator=g)
+        new = (tc[lane, at] + torch.randint(1, 5, (pl.numel(),), dtype=torch.uint8,
+                                            device=dev, generator=g)) % 5
+        tc[lane, at] = torch.where(nsub > i, new, tc[lane, at])
+    codes[rows] = tc
+    ln = ri(lo, hi + 1, reads)
+    codes[torch.arange(nbits, device=dev)[None, :] >= ln[:, None]] = 0
+    ndead = lanes - nlive
+    r = torch.cat([r, torch.full((ndead,), -1, dtype=torch.int32, device=dev)])
+    d = torch.cat([d, torch.zeros(ndead, dtype=torch.int32, device=dev)])
+    rpacked = pops.pack_rows(codes)
+    if budget is None:
+        budget = torch.from_numpy(vops.mismatch_budget_table(0.96, nbits)).to(dev)
+    _, gstart, gend, t_rows = pops.diagonal_fetch(
+        r, d, st["gene_start"], st["gblock"], st["gsteps"], st["trows"](nwords), smax)
+    return ((r, d, t_rows, rpacked, ln, gstart, gend, budget, tuple(q1s)),
+            dict(width=width, smax=smax))
+
+
+def verify_phase(dev) -> dict:
+    """B7, the dedup verify's SWAR body, exact against its twin on every
+    lane: the flagship's verify chunk (VERIFY_CHUNK d-sorted lanes of
+    100-base reads in 13 words over the 100M-base stream, B4's 22-word
+    rows, negative diagonals in front and a dead tail), measured
+    (measure_case; no PyTorch call computes the function), then its branch
+    cases, exact only.  Returns the chunk's numbers."""
+    import torch
+
+    from muscato_tpu_torch.ops import packed as pops
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    st = verify_stream(dev, g, NUM_GENE * GENE_LEN)
+    nw = -(-READ_LEN // 8)
+    args, kw = verify_inputs(dev, g, st, lanes=VERIFY_CHUNK, reads=BATCH, nwords=nw,
+                             q1s=WINDOWS, width=WIDTH, lengths=(READ_LEN, READ_LEN))
+    res = measure_case(
+        "verify_diagonals_swar", lambda: pops.verify_diagonals_swar(*args, **kw),
+        lambda: pops.verify_diagonals_swar_torch(*args, **kw), None,
+        call_work("verify_diagonals_swar", args, kw),
+        f"lanes ({VERIFY_CHUNK},) t_rows {tuple(args[2].shape)} rpacked "
+        f"{tuple(args[3].shape)} windows {WINDOWS} width {WIDTH}")
+    ok = pops.verify_diagonals_swar(*args, **kw)[2]
+    res["lanes_with_okbits"] = int((ok != 0).sum())
+    check(res["lanes_with_okbits"] > 0, "verify chunk: no lane passes")
+    del args, ok
+    n, nr = VERIFY_BRANCH_LANES, VERIFY_BRANCH_READS
+    cases = {
+        "19-word reads (150 bases)": dict(nwords=19, q1s=WINDOWS, width=WIDTH),
+        "25-word reads (200 bases), X at 5%, lengths 20-200": dict(
+            nwords=25, q1s=WINDOWS, width=WIDTH, lengths=(20, 200), x_rate=0.05),
+        "4-word reads (an even word count), lengths 20-32": dict(
+            nwords=4, q1s=(0, 8, 20), width=12, lengths=(20, 32)),
+        "one window": dict(nwords=nw, q1s=(30,), width=WIDTH, lengths=(60, 104)),
+        "31 windows, width 12": dict(nwords=nw, q1s=tuple(range(0, 62, 2)), width=12),
+        "windows past the packed width": dict(nwords=nw, q1s=(0, 90, 100, 120), width=WIDTH,
+                                              lengths=(90, 104)),
+        "pos-0 lanes at gene starts, lengths 20-104": dict(
+            nwords=nw, q1s=(0, 20), width=WIDTH, lengths=(20, 104), pos0=n // 4),
+        "rshift 0": dict(nwords=nw, q1s=WINDOWS, width=WIDTH, rshift=0),
+        "rshift 28": dict(nwords=nw, q1s=WINDOWS, width=WIDTH, rshift=28),
+        "the last stream position": dict(nwords=nw, q1s=WINDOWS, width=WIDTH, last=n // 8),
+        "budgets at nx (budget table 0-3)": dict(
+            nwords=nw, q1s=WINDOWS, width=WIDTH, lengths=(60, 104),
+            budget=torch.randint(0, 4, (8 * nw + 1,), dtype=torch.int32, device=dev,
+                                 generator=g)),
+    }
+    labels = []
+    for label, c in cases.items():
+        args, kw = verify_inputs(dev, g, st, lanes=n, reads=nr, **c)
+        got = pops.verify_diagonals_swar(*args, **kw)
+        _compare(f"verify_diagonals_swar {label}", got,
+                 pops.verify_diagonals_swar_torch(*args, **kw))
+        nx, ok = got[0], got[2]
+        r, d, _, _, ln, _, _, budget, _ = args
+        bud = budget[ln[r.clamp(min=0).long()].clamp(max=budget.numel() - 1).long()]
+        live = (r >= 0) & (d >= 0)
+        labels.append(f"verify_diagonals_swar {label} ({int((ok != 0).sum())} lanes pass, "
+                      f"{int((live & (nx == bud)).sum())} live lanes at nx == budget)")
+    print("verify_diagonals_swar branch cases exact vs twin: " + "; ".join(labels), flush=True)
+    return res
+
+
 def kernel_phase(dev, unstaged, variants, sub_variants) -> dict:
     """Each kernel against its twin at main-path shapes; returns
     {name: {max_abs_err, ms, back_to_back_ms, host_ms, plain_ms,
@@ -704,15 +906,7 @@ def kernel_phase(dev, unstaged, variants, sub_variants) -> dict:
                              generator=g).to(torch.int32)
 
     def case(name, fn, twin, library, work, shapes):
-        got, exp = fn(), twin()
-        out[name] = dict(
-            max_abs_err=_compare(name, got, exp), ms=time_ms(fn),
-            back_to_back_ms=time_ms(fn, inner=10), host_ms=host_ms(fn),
-            plain_ms=time_ms(twin),
-            library_ms=time_ms(library) if library else None,
-            library_back_to_back_ms=time_ms(library, inner=10) if library else None,
-            **bounds(work), shapes=shapes,
-        )
+        out[name] = measure_case(name, fn, twin, library, work, shapes)
 
     def exact(label, fn, twin):
         _compare(label, fn(), twin())
@@ -984,6 +1178,10 @@ def kernel_phase(dev, unstaged, variants, sub_variants) -> dict:
               lambda: gather.monotone_gather_rows_torch(tab, rix)[:1])
     del trows, trows21, trows28, ridx, ridx_l, ridx_d, rows_cases
 
+    # B7: the dedup verify's SWAR body.
+    out["verify_diagonals_swar"] = verify_phase(dev)
+    torch.cuda.empty_cache()
+
     # B5: one packed read batch (4 x 2**22 queries).  Half the rows hold
     # codes 0-4 (realistic), half random words (nibbles past the code
     # range: dinucleotide indices past bit 31); a tenth are short reads.
@@ -1140,16 +1338,25 @@ def recorded_calls():
     counters = wrappers()
     calls, saved = [], []
 
-    def hook(orig):
-        def call(*args, **kw):
+    class hook:
+        """Calls ``orig`` and records the call.  Its ``launches`` is the
+        wrapper's own: a wrapper hooked in its own module (B7) counts
+        through that module's name, which then names the hook."""
+
+        def __init__(self, orig):
+            self.orig = orig
+
+        launches = property(lambda self: self.orig.launches,
+                            lambda self, n: setattr(self.orig, "launches", n))
+
+        def __call__(self, *args, **kw):
             f = sys._getframe(1)
             before = {k: fn.launches for k, fn in counters.items()}
-            res = orig(*args, **kw)
+            res = self.orig(*args, **kw)
             site = f"{os.path.basename(f.f_code.co_filename)}:{f.f_lineno}"
             calls.extend(dict(kernel=k, site=site, args=args, kw=kw)
                          for k, fn in counters.items() if fn.launches != before[k])
             return res
-        return call
 
     for modname, attr in CALL_POINTS:
         mod = mods[modname]
@@ -1231,6 +1438,10 @@ def kernel_profile(dev, cfg, rs, index) -> dict:
                busy_share=busy / max(w1 - w0, 1e-9))
     out["kernels"] = {n: {"launches": c, "ms": ms} for i, (n, (c, ms))
                       in enumerate(by_name.items()) if n in SYMBOLS or i < 25}
+    # PyTorch's elementwise kernels, all of them (the verify's body ran as
+    # such passes before B7).
+    elem = [c for n, c in by_name.items() if "elementwise" in n]
+    out["elementwise"] = dict(launches=sum(c for c, _ in elem), ms=sum(ms for _, ms in elem))
     sites = {}
     for k in SYMBOLS:
         mine = [c for c in calls if c["kernel"] == k]
@@ -1873,6 +2084,15 @@ def match_phases(dev) -> tuple:
     print("flagship: " + json.dumps(flag), flush=True)
     prof = kernel_profile(dev, cfg, rs, index)
     print("profile (flagship batch, default path): " + json.dumps(prof), flush=True)
+    # B7 launches once a verify chunk, as B4 does (its one engine call).
+    pk = prof["kernels"]
+    check(pk.get("verify_diagonals_swar", {}).get("launches")
+          == pk.get("monotone_gather_rows", {}).get("launches"),
+          "the default profile: B7 did not launch once a verify chunk")
+    print(f"verify in the default profile: B7 {pk['verify_diagonals_swar']['launches']} "
+          f"launches, {pk['verify_diagonals_swar']['ms']:.4f} ms; expand_verify "
+          f"{flag['stage_s']['expand_verify'] * 1e3:.2f} ms in the counted run; "
+          f"elementwise kernels {json.dumps(prof['elementwise'])}", flush=True)
     switches = " ".join(f"{k}={v}" for k, v in SWITCHES.items())
     with switched(**SWITCHES):
         pipeline.run_matching_indexed(cfg, rs, index)

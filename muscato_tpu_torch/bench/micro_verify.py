@@ -1,8 +1,9 @@
 """Microbench: the dedup verify's cost per lane on the card (twin of
 ``muscato_tpu/bench/micro_verify.py``).
 
-Times ``ops/packed.py:verify_diagonals_packed``, the SWAR body of the
-dedup verify, over N lanes with the flagship's table sizes: a 100M-base
+Times ``ops/packed.py:verify_diagonals_packed``, the dedup verify (the
+B3 gene lookup, the B4 row gather and the B7 kernel of its SWAR body),
+over N lanes with the flagship's table sizes: a 100M-base
 target stream (its row view for the B4 row gather, its gene block table
 for the B3 gene lookup), 4M packed reads of 100 bases, width 20, PMatch
 0.96, windows 10,30,50,70.  The modes attribute the cost:
@@ -12,7 +13,11 @@ for the B3 gene lookup), 4M packed reads of 100 bases, width 20, PMatch
                                 every lane to one diagonal;
   tuned full, tuned const_read  lanes sorted by diagonal, as the engine
                                 feeds them: the target rows on B4 and the
-                                gene lookup on B3 stream in order;
+                                gene lookup on B3 stream in order; each
+                                also with the SWAR body alone on the same
+                                fetched rows: ``verify_diagonals_swar``
+                                (the B7 kernel on the card) beside its
+                                plain twin ``verify_diagonals_swar_torch``;
   read-row gather alone         ``index_select`` of the lanes' read rows;
   sort + B4 row ride            the same rows sorted by read (lane ids
                                 carried), fetched by B4, put back.
@@ -92,14 +97,26 @@ def measure(dev, n: int, tb: dict, log=print) -> dict:
             dd = np.sort(dd)
         return torch.from_numpy(rr).to(dev), torch.from_numpy(dd.astype(np.int32)).to(dev)
 
-    def verify(rr, dd, mode):
+    def lanes_of(rr, dd, mode):
         if mode == "const_read":
             rr = torch.zeros_like(rr)
         elif mode == "const_diag":
             dd = torch.full_like(dd, 12345)
+        return rr, dd
+
+    def verify(rr, dd, mode):
+        rr, dd = lanes_of(rr, dd, mode)
         return pops.verify_diagonals_packed(
             rr, dd, tb["rpacked"], tb["lengths"], tb["gene_start"], tb["budget"], WINDOWS,
             WIDTH, s, tb["trows"], tb["gblock"], tb["gsteps"])
+
+    def swar_args(rr, dd, mode):
+        """The SWAR body's arguments for these lanes, fetched once."""
+        rr, dd = lanes_of(rr, dd, mode)
+        _, gstart, gend, t_rows = pops.diagonal_fetch(
+            rr, dd, tb["gene_start"], tb["gblock"], tb["gsteps"], tb["trows"], s)
+        return (rr, dd, t_rows, tb["rpacked"], tb["lengths"], gstart, gend, tb["budget"],
+                WINDOWS)
 
     def cycle(lanes, f):
         state = [0]
@@ -129,6 +146,17 @@ def measure(dev, n: int, tb: dict, log=print) -> dict:
         f = lambda rr, dd, m=mode: verify(rr, dd, m)
         f(*slanes[0])
         record(f"tuned read={mode}", timeit(cycle(slanes, f), sync, reps=6))
+        args = [swar_args(rr, dd, mode) for rr, dd in slanes]
+        for body in (pops.verify_diagonals_swar, pops.verify_diagonals_swar_torch):
+            state = [0]
+
+            def go(body=body):
+                state[0] += 1
+                return body(*args[state[0] % 3], width=WIDTH, smax=s)
+
+            go()
+            record(f"tuned read={mode} SWAR body, {body.__name__}", timeit(go, sync, reps=6))
+        del args
 
     rp = tb["rpacked"]
     g = lambda rr, dd: rp.index_select(0, rr.clamp(0, r - 1))

@@ -110,7 +110,8 @@ KERNELS = {"window_queries": wq_ops.window_queries, "sorted_join": join_ops.sort
            "expand_owners": expand_ops.expand_owners,
            "expand_owners_sub": expand_ops.expand_owners_sub,
            "monotone_gather": gather_ops.monotone_gather,
-           "monotone_gather_rows": gather_ops.monotone_gather_rows}
+           "monotone_gather_rows": gather_ops.monotone_gather_rows,
+           "verify_diagonals_swar": packed_ops.verify_diagonals_swar}
 
 
 def switches() -> dict:

@@ -50,6 +50,10 @@ _SIGNATURES = {
     "muscato_window_queries": (
         _P, _P, _I64, _I, _P, _I, _I, _I, _U, _U, _I, _P, _P, _P, _P,
     ),
+    "muscato_verify_diagonals": (
+        _P, _P, _I64, _P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I,
+        _P, _P, _P, _P,
+    ),
 }
 
 

@@ -9,7 +9,9 @@ right shift on int32 and no uint32 shifts on the CPU.
 
 Two verifies are ported: ``verify_diagonals_packed``, the dedup path's, in
 diagonal-major order with the target-row view (``trows``) fetched by the
-B4 row gather and the gene lookup on the B3 gather; and
+B4 row gather and the gene lookup on the B3 gather, and its SWAR body in
+the CUDA kernel of ``csrc/verify.cu`` (``verify_diagonals_swar``, whose
+plain twin is ``verify_diagonals_swar_torch``); and
 ``verify_pairs_packed``, the streaming path's, one pair a lane in the
 probe's lo order, whose row and gene streams are not monotone and are
 fetched by plain indexing.
@@ -17,9 +19,12 @@ fetched by plain indexing.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
+from . import _lib
 from .gather import monotone_gather, monotone_gather_rows
 
 BASES_PER_WORD = 8
@@ -213,30 +218,11 @@ def _nibble_mask(k: torch.Tensor) -> torch.Tensor:
     return torch.bitwise_left_shift(torch.ones_like(k), 4 * k) - 1
 
 
-def verify_diagonals_packed(
-    r: torch.Tensor,  # (C,) int32 read rows (-1 = inactive lane)
-    d: torch.Tensor,  # (C,) int32 global read-start positions (diagonals)
-    rpacked: torch.Tensor,  # (R, NW) int32 nibble-packed reads
-    lengths: torch.Tensor,  # (R,) int32
-    gene_start: torch.Tensor,  # (G+1,) int32
-    budget: torch.Tensor,  # (max_read_length+1,) int32
-    q1s: tuple,  # (K,) window offsets, host ints
-    width: int,
-    smax: int,
-    trows: torch.Tensor,  # (T, NW+9) int32 target-row view
-    gblock: torch.Tensor,  # gene block table
-    gsteps: int,
-):
-    """Verify one (read, diagonal) once for all windows at once (the
-    diagonal-major branch of the JAX function: lanes sorted by (d, r), so
-    the target-row and gene streams are monotone and ride B4 and B3).
-
-    Returns (nx, g, s, okbits): bit k of okbits says "a pair from window k
-    on this diagonal passes verification" (window region exact, left and
-    fit checks including the reference's pos-0 quirk, mismatch budget)."""
-    nwords = rpacked.shape[1]
+def diagonal_fetch(r, d, gene_start, gblock, gsteps: int, trows, smax: int):
+    """The dedup verify's fetches for (d, r)-sorted lanes: the owning gene
+    of each diagonal on the B3 gather (``gene_of_pos_block_mono``) and its
+    target row on the B4 row gather.  Returns (g, gstart, gend, t_rows)."""
     active = (r >= 0) & (d >= 0)
-    rc = r.clamp(0, rpacked.shape[0] - 1)
     dc = d.clamp(0, smax - 1)
 
     # Dead tail lanes (r < 0, sorted last) clamp to the last live position
@@ -244,18 +230,26 @@ def verify_diagonals_packed(
     last_live = torch.where(active, dc, 0).max()
     dcm = torch.where(r >= 0, dc, last_live)
     g, gstart, gend = gene_of_pos_block_mono(gene_start, gblock, dcm, gsteps)
-    glen = gend - gstart
-    s_local = dc - gstart
-    rlen = lengths[rc.long()]
-
-    # ---- SWAR mismatch count over the aligned diagonal (once) ----
-    rshift = ((dc & 7) * 4).to(torch.int64)[:, None]
     # Inactive lanes map to the last row; negative diagonals already clamp
     # to row 0 through dc — both keep the row stream nondecreasing.
     row = torch.where(
         r >= 0, (dc >> 6).clamp(0, trows.shape[0] - 1), trows.shape[0] - 1
     ).to(torch.int32)
     t_rows, _ = monotone_gather_rows(trows, row)
+    return g, gstart, gend, t_rows
+
+
+def verify_diagonals_swar_torch(r, d, t_rows, rpacked, lengths, gstart, gend, budget,
+                                q1s, *, width: int, smax: int):
+    """Plain twin of ``verify_diagonals_swar``."""
+    nwords = rpacked.shape[1]
+    active = (r >= 0) & (d >= 0)
+    rc = r.clamp(0, rpacked.shape[0] - 1)
+    dc = d.clamp(0, smax - 1)
+    glen = gend - gstart
+    s_local = dc - gstart
+    rlen = lengths[rc.long()]
+    rshift = ((dc & 7) * 4).to(torch.int64)[:, None]
     tw = u64(_trows_select(t_rows, (dc >> 3) & 7, nwords))
     lowpart = tw[:, :-1] >> rshift
     hipart = torch.where(
@@ -284,7 +278,69 @@ def verify_diagonals_packed(
         okbits = okbits | (bit.to(torch.int32) << k)
 
     okbits = torch.where(active & budget_ok, okbits, 0)
-    return nx, g.to(torch.int32), s_local.to(torch.int32), okbits
+    return nx, s_local.to(torch.int32), okbits
+
+
+def verify_diagonals_swar(r, d, t_rows, rpacked, lengths, gstart, gend, budget, q1s, *,
+                          width: int, smax: int):
+    """The SWAR body of the dedup verify over (C,) lanes: launches the CUDA
+    kernel in ``csrc/verify.cu`` (the body of
+    ``muscato_tpu/ops/packed.py:verify_diagonals_packed``, which XLA fuses;
+    it has no Pallas kernel).  ``t_rows`` (C, >= nwords + 8) holds each
+    lane's target row (``diagonal_fetch``), ``gstart`` and ``gend`` its
+    gene's bounds.  Returns (nx, s, okbits), each (C,) int32; see
+    ``verify_diagonals_packed``."""
+    if _lib.on_cpu("verify_diagonals_swar", r, d, t_rows, rpacked, lengths, gstart,
+                   gend, budget):
+        return verify_diagonals_swar_torch(r, d, t_rows, rpacked, lengths, gstart, gend,
+                                           budget, q1s, width=width, smax=smax)
+    n = r.shape[0]
+    if any(t.shape[0] != n for t in (d, t_rows, gstart, gend)):
+        raise ValueError("verify_diagonals_swar: lane shapes disagree")
+    nx, s, okbits = (torch.empty(n, dtype=torch.int32, device=r.device) for _ in range(3))
+    if n:
+        # The launcher refuses more than 32 windows, t_rows narrower than
+        # nwords + 8 words and empty tables (the launch then raises).
+        _lib.launch(
+            "verify_diagonals", r, r.data_ptr(), d.data_ptr(), n, t_rows.data_ptr(),
+            t_rows.shape[1], rpacked.data_ptr(), *rpacked.shape, lengths.data_ptr(),
+            gstart.data_ptr(), gend.data_ptr(), budget.data_ptr(), budget.numel(),
+            (ctypes.c_int * max(len(q1s), 1))(*q1s), len(q1s), width, smax,
+            nx.data_ptr(), s.data_ptr(), okbits.data_ptr(),
+        )
+        verify_diagonals_swar.launches += 1
+    return nx, s, okbits
+
+
+verify_diagonals_swar.launches = 0
+
+
+def verify_diagonals_packed(
+    r: torch.Tensor,  # (C,) int32 read rows (-1 = inactive lane)
+    d: torch.Tensor,  # (C,) int32 global read-start positions (diagonals)
+    rpacked: torch.Tensor,  # (R, NW) int32 nibble-packed reads
+    lengths: torch.Tensor,  # (R,) int32
+    gene_start: torch.Tensor,  # (G+1,) int32
+    budget: torch.Tensor,  # (max_read_length+1,) int32
+    q1s: tuple,  # (K,) window offsets, host ints
+    width: int,
+    smax: int,
+    trows: torch.Tensor,  # (T, NW+9) int32 target-row view
+    gblock: torch.Tensor,  # gene block table
+    gsteps: int,
+):
+    """Verify one (read, diagonal) once for all windows at once (the
+    diagonal-major branch of the JAX function: lanes sorted by (d, r), so
+    the target-row and gene streams are monotone and ride B4 and B3; the
+    SWAR body is ``verify_diagonals_swar``).
+
+    Returns (nx, g, s, okbits): bit k of okbits says "a pair from window k
+    on this diagonal passes verification" (window region exact, left and
+    fit checks including the reference's pos-0 quirk, mismatch budget)."""
+    g, gstart, gend, t_rows = diagonal_fetch(r, d, gene_start, gblock, gsteps, trows, smax)
+    nx, s, okbits = verify_diagonals_swar(r, d, t_rows, rpacked, lengths, gstart, gend,
+                                          budget, q1s, width=width, smax=smax)
+    return nx, g.to(torch.int32), s, okbits
 
 
 def verify_pairs_packed(

@@ -105,6 +105,9 @@ def test_micro_verify_modes(capsys):
     assert rc == 0 and "tables ready" in out
     for label, unit in (("full", "lane"), ("const_read", "lane"), ("const_diag", "lane"),
                         ("tuned read=full", "lane"), ("tuned read=const_read", "lane"),
+                        *((f"tuned read={m} SWAR body, {f}", "lane")
+                          for m in ("full", "const_read")
+                          for f in ("verify_diagonals_swar", "verify_diagonals_swar_torch")),
                         ("read-row gather alone (index_select)", "row"),
                         ("sort + B4 row ride", "row")):
         assert any(ln.startswith(label + ": ") and ln.endswith(f" ns/{unit}")

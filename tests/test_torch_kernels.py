@@ -10,6 +10,7 @@ exactly equal.
 """
 
 import contextlib
+import os
 import types
 
 import numpy as np
@@ -331,7 +332,8 @@ def test_build_requires_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
     with pytest.raises(RuntimeError, match="nvcc"):
         _lib._build()
-    assert len(_lib.sources()) == 4
+    assert [os.path.basename(p) for p in _lib.sources()] == [
+        "expand.cu", "gather.cu", "join.cu", "verify.cu", "windows.cu"]
 
 
 def test_build_digest_covers_headers(monkeypatch, tmp_path):

@@ -13,6 +13,7 @@ TargetSet and Config, made by its own gendat and config module.
 
 import contextlib
 import dataclasses
+import importlib
 import logging
 import re
 
@@ -174,6 +175,68 @@ def test_cuda_switched_run_matches_cpu_run(workload, monkeypatch):
     assert join.sorted_join.launches == before[0]
     assert expand.expand_owners_sub.launches == before[1] + 1
     _assert_same(got, tpipeline.run_matching(cfg, rs, ts, device="cpu"))
+
+
+def _ragged_workload(pkg, seed=5, nreads=3000, ngenes=300):
+    """Reads of 20-150 bases, a tenth random, the rest drawn from genes of
+    50-1,500 bases with 3% substitutions; X codes at 1-5% (a rate drawn
+    for each read and gene) in reads and genes.  Made with numpy from
+    ``seed`` into the ReadSet and TargetSet classes of ``pkg`` (the JAX
+    package or the port)."""
+    rng = np.random.default_rng(seed)
+    glens = rng.integers(50, 1501, ngenes)
+    gene_start = np.concatenate([[0], np.cumsum(glens)]).astype(np.int64)
+    tcat = rng.integers(0, 4, int(gene_start[-1])).astype(np.uint8)
+    gx = np.repeat(rng.uniform(0.01, 0.05, ngenes), glens)
+    tcat[rng.random(len(tcat)) < gx] = 4
+    lmax = 150
+    lengths = rng.integers(20, lmax + 1, nreads).astype(np.int32)
+    codes = rng.integers(0, 4, (nreads, lmax)).astype(np.uint8)
+    for i in range(nreads // 10, nreads):
+        fits = np.flatnonzero(glens >= lengths[i])
+        g = rng.choice(fits)
+        off = gene_start[g] + rng.integers(0, glens[g] - lengths[i] + 1)
+        codes[i, : lengths[i]] = tcat[off: off + lengths[i]]
+        mut = rng.random(lengths[i]) < 0.03
+        codes[i, : lengths[i]][mut] = rng.integers(0, 4, int(mut.sum()))
+    codes[rng.random(codes.shape) < rng.uniform(0.01, 0.05, (nreads, 1))] = 4
+    codes[np.arange(lmax)[None, :] >= lengths[:, None]] = 0
+    keyed = np.ascontiguousarray(np.concatenate(
+        [codes, lengths.astype(np.uint8)[:, None]], axis=1))
+    _, first, counts = np.unique(keyed.view(f"V{lmax + 1}").ravel(), return_index=True,
+                                 return_counts=True)
+    reads = importlib.import_module(f"{pkg}.io.reads")
+    targets = importlib.import_module(f"{pkg}.io.targets")
+    rs = reads.ReadSet(codes=codes[first], lengths=lengths[first],
+                       counts=counts.astype(np.int64),
+                       names=[b"read_%d" % i for i in range(len(first))], num_total=nreads)
+    ts = targets.TargetSet(tcat=tcat, gene_start=gene_start,
+                           names=[b"gene_%d" % i for i in range(ngenes)],
+                           lengths=np.diff(gene_start))
+    return rs, ts
+
+
+@pytest.mark.parametrize(
+    "cfg",
+    [
+        _cfg(12, (0, 15, 40, 70), 2),
+        _cfg(20, (10, 30, 50, 70), 3),
+        _cfg(32, (0, 40, 90), 3),
+        _cfg(20, (0, 25, 60, 100), 3, mode="first", mm=3, batch=1024),  # three batches
+        _cfg(16, (5, 45, 85), 2, mm=1),
+    ],
+    ids=["w12", "w20", "w32", "w20-first-capped-multibatch", "w16-best-max1"],
+)
+def test_ragged_reads_match_jax(cfg):
+    """Reads of 20-150 bases with X codes: the verify's length masks and
+    budgets vary lane by lane.  The port's run_matching gives the JAX
+    engine's MatchResult."""
+    exp = jpipeline.run_matching(jconfig.Config(**dataclasses.asdict(cfg)),
+                                 *_ragged_workload("muscato_tpu"))
+    rs, ts = _ragged_workload("muscato_tpu_torch")
+    assert len(set(rs.lengths.tolist())) > 100
+    got = tpipeline.run_matching(cfg, rs, ts, device="cpu")
+    _assert_same(got, exp)
 
 
 def _two_batch_cfg(rs, config=tconfig):
