@@ -6,9 +6,10 @@
 Run from the root of a checkout.  It builds the seven CUDA kernels from
 muscato_tpu_torch/csrc with nvcc (one process per source, in parallel),
 a variant of them built with -DMUSCATO_NO_STAGE (B1 and B4 never stage a
-span, B5 stages by a copy loop) and variants of csrc/expand.cu built with
-other constants (B2: tiles a warp, register cut; B6: ring depth, lo and
-qid in the ring or not, lanes a warp, register cut), all at once, then:
+span, B5 stages by a copy loop, B7 reads every word from global memory)
+and variants of csrc/expand.cu built with other constants (B2: tiles a
+warp, register cut; B6: ring depth, lo and qid in the ring or not, lanes a
+warp, register cut), all at once, then:
 
   1. prints the card (nvidia-smi name and power limit), torch and CUDA
      versions, the kernel build times, and the integer rate the bounds
@@ -35,10 +36,16 @@ qid in the ring or not, lanes a warp, register cut), all at once, then:
      dedup verify's SWAR body, at the flagship's verify chunk (2**20
      d-sorted lanes of 13-word reads over the 100M-base stream's 22-word
      rows, planted matches, negative diagonals in front, a dead tail),
-     measured, and on 150- and 200-base reads, an even word count, one
+     measured beside its byte bound and its sector-aware bound, and timed
+     in turns against its unstaged build, each also with every live lane
+     on read 0, and on 150- and 200-base reads, an even word count, one
      and 31 windows, windows past the packed width, lanes at gene starts
      (the pos-0 quirk), in-word shifts 0 and 28, the last stream
-     position, X codes and budgets at nx; dead-tail
+     position, X codes and budgets at nx, a ragged last tile, a 90% dead
+     tail, a read a tile, an odd row width, reads of 880, 2000 and 4096
+     bases (tiles of 128, 64 and 32 lanes), the widest rows and the
+     longest reads whose tile fits shared memory, and one column past
+     them, which must be refused; dead-tail
      tiles, empty-slot runs longer than B2's stage and B6's ring, warp
      ranges that start inside such runs, a dead tail that starts inside
      a range, slots that own several tiles or ranges, one slot, fewer
@@ -82,8 +89,10 @@ qid in the ring or not, lanes a warp, register cut), all at once, then:
      device's busy share of the stage window, for each
      call site of the port's kernels its launches, time and summed
      bound, and for the postings fetch its step-backs and the 128-byte
-     lines it touches; it fails unless B7 launched once a verify chunk,
-     as B4 does); then the same run and profile with both switches
+     lines it touches; for B7 its sector-aware bound too, and its calls
+     replayed through the staged and the unstaged build in turns; it
+     fails unless B7 launched once a verify chunk, as B4 does); then the
+     same run and profile with both switches
      set (sort-merge probe and B6), whose MatchResult must equal the
      default run's; then the same through the streaming expand
      (NoDedup: B5, B1, one B2 and B3 a chunk of 131,072 pair lanes, B3 in
@@ -757,19 +766,23 @@ def verify_stream(dev, g, nbases: int) -> dict:
 
 
 def verify_inputs(dev, g, st, *, lanes, reads, nwords, q1s, width, lengths=None,
-                  x_rate=0.02, subs=4, budget=None, pos0=0, last=0, rshift=None):
+                  x_rate=0.02, subs=4, budget=None, pos0=0, last=0, rshift=None,
+                  dead=0.1, tile_read=False, widen=0):
     """Arguments of verify_diagonals_swar for a chunk of ``lanes`` lanes
     over the stream ``st`` (verify_stream), as _verify_diagonals feeds it:
     sorted by diagonal, negative diagonals in front (d in [-99, -1]), a
-    dead tail of a tenth of the lanes (r = -1, d = 0, the chunk's
+    dead tail of ``dead`` of the lanes (r = -1, d = 0, the chunk's
     padding).  ``reads`` reads of ``nwords`` words, lengths drawn from
     ``lengths`` (default: all 8 * nwords), codes 0-3 with X at ``x_rate``;
     a third of the live lanes are planted: each gets a read row of its
     own, the target under its diagonal with 0 to ``subs`` - 1
     substitutions.  ``pos0`` live lanes start at gene starts, ``last`` at
     the last stream position; ``rshift`` fixes every live diagonal's
-    in-word shift (4 * (d & 7)).  The budget table defaults to the
-    flagship's PMatch 0.96.  Returns (args, kw)."""
+    in-word shift (4 * (d & 7)).  With ``tile_read`` every run of 256
+    lanes (B7's widest tile, a multiple of every narrower one) reads its
+    first lane's read; ``widen`` pads t_rows with that many columns (rows
+    wider than B4 gives).  The budget table
+    defaults to the flagship's PMatch 0.96.  Returns (args, kw)."""
     import torch
 
     from muscato_tpu_torch.ops import packed as pops
@@ -780,7 +793,7 @@ def verify_inputs(dev, g, st, *, lanes, reads, nwords, q1s, width, lengths=None,
     ri = lambda a, b, n: torch.randint(a, b, (n,), dtype=torch.int32, device=dev, generator=g)
     codes = torch.randint(0, 4, (reads, nbits), dtype=torch.uint8, device=dev, generator=g)
     codes[torch.rand(reads, nbits, device=dev, generator=g) < x_rate] = 4
-    nlive = lanes - lanes // 10
+    nlive = lanes - int(lanes * dead)
     d = ri(0, smax, nlive)
     if rshift is not None:
         d = ((d & ~7) | (rshift // 4)).clamp(max=smax - 1)
@@ -806,6 +819,8 @@ def verify_inputs(dev, g, st, *, lanes, reads, nwords, q1s, width, lengths=None,
                                             device=dev, generator=g)) % 5
         tc[lane, at] = torch.where(nsub > i, new, tc[lane, at])
     codes[rows] = tc
+    if tile_read:
+        r = r[torch.arange(nlive, device=dev) // 256 * 256]
     ln = ri(lo, hi + 1, reads)
     codes[torch.arange(nbits, device=dev)[None, :] >= ln[:, None]] = 0
     ndead = lanes - nlive
@@ -816,17 +831,113 @@ def verify_inputs(dev, g, st, *, lanes, reads, nwords, q1s, width, lengths=None,
         budget = torch.from_numpy(vops.mismatch_budget_table(0.96, nbits)).to(dev)
     _, gstart, gend, t_rows = pops.diagonal_fetch(
         r, d, st["gene_start"], st["gblock"], st["gsteps"], st["trows"](nwords), smax)
+    if widen:
+        t_rows = torch.nn.functional.pad(t_rows, (0, widen))
     return ((r, d, t_rows, rpacked, ln, gstart, gend, budget, tuple(q1s)),
             dict(width=width, smax=smax))
 
 
-def verify_phase(dev) -> dict:
+def launch_verify(lib, r, d, t_rows, rpacked, lengths, gstart, gend, budget, q1s, *,
+                  width, smax):
+    """B7 of the kernel library ``lib`` (a variant build), launched as
+    ops/packed.py launches the default one."""
+    import ctypes
+
+    import torch
+
+    from muscato_tpu_torch.ops import _lib
+
+    n = r.numel()
+    nx, s, ok = (torch.empty(n, dtype=torch.int32, device=r.device) for _ in range(3))
+    _lib.launch("verify_diagonals", r, r.data_ptr(), d.data_ptr(), n, t_rows.data_ptr(),
+                t_rows.shape[1], rpacked.data_ptr(), *rpacked.shape, lengths.data_ptr(),
+                gstart.data_ptr(), gend.data_ptr(), budget.data_ptr(), budget.numel(),
+                (ctypes.c_int * max(len(q1s), 1))(*q1s), len(q1s), width, smax,
+                nx.data_ptr(), s.data_ptr(), ok.data_ptr(), lib=lib)
+    return nx, s, ok
+
+
+def verify_sector_bytes(args, smax: int) -> int:
+    """B7's bytes counted in the 32-byte sectors that the memory system
+    moves: the distinct sectors that one call's data touches.  Each lane's
+    r, d, gstart, gend and three outputs; the words [off, off + nwords] of
+    its target row that it reads; each distinct read row's words, its
+    length and its budget entry, once."""
+    import torch
+
+    r, d, t_rows, rpacked, lengths, _, _, budget, _ = args
+    c, tcols = t_rows.shape
+    nreads, nw = rpacked.shape
+
+    def sectors(first, nbytes):
+        """Distinct sectors of the byte spans [first, first + nbytes)."""
+        a, b = first >> 5, (first + nbytes - 1) >> 5
+        at = a[:, None] + torch.arange(int((b - a).max()) + 1, device=a.device)
+        return torch.unique(at[at <= b[:, None]]).numel()
+
+    off = (d.clamp(0, smax - 1).long() >> 3) & 7
+    rows = torch.unique(r.clamp(0, nreads - 1)).long()
+    rlen = lengths[rows].clamp(0, budget.numel() - 1).long()
+    n = (7 * -(-4 * c // 32)  # r, d, gstart, gend, nx, s, okbits
+         + sectors((torch.arange(c, device=d.device) * tcols + off) * 4, 4 * (nw + 1))
+         + sectors(rows * (4 * nw), 4 * nw)
+         + torch.unique(rows >> 3).numel() + torch.unique(rlen >> 3).numel())
+    return 32 * n
+
+
+def verify_bank_wavefronts(args, smax: int) -> float:
+    """Shared-memory wavefronts a warp load of the staged B7 kernel's
+    target-row reads takes, from one call's addresses: the tile's rows
+    staged at tcols words a lane, lane j's word w at j * tcols + off_j + w
+    past a base that is the same for the warp's 32 lanes (so it moves no
+    word to another bank's load); a load takes as many wavefronts as the
+    most distinct words that fall in one of the 32 banks.  The mean over
+    the call's warp loads (1.0 is conflict-free; the read rows' odd stride
+    makes theirs 1.0 by construction)."""
+    import torch
+
+    r, d, t_rows, rpacked = args[:4]
+    n, tcols = t_rows.shape[0] // 32 * 32, t_rows.shape[1]
+    nw = rpacked.shape[1]
+    off = (d[:n].clamp(0, smax - 1).long() >> 3) & 7
+    word = torch.arange(n, device=d.device) * tcols + off
+    total = 0
+    for w in range(nw + 1):
+        bank = ((word + w) % 32).view(-1, 32)
+        cnt = torch.zeros_like(bank).scatter_add_(1, bank, torch.ones_like(bank))
+        total += int(cnt.max(1).values.sum())
+    return total / (n // 32 * (nw + 1))
+
+
+def last_true(pred, lo: int) -> int:
+    """The largest x >= lo with pred(x), for a pred that holds at lo and,
+    past some x, never again."""
+    hi = lo + 1
+    while pred(hi):
+        hi *= 2
+    while hi - lo > 1:  # pred(lo) and not pred(hi)
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if pred(mid) else (lo, mid)
+    return lo
+
+
+def verify_phase(dev, unstaged=None) -> dict:
     """B7, the dedup verify's SWAR body, exact against its twin on every
     lane: the flagship's verify chunk (VERIFY_CHUNK d-sorted lanes of
     100-base reads in 13 words over the 100M-base stream, B4's 22-word
     rows, negative diagonals in front and a dead tail), measured
-    (measure_case; no PyTorch call computes the function), then its branch
-    cases, exact only.  Returns the chunk's numbers."""
+    (measure_case; no PyTorch call computes the function) beside its
+    sector-aware bound (verify_sector_bytes) and the bank wavefronts of
+    its target-row reads, then its branch cases, exact only (tiles of
+    every width the launcher picks among them), and a shape too large for
+    shared memory, which must raise.  ``unstaged`` is the
+    library built with -DMUSCATO_NO_STAGE, whose B7 is the first design
+    (every word read from global memory): at the flagship chunk it is held
+    against the twin and timed against the staged kernel in turns, each
+    build also with every live lane on read 0 (no scattered
+    read rows or lengths), and PyTorch's gathers of the chunk's read rows
+    and lengths alone beside them, to place the time.  Returns the chunk's
+    numbers."""
     import torch
 
     from muscato_tpu_torch.ops import packed as pops
@@ -836,16 +947,50 @@ def verify_phase(dev) -> dict:
     nw = -(-READ_LEN // 8)
     args, kw = verify_inputs(dev, g, st, lanes=VERIFY_CHUNK, reads=BATCH, nwords=nw,
                              q1s=WINDOWS, width=WIDTH, lengths=(READ_LEN, READ_LEN))
+    staged = lambda: pops.verify_diagonals_swar(*args, **kw)
+    twin = lambda: pops.verify_diagonals_swar_torch(*args, **kw)
     res = measure_case(
-        "verify_diagonals_swar", lambda: pops.verify_diagonals_swar(*args, **kw),
-        lambda: pops.verify_diagonals_swar_torch(*args, **kw), None,
+        "verify_diagonals_swar", staged, twin, None,
         call_work("verify_diagonals_swar", args, kw),
         f"lanes ({VERIFY_CHUNK},) t_rows {tuple(args[2].shape)} rpacked "
         f"{tuple(args[3].shape)} windows {WINDOWS} width {WIDTH}")
-    ok = pops.verify_diagonals_swar(*args, **kw)[2]
+    res["sector_bound_ms"] = verify_sector_bytes(args, kw["smax"]) / HBM_BYTES_PER_S * 1e3
+    res["target_wavefronts_a_load"] = verify_bank_wavefronts(args, kw["smax"])
+    r, rp, ln = args[0], args[3], args[4]
+    if unstaged is not None:
+        one = (torch.where(r >= 0, 0, r), *args[1:])
+        _compare("unstaged verify_diagonals_swar", launch_verify(unstaged, *args, **kw), twin())
+        # lib None: the default library.
+        builds = {"staged": None, "unstaged": unstaged}
+        ab = res["staging_ab"] = {}
+        for order in (list(builds), list(builds)[::-1], list(builds)):
+            for label in order:
+                for mode, a in (("", args), (", every live lane on read 0", one)):
+                    f = functools.partial(launch_verify, builds[label], *a, **kw)
+                    t = ab.setdefault(label + mode, {"ms": [], "back_to_back_ms": []})
+                    t["ms"].append(time_ms(f))
+                    t["back_to_back_ms"].append(time_ms(f, inner=10))
+        del one
+    rows = r.clamp(0, rp.shape[0] - 1)
+    res["row_gather_ms"] = time_ms(lambda: (rp.index_select(0, rows),
+                                            ln.index_select(0, rows)), inner=10)
+    del rows
+    ok = staged()[2]
     res["lanes_with_okbits"] = int((ok != 0).sum())
     check(res["lanes_with_okbits"] > 0, "verify chunk: no lane passes")
+    print(f"verify_diagonals_swar at the flagship chunk: {res['ms']:.4f} ms a call "
+          f"({res['back_to_back_ms']:.4f} back to back) against a byte bound of "
+          f"{res['bytes_bound_ms']:.4f} ms and a sector bound of {res['sector_bound_ms']:.4f} "
+          f"ms; target-row reads {res['target_wavefronts_a_load']:.3f} wavefronts a warp "
+          f"load; staged against unstaged (ms, in turns): "
+          f"{json.dumps(res.get('staging_ab'))}; index_select of the lanes' read rows and "
+          f"lengths: {res['row_gather_ms']:.4f} ms back to back", flush=True)
     del args, ok
+    # The launcher's own answer (swar_tile) places the edges: t_rows as
+    # wide, and reads as long, as a tile of 32 lanes still fits.
+    tile = lambda nwords, tcols: pops.swar_tile(nwords, tcols)[0]
+    widest = last_true(lambda t: tile(nw, t) > 0, nw + pops.TROWS_GUARD)
+    longest = last_true(lambda w: tile(w, w + pops.TROWS_GUARD) > 0, nw)
     n, nr = VERIFY_BRANCH_LANES, VERIFY_BRANCH_READS
     cases = {
         "19-word reads (150 bases)": dict(nwords=19, q1s=WINDOWS, width=WIDTH),
@@ -866,20 +1011,59 @@ def verify_phase(dev) -> dict:
             nwords=nw, q1s=WINDOWS, width=WIDTH, lengths=(60, 104),
             budget=torch.randint(0, 4, (8 * nw + 1,), dtype=torch.int32, device=dev,
                                  generator=g)),
+        f"{n + 77} lanes (a ragged last tile)": dict(nwords=nw, q1s=WINDOWS, width=WIDTH,
+                                                     lanes=n + 77),
+        "a 90% dead tail (whole dead tiles, as a batch's last chunk)": dict(
+            nwords=nw, q1s=WINDOWS, width=WIDTH, dead=0.9),
+        "every tile on one read": dict(nwords=nw, q1s=WINDOWS, width=WIDTH, tile_read=True),
+        f"t_rows of {nw + pops.TROWS_GUARD + 1} words (an odd row width)": dict(
+            nwords=nw, q1s=WINDOWS, width=WIDTH, widen=1),
+        **{f"{w}-word reads ({8 * w} bases)": dict(nwords=w, q1s=WINDOWS, width=WIDTH,
+                                                   lengths=(20, 8 * w))
+           for w in (110, 250, 512)},
+        f"t_rows of {widest} words (the widest tile that fits)": dict(
+            nwords=nw, q1s=WINDOWS, width=WIDTH, widen=widest - nw - pops.TROWS_GUARD),
+        f"{longest}-word reads (the longest whose tile fits)": dict(
+            nwords=longest, q1s=WINDOWS, width=WIDTH),
     }
-    labels = []
+    labels, tiles = [], set()
     for label, c in cases.items():
-        args, kw = verify_inputs(dev, g, st, lanes=n, reads=nr, **c)
+        c = dict(c)
+        args, kw = verify_inputs(dev, g, st, lanes=c.pop("lanes", n), reads=nr, **c)
         got = pops.verify_diagonals_swar(*args, **kw)
-        _compare(f"verify_diagonals_swar {label}", got,
-                 pops.verify_diagonals_swar_torch(*args, **kw))
+        exp = pops.verify_diagonals_swar_torch(*args, **kw)
+        _compare(f"verify_diagonals_swar {label}", got, exp)
         nx, ok = got[0], got[2]
-        r, d, _, _, ln, _, _, budget, _ = args
+        r, d, t_rows, rp, ln, _, _, budget, _ = args
         bud = budget[ln[r.clamp(min=0).long()].clamp(max=budget.numel() - 1).long()]
         live = (r >= 0) & (d >= 0)
-        labels.append(f"verify_diagonals_swar {label} ({int((ok != 0).sum())} lanes pass, "
+        lanes = tile(rp.shape[1], t_rows.shape[1])
+        tiles.add(lanes)
+        labels.append(f"verify_diagonals_swar {label} (tiles of {lanes} lanes, "
+                      f"{int((ok != 0).sum())} lanes pass, "
                       f"{int((live & (nx == bud)).sum())} live lanes at nx == budget)")
+    del args, got, exp
+    st["trows"].cache_clear()
     print("verify_diagonals_swar branch cases exact vs twin: " + "; ".join(labels), flush=True)
+    check(tiles >= {256, 128, 64, 32},
+          f"verify_diagonals_swar branch cases ran tiles of {sorted(tiles)} lanes only")
+    # One column wider than the widest tile that fits: the launch is refused.
+    args, kw = verify_inputs(dev, g, st, lanes=1 << 12, reads=1 << 10, nwords=nw,
+                             q1s=WINDOWS, width=WIDTH, widen=widest + 1 - nw - pops.TROWS_GUARD)
+    before = pops.verify_diagonals_swar.launches
+    try:
+        pops.verify_diagonals_swar(*args, **kw)
+    except RuntimeError as e:
+        refused = str(e)
+    else:
+        refused = None
+    check(refused and pops.verify_diagonals_swar.launches == before,
+          f"verify_diagonals_swar: t_rows of {widest + 1} words were not refused")
+    optin = getattr(torch.cuda.get_device_properties(dev), "shared_memory_per_block_optin",
+                    "not reported")
+    print(f"verify_diagonals_swar with t_rows of {widest + 1} words "
+          f"({pops.swar_tile(nw, widest + 1)[1]} bytes for 32 lanes, the device's limit "
+          f"{optin}): refused ({refused})", flush=True)
     return res
 
 
@@ -1179,7 +1363,7 @@ def kernel_phase(dev, unstaged, variants, sub_variants) -> dict:
     del trows, trows21, trows28, ridx, ridx_l, ridx_d, rows_cases
 
     # B7: the dedup verify's SWAR body.
-    out["verify_diagonals_swar"] = verify_phase(dev)
+    out["verify_diagonals_swar"] = verify_phase(dev, unstaged)
     torch.cuda.empty_cache()
 
     # B5: one packed read batch (4 x 2**22 queries).  Half the rows hold
@@ -1388,7 +1572,7 @@ def stream_shape(idx) -> dict:
                 lines_128b=int(torch.unique(idx >> 5).numel()))
 
 
-def kernel_profile(dev, cfg, rs, index) -> dict:
+def kernel_profile(dev, cfg, rs, index, unstaged=None) -> dict:
     """One more flagship run on the path the switches select, after its
     warm-up, under torch.profiler: every device kernel's total time and
     launches by name,
@@ -1398,7 +1582,11 @@ def kernel_profile(dev, cfg, rs, index) -> dict:
     port's kernels, launches, device time and the summed bound (bounds)
     of the launches' own inputs; for the postings fetch (the B3 launches
     that read the index's spos) also the shape of their index streams
-    (stream_shape), summed over the launches.  Fails if the profile holds no device time,
+    (stream_shape), summed over the launches; for B7 also the summed
+    sector-aware bound (verify_sector_bytes) and, given ``unstaged`` (the
+    -DMUSCATO_NO_STAGE library), the batch's B7 calls replayed on their
+    own inputs through the staged kernel and the unstaged one in turns (ms
+    a batch, each call timed alone).  Fails if the profile holds no device time,
     or if it counts other launches of a port kernel than the calls the
     hook recorded (a call site missing from CALL_POINTS)."""
     import re
@@ -1458,6 +1646,9 @@ def kernel_profile(dev, cfg, rs, index) -> dict:
             bound = bounds(call_work(k, c["args"], c["kw"]))
             s["bound_ms"] += bound["bound_ms"]
             s["bound_by"].add(bound["bound_by"])
+            if k == "verify_diagonals_swar":
+                s["sector_bound_ms"] = s.get("sector_bound_ms", 0.0) + verify_sector_bytes(
+                    c["args"], c["kw"]["smax"]) / HBM_BYTES_PER_S * 1e3
             if k == "monotone_gather" and c["args"][0].data_ptr() == index.spos.data_ptr():
                 # Summed over the launches (one a chunk on the streaming path).
                 shape = stream_shape(c["args"][1].clamp(0, index.spos.numel() - 1))
@@ -1470,7 +1661,14 @@ def kernel_profile(dev, cfg, rs, index) -> dict:
                     post[key] += bound[key]
                 for key, val in shape.items():
                     post[key] += val
-    del calls
+    b7 = [c for c in calls if c["kernel"] == "verify_diagonals_swar"]
+    if unstaged is not None and b7:
+        ab = out["b7_staging_ab"] = {"staged": [], "unstaged": []}
+        for order in ((None, unstaged), (unstaged, None), (None, unstaged)):
+            for lib in order:
+                ab["staged" if lib is None else "unstaged"].append(sum(
+                    time_ms(lambda: launch_verify(lib, *c["args"], **c["kw"])) for c in b7))
+    del calls, b7
     for s in sites.values():
         s["shapes"] = sorted(s["shapes"])  # (len of the first two arguments)
         s["bound_by"] = sorted(s["bound_by"])
@@ -2002,7 +2200,7 @@ def big_shard_phase(dev) -> None:
     torch.cuda.empty_cache()
 
 
-def match_phases(dev) -> tuple:
+def match_phases(dev, unstaged=None) -> tuple:
     import dataclasses
 
     import torch
@@ -2082,7 +2280,7 @@ def match_phases(dev) -> tuple:
     pipeline.run_matching_indexed(cfg, rs, index)
     mr, flag = flagship_run(dev, cfg, rs, ts, index, DEFAULT_PATH)
     print("flagship: " + json.dumps(flag), flush=True)
-    prof = kernel_profile(dev, cfg, rs, index)
+    prof = kernel_profile(dev, cfg, rs, index, unstaged)
     print("profile (flagship batch, default path): " + json.dumps(prof), flush=True)
     # B7 launches once a verify chunk, as B4 does (its one engine call).
     pk = prof["kernels"]
@@ -2092,7 +2290,11 @@ def match_phases(dev) -> tuple:
     print(f"verify in the default profile: B7 {pk['verify_diagonals_swar']['launches']} "
           f"launches, {pk['verify_diagonals_swar']['ms']:.4f} ms; expand_verify "
           f"{flag['stage_s']['expand_verify'] * 1e3:.2f} ms in the counted run; "
-          f"elementwise kernels {json.dumps(prof['elementwise'])}", flush=True)
+          f"elementwise kernels {json.dumps(prof['elementwise'])}; B7's sites "
+          + json.dumps([{k: v for k, v in site.items() if k != "shapes"}
+                        for site in prof["sites"] if site["kernel"] == "verify_diagonals_swar"])
+          + f"; B7 replayed staged and unstaged, ms a batch in turns: "
+          f"{json.dumps(prof.get('b7_staging_ab'))}", flush=True)
     switches = " ".join(f"{k}={v}" for k, v in SWITCHES.items())
     with switched(**SWITCHES):
         pipeline.run_matching_indexed(cfg, rs, index)
@@ -2511,6 +2713,9 @@ def main() -> int:
     for label, (_, _, log) in zip(B6_VARIANTS, builds[1 + len(B2_VARIANTS):]):
         print(f"B6 variant {label}, -Xptxas -v: {ptxas_of(log, SYMBOLS['expand_owners_sub'])}",
               flush=True)
+    print(f"B7, -Xptxas -v: {ptxas_of(kern.log, SYMBOLS['verify_diagonals_swar'])}; "
+          f"without staging: {ptxas_of(builds[0][2], 'verify_diagonals_direct_kernel')}",
+          flush=True)
     t0 = time.perf_counter()
     print(f"native host library: {native.ensure_built() is not None} "
           f"({time.perf_counter() - t0:.1f}s)", flush=True)
@@ -2521,7 +2726,7 @@ def main() -> int:
 
     kres = kernel_phase(dev, unstaged, variants, sub_variants)
     bench_tool_phases(dev)
-    flag, flag_sw, flag_nd, flag_sb, flag_mb, launches_mesh = match_phases(dev)
+    flag, flag_sw, flag_nd, flag_sb, flag_mb, launches_mesh = match_phases(dev, unstaged)
     driver_phase(dev)
     launches_scale = scale_run_phase(dev)
     tool_run_phases(dev)
@@ -2541,7 +2746,8 @@ def main() -> int:
          "bytes_bound_ms": kres[name]["bytes_bound_ms"],
          "ops_bound_ms": kres[name]["ops_bound_ms"],
          "back_to_back_ms": kres[name]["back_to_back_ms"],
-         "library_back_to_back_ms": kres[name]["library_back_to_back_ms"]}
+         "library_back_to_back_ms": kres[name]["library_back_to_back_ms"],
+         **{k: kres[name][k] for k in ("sector_bound_ms",) if k in kres[name]}}
         for name in KERNELS
     ]}
     print(smi.stdout.strip(), flush=True)  # again, beside the numbers it qualifies

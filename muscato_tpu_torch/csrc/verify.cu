@@ -22,33 +22,93 @@
 // Bound on the card: bytes.  A flagship chunk of 2**20 lanes at 13-word
 // reads reads 8 bytes of (r, d), 56 of target words, 56 of read row and
 // length and 8 of (gstart, gend) a lane and writes 12: ~136 MB with each
-// read row counted once, 0.041 ms at 3.35 TB/s.  Its integer work is ~320 operations a lane (a funnel
-// shift, xor, length mask, three shift-ors and a popcount a word, and an
-// and and a popcount a (window, word)), 0.02 ms on one pipe.  The design
-// is the simple one: a thread a lane, read-only loads through __ldg, the
-// words streamed with the previous target word in a register (so no word
-// count is compiled in), the aligned word one __funnelshift_r (which is
-// the twin's lowpart | hipart, rshift 0 included).  The window masks are
-// applied only to words that hold a mismatch while the running nx is
-// still within the budget: a lane over its budget gets okbits 0 whatever
-// its windows say, and a lane within it has at most budget + 1 words with
-// mismatches, so the window loop costs a few words a lane and not
-// nwin x nwords.  Windows arrive by value (a kernel parameter, read from
-// the constant bank), at most kMaxWindows of them.  Neighbouring threads
-// read target rows 88 bytes apart and read rows from anywhere in
-// rpacked, so each load of a warp touches 32 sectors.  The read rows set
-// the time: on an H100 a flagship chunk takes 0.53 ms with random reads
-// and 0.12 ms with every lane on one read (micro_verify's tuned modes),
-// against the 0.041 ms bound.  A warp-cooperative or TMA-staged load of
-// the rows is later work.
+// read row counted once, 0.041 ms at 3.35 TB/s.  Counted in the 32-byte
+// sectors the memory system moves, a read row (52 bytes anywhere) takes
+// two or three sectors and its length a sector of its own, so the same
+// data is ~1.6x those bytes.  Its integer work is ~320 operations a lane
+// (a funnel shift, xor, length mask, three shift-ors and a popcount a
+// word, and an and and a popcount a (window, word)), 0.02 ms on one pipe.
+//
+// The arithmetic (verify_lane) is one thread a lane: the words streamed
+// with the previous target word in a register (so no word count is
+// compiled in), the aligned word one __funnelshift_r (the twin's lowpart
+// | hipart, rshift 0 included), the window masks applied only to words
+// that hold a mismatch while the running nx is still within the budget (a
+// lane over its budget gets okbits 0 whatever its windows say, and a lane
+// within it has at most budget + 1 words with mismatches, so the window
+// loop costs a few words a lane and not nwin x nwords).  Windows arrive
+// by value (a kernel parameter, read from the constant bank), at most
+// kMaxWindows of them.
+//
+// What bounded the first design (one thread a lane reading its rows from
+// global memory, kept as verify_diagonals_direct_kernel and built under
+// -DMUSCATO_NO_STAGE): neighbouring threads read target rows 88 bytes
+// apart and read rows from anywhere in rpacked, so every warp load
+// touched 32 sectors, and a loop whose trip count is a runtime nwords
+// used each load at once.  On an H100 a flagship chunk took 0.53 ms with
+// random reads and 0.12 ms with every lane on one read, against the
+// 0.041 ms bound: the latency of the read-row loads set the time.
+//
+// The staged design moves every byte a tile needs into shared memory
+// before any is used, with all its loads in flight at once:
+//  - A tile is one CTA of 256 lanes, or of 128, 64 or 32 when the rows of
+//    256 do not fit (pick_tile: reads past 864 bases at B4's row width;
+//    the port's packed path takes reads up to 4096 bases, which fit in
+//    tiles of 32 lanes).  Its target rows t_rows[j0, j0 + tile) are one
+//    contiguous span of tile * tcols words, copied by one bulk async copy
+//    on an mbarrier (bulk.cuh's stage_words: whole 16-byte groups in bulk,
+//    a ragged end and an unaligned t_rows by plain loads).
+//  - Each warp gathers its 32 lanes' read rows as one flat run of 32 *
+//    nwords words: word f goes to thread f % 32 from row f / nwords of the
+//    warp (its index from that lane's register by a shuffle), so a warp
+//    instruction reads about three neighbouring rows' words, a few
+//    sectors, where a thread a row touched 32.  The loads are 4-byte
+//    cp.async (LDGSTS), all issued before one wait, so no register holds
+//    them and their latencies overlap.  Rows land nwords | 1 words apart:
+//    an odd stride, so the threads' word reads that follow hit 32 banks.
+//  - The target rows keep t_rows' stride tcols (the bulk copy cannot pad
+//    them); with an even tcols and each lane's own word offset, a warp's
+//    reads of them share banks a few ways.  chip_smoke.py's verify_phase
+//    counts those wavefronts from the chunk's addresses.
+//  - Dead lanes (r < 0, the chunk's padded tail) run the same code: the
+//    twin gives them an nx over read 0 against their own row, and being
+//    exact on every lane keeps those loads (read 0 is one row, and a warp
+//    of dead lanes gathers it in two sectors a load).
+//  - Shared memory is 16 bytes (the barrier) + 4 * tile * (tcols +
+//    (nwords | 1)) bytes, sized at launch: 36 KB at the flagship's 13-word
+//    reads and 22-word rows (six CTAs an SM), 61 KB at 25-word reads, 132
+//    KB for 32 lanes of 4096-base reads.  The launcher refuses a shape
+//    whose 32-lane tile passes the device's opt-in limit (the wrapper then
+//    raises); there is no fallback.
+// Independent CTAs, several to an SM, overlap one tile's copies with
+// another's arithmetic.
+//
+// What bounds it now (chip_smoke.py's verify_phase on an H100 80GB HBM3
+// at 700 W, the flagship chunk): 0.134-0.141 ms back to back, against
+// 0.474-0.483 ms for the first design.  With every live lane on read 0
+// the two designs take about the same time (0.056-0.058 ms in one run):
+// staging pays only on the scattered read rows.  Those rows and their
+// lengths, ~1M rows of 52 bytes and entries of 4 at random in 218 MB and
+// 16 MB of tables, add the other ~0.08 ms, less than PyTorch's
+// index_select of the same rows and lengths alone (0.090 ms): the card's
+// rate for scattered sectors, not the kernel, sets that part.  The rest
+// (the tiles' contiguous target rows, the lane arrays and the outputs)
+// streams at about 2 TB/s.  A ring of two stages in persistent CTAs (tile
+// i + 1's copies and gathers in flight while tile i computes) was measured
+// slower, 0.153-0.159 ms (PERF.md keeps the numbers): its registers and
+// two stages a CTA left half the warps an SM, and independent CTAs already
+// overlap one another's loads.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "bulk.cuh"
+
 namespace {
 
 constexpr int kMaxWindows = 32;
-constexpr int kThreads = 256;
+constexpr int kTile = 256;  // the most lanes a tile, one a thread (the direct kernel's block)
+constexpr int kBarBytes = 16;  // the mbarrier, padded so the stage is 16-byte aligned
 
 struct Windows {
   int n;
@@ -61,36 +121,31 @@ __device__ __forceinline__ uint32_t nib_mask(int k) {
   return k >= 8 ? 0xFFFFFFFFu : (1u << (4 * k)) - 1u;
 }
 
-__global__ void __launch_bounds__(kThreads)
-    verify_diagonals_kernel(const int32_t* __restrict__ r, const int32_t* __restrict__ d,
-                            long long n, const uint32_t* __restrict__ t_rows, int tcols,
-                            const uint32_t* __restrict__ rpacked, int nreads, int nwords,
-                            const int32_t* __restrict__ lengths,
-                            const int32_t* __restrict__ gstart,
-                            const int32_t* __restrict__ gend,
-                            const int32_t* __restrict__ budget, int nbudget,
-                            const Windows win, int width, int smax,
-                            int32_t* __restrict__ nx_out, int32_t* __restrict__ s_out,
-                            int32_t* __restrict__ ok_out) {
-  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= n) return;
-  const int rj = __ldg(r + j), dj = __ldg(d + j);
-  const int rc = min(max(rj, 0), nreads - 1);
-  const int dc = min(max(dj, 0), smax - 1);
-  const int gs = __ldg(gstart + j), ge = __ldg(gend + j);
-  const int s = dc - gs;
-  const int rlen = __ldg(lengths + rc);
-  const int bud = __ldg(budget + min(max(rlen, 0), nbudget - 1));
+template <bool kGlobal>
+__device__ __forceinline__ uint32_t load_word(const uint32_t* p) {
+  if constexpr (kGlobal) return __ldg(p);
+  else return *p;
+}
 
-  const uint32_t* t = t_rows + j * tcols + ((dc >> 3) & 7);
-  const uint32_t* rw = rpacked + (long long)rc * nwords;
+// One lane's outputs from its target words t[0, nwords] (already offset
+// by (dc >> 3) & 7) and read words rw[0, nwords), in global memory
+// (kGlobal) or shared memory.
+template <bool kGlobal>
+__device__ __forceinline__ void verify_lane(long long j, int rj, int dj, int dc, int gs,
+                                            int ge, int rlen, int bud,
+                                            const uint32_t* t, const uint32_t* rw,
+                                            int nwords, const Windows& win, int width,
+                                            int32_t* __restrict__ nx_out,
+                                            int32_t* __restrict__ s_out,
+                                            int32_t* __restrict__ ok_out) {
+  const int s = dc - gs;
   const int rshift = (dc & 7) * 4;
-  uint32_t prev = __ldg(t);
+  uint32_t prev = load_word<kGlobal>(t);
   int nx = 0;
   uint32_t bad = 0;  // windows holding a mismatch
   for (int w = 0; w < nwords; ++w) {
-    const uint32_t next = __ldg(t + w + 1);
-    uint32_t x = __funnelshift_r(prev, next, rshift) ^ __ldg(rw + w);
+    const uint32_t next = load_word<kGlobal>(t + w + 1);
+    uint32_t x = __funnelshift_r(prev, next, rshift) ^ load_word<kGlobal>(rw + w);
     prev = next;
     x &= nib_mask(rlen - 8 * w);
     const uint32_t nz = (x | (x >> 1) | (x >> 2) | (x >> 3)) & 0x11111111u;
@@ -119,10 +174,167 @@ __global__ void __launch_bounds__(kThreads)
   ok_out[j] = (int32_t)ok;
 }
 
+// The first design: a thread a lane, every word read from global memory.
+__global__ void __launch_bounds__(kTile)
+    verify_diagonals_direct_kernel(const int32_t* __restrict__ r,
+                                   const int32_t* __restrict__ d, long long n,
+                                   const uint32_t* __restrict__ t_rows, int tcols,
+                                   const uint32_t* __restrict__ rpacked, int nreads,
+                                   int nwords, const int32_t* __restrict__ lengths,
+                                   const int32_t* __restrict__ gstart,
+                                   const int32_t* __restrict__ gend,
+                                   const int32_t* __restrict__ budget, int nbudget,
+                                   const Windows win, int width, int smax,
+                                   int32_t* __restrict__ nx_out, int32_t* __restrict__ s_out,
+                                   int32_t* __restrict__ ok_out) {
+  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= n) return;
+  const int rj = __ldg(r + j), dj = __ldg(d + j);
+  const int rc = min(max(rj, 0), nreads - 1);
+  const int dc = min(max(dj, 0), smax - 1);
+  const int rlen = __ldg(lengths + rc);
+  const int bud = __ldg(budget + min(max(rlen, 0), nbudget - 1));
+  verify_lane<true>(j, rj, dj, dc, __ldg(gstart + j), __ldg(gend + j), rlen, bud,
+                    t_rows + j * tcols + ((dc >> 3) & 7),
+                    rpacked + (long long)rc * nwords, nwords, win, width, nx_out, s_out,
+                    ok_out);
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t* dst, const uint32_t* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(muscato::smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// The warp's read rows as one flat run into s_r (32 rows, rstride words
+// apart), committed as one cp.async group: word f = row * nwords + word
+// of the run comes from row `row` of the warp's lanes, whose index rc the
+// shuffle takes from that lane.  Every thread of the warp takes nwords
+// turns (the shuffle needs them all); rows at or past `live` load nothing.
+__device__ __forceinline__ void gather_rows(uint32_t* s_r, const uint32_t* rpacked, int rc,
+                                            int nwords, int rstride, int live, int lane) {
+  const int step_rows = 32 / nwords, step_words = 32 % nwords;
+  int row = lane / nwords, word = lane % nwords;
+  for (int f = lane; f < 32 * nwords; f += 32) {
+    const int src = __shfl_sync(0xffffffffu, rc, row);
+    if (row < live)
+      cp_async4(s_r + row * rstride + word, rpacked + (long long)src * nwords + word);
+    row += step_rows;
+    word += step_words;
+    if (word >= nwords) {
+      word -= nwords;
+      ++row;
+    }
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// The lanes of a warp inside the chunk, of the 32 from lane j0w on.
+__device__ __forceinline__ int live_lanes(long long j0w, long long n) {
+  return (int)min(32LL, max(0LL, n - j0w));
+}
+
+// The staged design (see the note above): a CTA a tile of blockDim.x
+// lanes, a multiple of 32.
+__global__ void __launch_bounds__(kTile)
+    verify_diagonals_kernel(const int32_t* __restrict__ r, const int32_t* __restrict__ d,
+                            long long n, const uint32_t* __restrict__ t_rows, int tcols,
+                            const uint32_t* __restrict__ rpacked, int nreads, int nwords,
+                            const int32_t* __restrict__ lengths,
+                            const int32_t* __restrict__ gstart,
+                            const int32_t* __restrict__ gend,
+                            const int32_t* __restrict__ budget, int nbudget,
+                            const Windows win, int width, int smax,
+                            int32_t* __restrict__ nx_out, int32_t* __restrict__ s_out,
+                            int32_t* __restrict__ ok_out) {
+  extern __shared__ __align__(16) unsigned char s_raw[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(s_raw);
+  uint32_t* s_t = reinterpret_cast<uint32_t*>(s_raw + kBarBytes);  // tile x tcols
+  const int tile = blockDim.x, rstride = nwords | 1;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  uint32_t* s_r = s_t + tile * tcols + warp * 32 * rstride;  // this warp's 32 read rows
+
+  // The tile's target rows, in one bulk copy: issued first, as it needs
+  // no lane's data.
+  const long long j0 = (long long)blockIdx.x * tile;
+  bool bulk;
+  const long long base = muscato::stage_words(t_rows, n * tcols, j0 * tcols,
+                                              min(j0 + tile, n) * tcols, s_t, bar, &bulk);
+  const long long j = j0 + threadIdx.x;
+  const bool in = j < n;
+  const int rj = in ? __ldg(r + j) : -1;
+  const int dj = in ? __ldg(d + j) : 0;
+  const int gs = in ? __ldg(gstart + j) : 0;
+  const int ge = in ? __ldg(gend + j) : 0;
+  const int rc = min(max(rj, 0), nreads - 1);
+  const int dc = min(max(dj, 0), smax - 1);
+  gather_rows(s_r, rpacked, rc, nwords, rstride, live_lanes(j0 + warp * 32, n), lane);
+  const int rlen = __ldg(lengths + rc);
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+  const int bud = __ldg(budget + min(max(rlen, 0), nbudget - 1));
+  __syncthreads();  // the barrier's init, the plain-loaded words, the read rows
+  muscato::stage_wait(bar, bulk);
+  if (!in) return;
+  verify_lane<false>(j, rj, dj, dc, gs, ge, rlen, bud,
+                     s_t + (j * tcols - base) + ((dc >> 3) & 7), s_r + lane * rstride,
+                     nwords, win, width, nx_out, s_out, ok_out);
+}
+
+
+
+// Shared memory a tile of `lanes` lanes takes: its barrier, its target rows
+// at t_rows' stride and its read rows at an odd stride.
+size_t tile_smem(int lanes, int nwords, int tcols) {
+  return kBarBytes + 4 * (size_t)lanes * ((size_t)tcols + (nwords | 1));
+}
+
+// The tile the launcher takes for reads of nwords words and rows of tcols
+// words on the current device: the widest of 256, 128, 64 and 32 lanes
+// whose shared memory fits the device's opt-in limit a block (*lanes 0
+// when none does; *smem is then the 32-lane tile's bytes).  A narrower
+// tile only lets long reads (past ~860 bases with B4's rows) fit; it keeps
+// the design and, on an H100, about the same time a lane.  The direct
+// kernel (-DMUSCATO_NO_STAGE) takes any shape in blocks of kTile lanes and
+// no shared memory.
+cudaError_t pick_tile(int nwords, int tcols, int* lanes, size_t* smem) {
+  if constexpr (!muscato::kStage) {
+    *lanes = kTile;
+    *smem = 0;
+    return cudaSuccess;
+  }
+  int dev, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  *lanes = 0;
+  for (int l = kTile; l >= 32; l /= 2) {
+    *smem = tile_smem(l, nwords, tcols);
+    if (*smem <= (size_t)optin) {
+      *lanes = l;
+      break;
+    }
+  }
+  return e;
+}
+
 }  // namespace
 
+// The tile that muscato_verify_diagonals takes for reads of nwords words
+// and t_rows of tcols words on the current device: its lanes (0: the shape
+// is refused) and its shared memory in bytes.
+extern "C" int muscato_verify_tile(int nwords, int tcols, int* lanes, long long* smem) {
+  size_t bytes = 0;
+  const cudaError_t e = pick_tile(nwords, tcols, lanes, &bytes);
+  *smem = (long long)bytes;
+  if (e != cudaSuccess) cudaGetLastError();
+  return (int)e;
+}
+
 // q1s: host array of nwin window offsets.  t_rows holds tcols >= nwords + 8
-// words a lane.
+// words a lane.  Refused (cudaErrorInvalidValue, nothing launched): more
+// than kMaxWindows windows, narrower rows, empty tables, and a shape whose
+// 32-lane tile exceeds the device's opt-in shared memory a block
+// (muscato_verify_tile).
 extern "C" int muscato_verify_diagonals(
     const void* r, const void* d, long long n, const void* t_rows, int tcols,
     const void* rpacked, int nreads, int nwords, const void* lengths,
@@ -136,8 +348,18 @@ extern "C" int muscato_verify_diagonals(
   Windows win;
   win.n = nwin;
   for (int k = 0; k < nwin; ++k) win.q1[k] = ((const int*)q1s)[k];
-  const long long blocks = (n + kThreads - 1) / kThreads;
-  verify_diagonals_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+  int lanes;
+  size_t smem;
+  cudaError_t e = pick_tile(nwords, tcols, &lanes, &smem);
+  if (e == cudaSuccess && lanes == 0) return (int)cudaErrorInvalidValue;
+  auto kernel = muscato::kStage ? verify_diagonals_kernel : verify_diagonals_direct_kernel;
+  if (e == cudaSuccess && smem > 48 * 1024)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) {
+    cudaGetLastError();  // clear it, so a later launch does not report it
+    return (int)e;
+  }
+  kernel<<<(unsigned)((n + lanes - 1) / lanes), lanes, smem, (cudaStream_t)stream>>>(
       (const int32_t*)r, (const int32_t*)d, n, (const uint32_t*)t_rows, tcols,
       (const uint32_t*)rpacked, nreads, nwords, (const int32_t*)lengths,
       (const int32_t*)gstart, (const int32_t*)gend, (const int32_t*)budget, nbudget, win,

@@ -40,7 +40,8 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _I = ctypes.c_int
 _U = ctypes.c_uint
-# name -> argtypes of each extern "C" launcher (all return a cudaError_t).
+# name -> argtypes of each extern "C" launcher or query (all return a
+# cudaError_t).
 _SIGNATURES = {
     "muscato_sorted_join": (_P, _I64, _P, _I64, _P, _P, _P),
     "muscato_expand_owners": (_P, _P, _P, _I64, _I64, _P, _P, _P),
@@ -54,6 +55,7 @@ _SIGNATURES = {
         _P, _P, _I64, _P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I,
         _P, _P, _P, _P,
     ),
+    "muscato_verify_tile": (_I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I64)),
 }
 
 

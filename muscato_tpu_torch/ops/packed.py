@@ -281,6 +281,20 @@ def verify_diagonals_swar_torch(r, d, t_rows, rpacked, lengths, gstart, gend, bu
     return nx, s_local.to(torch.int32), okbits
 
 
+def swar_tile(nwords: int, tcols: int, lib=None) -> tuple[int, int]:
+    """The tile the B7 kernel of ``lib`` (default: the kernel library)
+    takes on the current CUDA device for reads of ``nwords`` words and
+    t_rows of ``tcols`` words: (lanes, shared memory bytes), lanes 0 when
+    the launcher refuses the shape.  Asked of the library, which alone
+    knows the tile's layout."""
+    lanes, smem = ctypes.c_int(), ctypes.c_longlong()
+    rc = (lib or _lib.kernels().lib).muscato_verify_tile(nwords, tcols, ctypes.byref(lanes),
+                                                         ctypes.byref(smem))
+    if rc != 0:
+        raise RuntimeError(f"swar_tile: CUDA error {rc}")
+    return lanes.value, smem.value
+
+
 def verify_diagonals_swar(r, d, t_rows, rpacked, lengths, gstart, gend, budget, q1s, *,
                           width: int, smax: int):
     """The SWAR body of the dedup verify over (C,) lanes: launches the CUDA
@@ -300,7 +314,9 @@ def verify_diagonals_swar(r, d, t_rows, rpacked, lengths, gstart, gend, budget, 
     nx, s, okbits = (torch.empty(n, dtype=torch.int32, device=r.device) for _ in range(3))
     if n:
         # The launcher refuses more than 32 windows, t_rows narrower than
-        # nwords + 8 words and empty tables (the launch then raises).
+        # nwords + 8 words, empty tables, and a shape whose tile of 32
+        # lanes exceeds the device's shared memory a block (swar_tile);
+        # the launch then raises.
         _lib.launch(
             "verify_diagonals", r, r.data_ptr(), d.data_ptr(), n, t_rows.data_ptr(),
             t_rows.shape[1], rpacked.data_ptr(), *rpacked.shape, lengths.data_ptr(),

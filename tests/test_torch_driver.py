@@ -23,6 +23,7 @@ from muscato_tpu_torch.io import targets
 from muscato_tpu_torch.engine import driver as tdriver
 from muscato_tpu_torch.engine import pipeline as tpipeline
 from muscato_tpu_torch.engine import report as treport
+from native_codec import same_codec  # noqa: F401 (a fixture)
 
 
 def _outputs(results_path):
@@ -192,6 +193,7 @@ def _files_of(d):
     return {p.name: p.read_bytes() for p in sorted(d.iterdir()) if p.is_file()}
 
 
+@pytest.mark.usefixtures("same_codec")
 @pytest.mark.parametrize("rev", [False, True])
 def test_cli_prep_targets_matches_jax(tmp_path, rev):
     """muscato_torch_prep_targets writes muscato_prep_targets' bytes."""
@@ -209,6 +211,7 @@ def test_cli_prep_targets_matches_jax(tmp_path, rev):
     assert len(outs[0]) == 3 and outs[1] == outs[0]
 
 
+@pytest.mark.usefixtures("same_codec")
 def test_cli_gendat_matches_jax(tmp_path):
     """muscato_torch_gendat writes muscato_gendat's bytes."""
     from muscato_tpu import cli as jcli

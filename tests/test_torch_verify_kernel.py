@@ -10,8 +10,10 @@ same seeded inputs.  Exact: okbits on every lane, nx, gene and start on
 active lanes (the JAX function leaves them unspecified elsewhere).  A
 numpy model of the kernel's per-lane loop (words streamed through a
 funnel shift, windows tested only while the lane is within its budget)
-is held against the twin on every lane, and the card test holds the
-kernel itself against the twin (marked ``gpu``: it skips without a card).
+is held against the twin on every lane (test_torch_verify_cuda.py holds
+the kernel itself against the twin on the card).  chip_smoke.py's
+sector-aware bound and bank-wavefront count for the kernel are held
+against brute-force counts.
 """
 
 import numpy as np
@@ -21,61 +23,8 @@ import torch
 import jax.numpy as jnp
 
 from muscato_tpu.ops import packed as jpacked
-from muscato_tpu.ops import verify as jverify
 from muscato_tpu_torch.ops import packed as tpacked
-
-# (width, window offsets, read words, read lengths, X rate)
-CASES = {
-    "w8-1win-4words": (8, (0,), 4, (20, 32), 0.01),
-    "w20-4win-13words": (20, (10, 30, 50, 70), 13, (20, 104), 0.02),
-    "w40-4win-19words": (40, (0, 40, 80, 110), 19, (20, 150), 0.05),
-    "w8-31win-10words": (8, tuple(range(0, 62, 2)), 10, (40, 80), 0.03),
-    "w20-past-width-13words": (20, (0, 20, 100, 130), 13, (90, 104), 0.01),
-    "w40-1win-18words": (40, (0,), 18, (20, 144), 0.04),
-}
-
-
-def _t(a) -> torch.Tensor:
-    a = np.array(a)  # a writable copy (jax arrays are read-only)
-    return torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a)
-
-
-def _inputs(seed, nwords, lengths, x_rate, n=768, nreads=200, s=6000):
-    """Lanes sorted by diagonal as the engine feeds a verify chunk:
-    negative diagonals in front, a dead tail (r = -1, d = 0, the chunk's
-    padding), lanes at gene starts (the pos-0 quirk) and at the last
-    stream position, and a quarter of the live lanes planted (the target
-    under the diagonal with 0-3 substitutions), over irregular genes with
-    X codes in reads and targets."""
-    rng = np.random.default_rng(seed)
-    max_rl = 8 * nwords
-    cuts = np.sort(rng.choice(np.arange(1, s), 12, replace=False))
-    gene_start = np.concatenate([[0], cuts, [s]]).astype(np.int32)
-    tcat = rng.integers(0, 4, s).astype(np.uint8)
-    tcat[rng.random(s) < x_rate] = 4
-    codes = rng.integers(0, 4, (nreads, max_rl)).astype(np.uint8)
-    codes[rng.random(codes.shape) < x_rate] = 4
-    lens = rng.integers(lengths[0], lengths[1] + 1, nreads).astype(np.int32)
-    ndead = n // 12
-    d = rng.integers(0, s, n - ndead)
-    d[:40] = rng.choice(gene_start[:-1], 40)
-    d[40:44] = s - 1
-    d = np.sort(d).astype(np.int32)
-    d[:5] = [-9, -4, -4, -1, 0]
-    r = rng.integers(0, nreads, n - ndead).astype(np.int32)
-    live = np.flatnonzero(d >= 0)
-    planted = rng.choice(live, nreads // 2, replace=False)
-    r[planted] = rng.permutation(nreads)[: len(planted)]
-    for i in planted:
-        seg = tcat[d[i]: d[i] + max_rl].copy()
-        at = rng.integers(0, len(seg), rng.integers(0, 4))
-        seg[at] = (seg[at] + 1) % 5
-        codes[r[i], : len(seg)] = seg
-    codes[np.arange(max_rl)[None, :] >= lens[:, None]] = 0
-    r = np.concatenate([r, np.full(ndead, -1, np.int32)])
-    d = np.concatenate([d, np.zeros(ndead, np.int32)])
-    budget = jverify.mismatch_budget_table(0.9, max_rl)
-    return r, d, codes, lens, tcat, gene_start, budget, s
+from verify_cases import CASES, as_tensor as _t, lane_inputs as _inputs, swar_args
 
 
 @pytest.mark.parametrize("mgather", [True, False], ids=["pallas-interpret", "xla"])
@@ -184,28 +133,57 @@ def test_swar_wrapper_on_cpu_is_the_twin():
     assert tpacked.verify_diagonals_swar.launches == before
 
 
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    return torch.device("cuda")
+def _chip_smoke():
+    """chip_smoke.py at the repository root, imported by path."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
-@pytest.mark.gpu
-def test_cuda_verify_kernel_matches_twin(cuda_device):
-    """B7 on the card, exact against its twin on every lane, for every
-    case above."""
-    for seed, (width, q1s, nwords, lengths, x_rate) in enumerate(CASES.values()):
-        r, d, codes, lens, tcat, gene_start, budget, s = _inputs(seed, nwords, lengths, x_rate)
-        rp = tpacked.pack_rows(torch.from_numpy(codes))
-        trows = tpacked.build_trows(_t(tpacked.pack_stream(tcat)), nwords, s)
-        gb, steps = tpacked.build_gene_block(gene_start, s)
-        _, gstart, gend, t_rows = tpacked.diagonal_fetch(
-            _t(r), _t(d), _t(gene_start), _t(gb), steps, trows, s)
-        args = (_t(r), _t(d), t_rows, rp, _t(lens), gstart, gend, _t(budget), q1s)
-        before = tpacked.verify_diagonals_swar.launches
-        got = tpacked.verify_diagonals_swar(*(x.to(cuda_device) if torch.is_tensor(x) else x
-                                              for x in args), width=width, smax=s)
-        assert tpacked.verify_diagonals_swar.launches == before + 1
-        for a, b in zip(got, tpacked.verify_diagonals_swar_torch(*args, width=width, smax=s)):
-            assert torch.equal(a.cpu(), b)
+def test_sector_bound_counts_each_touched_sector_once():
+    """chip_smoke's sector-aware bound of B7 (verify_sector_bytes) equals
+    a count, sector by sector, of the 32-byte sectors that the lanes'
+    arrays, their target words, their read rows, lengths and budget
+    entries touch."""
+    args, s = swar_args(5, 13, (20, 104), 0.02, (10, 30), n=700)
+    r, d, t_rows, rp, lens, _, _, budget, _ = (x.numpy() if torch.is_tensor(x) else x
+                                               for x in args)
+    (c, tcols), (nreads, nw) = t_rows.shape, rp.shape
+    touched = set()
+
+    def touch(name, word0, nwords):
+        touched.update((name, b >> 5) for b in range(4 * word0, 4 * (word0 + nwords)))
+
+    for j in range(c):
+        for name in ("r", "d", "gstart", "gend", "nx", "s", "okbits"):
+            touch(name, j, 1)
+        rc, dc = min(max(int(r[j]), 0), nreads - 1), min(max(int(d[j]), 0), s - 1)
+        touch("t_rows", j * tcols + ((dc >> 3) & 7), nw + 1)
+        touch("rpacked", rc * nw, nw)
+        touch("lengths", rc, 1)
+        touch("budget", min(max(int(lens[rc]), 0), len(budget) - 1), 1)
+    assert _chip_smoke().verify_sector_bytes(args, s) == 32 * len(touched)
+
+
+def test_bank_wavefronts_count_the_busiest_bank():
+    """chip_smoke's count of the staged kernel's target-row bank
+    wavefronts (verify_bank_wavefronts) equals, warp load by warp load,
+    the most distinct shared-memory words that fall in one bank, with the
+    rows staged in 128-lane tiles behind the 16-byte barrier (the count
+    holds for any tile of whole warps: the base moves a warp's words
+    together)."""
+    args, s = swar_args(6, 13, (20, 104), 0.02, (10, 30), n=1024)
+    d, t_rows, nw = args[1].numpy(), args[2], args[3].shape[1]
+    tcols, loads = t_rows.shape[1], []
+    for w0 in range(0, t_rows.shape[0], 32):
+        for w in range(nw + 1):
+            words = {4 + (j % 128) * tcols + ((min(max(int(d[j]), 0), s - 1) >> 3) & 7) + w
+                     for j in range(w0, w0 + 32)}
+            loads.append(max(sum(1 for x in words if x % 32 == b) for b in range(32)))
+    assert _chip_smoke().verify_bank_wavefronts(args, s) == pytest.approx(np.mean(loads))
