@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout.  It builds the seven CUDA kernels from
+Run from the root of a checkout.  It builds the nine CUDA kernels from
 muscato_tpu_torch/csrc with nvcc (one process per source, in parallel),
 a variant of them built with -DMUSCATO_NO_STAGE (B1 and B4 never stage a
 span, B5 stages by a copy loop, B7 reads every word from global memory)
@@ -103,13 +103,21 @@ warp, register cut), all at once, then:
      reads of step 3 through probe="search" in direct mode and in binary
      mode (forced by lowering engine.index.MAX_DIRECT_BITS while the aux
      is built), engine_device_check's last two paths, each on cuda equal
-     to the sorted join's cpu run, with each aux's build seconds and
-     device bytes, and prints ENGINE_RESULTS (path -> true); then times
+     to the sorted join's cpu run, with every launch counter set to 0
+     before the two runs and read after (B8 and B9, csrc/probe.cu, must
+     launch), each aux's build seconds on the card, peak memory (built
+     once more alone) and device bytes, and prints ENGINE_RESULTS (path
+     -> true); then B8 and B9 against their twins at 1,048,576 sorted
+     queries of the flagship's reads against the full index's direct and
+     binary aux, timed with their bounds and torch.searchsorted's time
+     over the same unique keys, and exact on the branch cases of
+     tests/probe_cases.py; then times
      the probe stage on the direct and the binary search probe and the
      sorted join
      at 16,384, 65,536, 262,144 and 1,048,576 reads a batch (the first 4
      batches of each); then runs the flagship in batches of 262,144 reads
-     (16 batches; the engine must auto-select the direct probe) and of
+     (16 batches; the engine must auto-select the direct probe, B8 once a
+     batch) and of
      1,048,576 reads (4 batches, sorted join) with the next batch's probe
      queued ahead of the wait on the current batch's total and under
      MUSCATO_PREFETCH_PROBE=0 (the upload goes ahead in both), in turns,
@@ -139,7 +147,9 @@ warp, register cut), all at once, then:
      launches are printed; then
      runs the muscato_torch entry point on gendat files prepared by
      prep_targets (same index size, fewer reads) and checks its four
-     output files, then runs it with an IndexFile that it saves, with the
+     output files and prints its probe line (the direct probe, the aux's
+     bytes and its build's seconds on the card), then runs it with an
+     IndexFile that it saves, with the
      same IndexFile that it loads, and with ResumeDir set to the saving
      run's kept TempDir: each run's four files must equal the first's;
   5. runs the reference-scale job (scale_run_phase): the twin of
@@ -218,6 +228,12 @@ KERNELS = {
     "verify_diagonals_swar": ("muscato_tpu_torch/csrc/verify.cu",
                               "muscato_tpu/ops/packed.py:269 verify_diagonals_packed (an XLA "
                               "body, no pl.pallas_call)"),
+    "direct_probe": ("muscato_tpu_torch/csrc/probe.cu",
+                     "muscato_tpu/ops/fused.py:595 _probe_windows_direct_impl, its body _chunk "
+                     ":626-651 (an XLA body, no pl.pallas_call)"),
+    "binary_probe": ("muscato_tpu_torch/csrc/probe.cu",
+                     "muscato_tpu/ops/search.py:70 searchsorted2_bucketed and the hit test of "
+                     "fused.py:674 _probe_windows_search_impl (XLA bodies, no pl.pallas_call)"),
 }
 # The kernels of each driven path: the default one, and the one the two
 # switches select (sort-merge probe, so no B1; B6 instead of B2).
@@ -250,8 +266,8 @@ SHARDS = 3
 # the next batch's probe queued ahead (MUSCATO_PREFETCH_PROBE) and without
 # (the next batch's upload goes ahead in both).  The probe stage is timed on each probe at the batch sizes
 # of CROSSOVER_BATCHES, over the first CROSSOVER_DEPTH batches of each.
-SEARCH_PATH = ("window_queries", "expand_owners", "monotone_gather", "monotone_gather_rows",
-               "verify_diagonals_swar")
+SEARCH_PATH = ("window_queries", "direct_probe", "expand_owners", "monotone_gather",
+               "monotone_gather_rows", "verify_diagonals_swar")
 SMALL_BATCH, MULTI_BATCH = 1 << 18, 1 << 20
 CROSSOVER_BATCHES = (1 << 14, 1 << 16, 1 << 18, 1 << 20)
 CROSSOVER_DEPTH = 4
@@ -273,13 +289,15 @@ BIG_SHARD_BASES = 1_500_000_000
 CALL_POINTS = (("fused", "window_queries"), ("fused", "_join.sorted_join"),
                ("fused", "expand_owners"), ("fused", "monotone_gather"),
                ("packed", "monotone_gather"), ("packed", "monotone_gather_rows"),
-               ("packed", "verify_diagonals_swar"))
+               ("packed", "verify_diagonals_swar"), ("fused", "sops.direct_probe"),
+               ("fused", "sops.binary_probe"))
 SYMBOLS = {
     "sorted_join": "sorted_join_kernel", "expand_owners": "expand_owners_kernel",
     "monotone_gather": "gather_kernel", "monotone_gather_rows": "gather_rows_kernel",
     "window_queries": "window_queries_kernel",
     "expand_owners_sub": "expand_owners_sub_kernel",
     "verify_diagonals_swar": "verify_diagonals_kernel",
+    "direct_probe": "direct_probe_kernel", "binary_probe": "binary_probe_kernel",
 }
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM peak memory rate (NVIDIA data sheet)
 # 32-bit integer results a clock on one SM, for each of its two integer
@@ -448,10 +466,39 @@ def call_work(kernel: str, args, kw) -> tuple:
                         nwords + 1 target words, gstart and gend, the
                         three outputs, and each read row and length the
                         lanes touch, once.
+      direct_probe      a query: its bucket (two shifts), the validity
+                        select; a record of its bucket: a compare a key
+                        word and an add.  Its bytes: the queries (key1,
+                        key2 where the width uses it, the validity byte),
+                        the bucket bounds and the records of each distinct
+                        bucket the queries touch, once, the two outputs;
+      binary_probe      a round of a query's search (replayed here on its
+                        data, each ending once lo == hi): an add, a shift,
+                        two compares and two selects; the hit test's four
+                        compares.  Its bytes: the queries, the distinct
+                        bucket bounds, the distinct key pairs the searches
+                        and hit tests read, a count and start a distinct
+                        hit, the two outputs.
     """
     import torch
 
+    from muscato_tpu_torch.ops import search as sops
     from muscato_tpu_torch.ops import windows as winops
+
+    if kernel in ("direct_probe", "binary_probe"):
+        keyf, key2f, validf, *tables = args
+        q, k2 = keyf.numel(), int(kw["use_k2"])
+        sbucket = tables[-1]
+        b = sops.bucket_of(keyf, kw["upshift"], kw["bucket_bits"])
+        ub = torch.unique(b)
+        fixed = q * (5 + 4 * k2 + 8) + 4 * torch.unique(torch.cat([ub, ub + 1])).numel()
+        if kernel == "direct_probe":
+            w = kw["bucket_width"]
+            span = lambda x: (sbucket[x + 1] - sbucket[x]).clamp(0, w).long()  # noqa: E731
+            return fixed + 16 * int(span(ub).sum()), 0, 3 * q + (2 + k2) * int(span(b).sum())
+        read, hits, rounds = binary_replay(args, kw)
+        return (fixed + 8 * torch.unique(read).numel() + 8 * torch.unique(hits).numel(), 0,
+                6 * rounds + 4 * q)
 
     if kernel == "verify_diagonals_swar":
         r, _, _, rpacked, _, _, _, budget, q1s = args
@@ -479,6 +526,87 @@ def call_work(kernel: str, args, kw) -> tuple:
     touched = torch.unique(idx.clamp(0, table.shape[0] - 1)).numel()
     row = 4 * (table.shape[1] if table.dim() == 2 else 1)  # bytes an entry
     return row * (touched + m) + 4 * m, 0, 2 * m
+
+
+def binary_replay(args, kw) -> tuple:
+    """B9's searches replayed on one call's data: (the key-pair indices
+    they read, the rounds and the hit test included; the indices of the
+    hits, whose count and start are read; the rounds run, each ending once
+    lo == hi)."""
+    import torch
+
+    from muscato_tpu_torch.ops import search as sops
+
+    keyf, key2f, validf, ukeys, ukeys2, *_, sbucket = args
+    n = ukeys.numel()
+    key = packed_keys(keyf, key2f, kw["use_k2"])
+    ent = packed_keys(ukeys, ukeys2, kw["use_k2"])
+    b = sops.bucket_of(keyf, kw["upshift"], kw["bucket_bits"])
+    lo, hi = sbucket[b].long(), sbucket[b + 1].long()
+    read, rounds = [], 0
+    for _ in range(kw["probe_steps"]):
+        act = lo < hi
+        mid = (lo + hi) >> 1
+        read.append(mid[act])
+        rounds += int(act.sum())
+        right = act & (ent[mid.clamp(max=n - 1)] < key)
+        lo = torch.where(right, mid + 1, lo)
+        hi = torch.where(act & ~right, mid, hi)
+    at = lo.clamp(max=n - 1)
+    hit = validf & (lo < n) & (ent[at] == key)
+    return torch.cat(read + [at]), at[hit], rounds
+
+
+def sector_count(first, nbytes) -> int:
+    """Distinct 32-byte sectors of the byte spans [first, first + nbytes)
+    (int64 tensors; spans of no bytes touch none)."""
+    import torch
+
+    if torch.is_tensor(nbytes):
+        keep = nbytes > 0
+        first, nbytes = first[keep], nbytes[keep]
+    if first.numel() == 0:
+        return 0
+    a, b = first >> 5, (first + nbytes - 1) >> 5
+    at = a[:, None] + torch.arange(int((b - a).max()) + 1, device=a.device)
+    return torch.unique(at[at <= b[:, None]]).numel()
+
+
+def probe_sector_bytes(kernel: str, args, kw) -> int:
+    """B8's or B9's bytes counted in the 32-byte sectors the memory system
+    moves: the query arrays and the two outputs whole; the distinct
+    sectors of the bucket bounds the queries read; B8's the records of
+    their buckets (at most bucket_width each), B9's the key pairs its
+    searches and hit tests read (binary_replay) and the count and start
+    of each hit."""
+    import torch
+
+    from muscato_tpu_torch.ops import search as sops
+
+    keyf, key2f, validf, *tables = args
+    q, sbucket = keyf.numel(), tables[-1]
+    whole = lambda nbytes: -(-nbytes // 32)  # noqa: E731
+    n = whole(4 * q) * (3 + int(kw["use_k2"])) + whole(q)
+    b = sops.bucket_of(keyf, kw["upshift"], kw["bucket_bits"])
+    n += sector_count(b * 4, 8)
+    if kernel == "direct_probe":
+        lo = sbucket[b].long()
+        nb = (sbucket[b + 1].long() - lo).clamp(0, kw["bucket_width"])
+        n += sector_count(lo * 16, nb * 16)
+    else:
+        read, hits, _ = binary_replay(args, kw)
+        n += sector_count(read * 8, 8) + 2 * sector_count(hits.long() * 4, 4)
+    return 32 * n
+
+
+def packed_keys(k1, k2, use_k2):
+    """(key1, key2) int32 bit patterns as one int64 whose signed order is
+    the pairs' unsigned order (key2 left out where the width has none)."""
+    from muscato_tpu_torch.ops.join import flip
+    from muscato_tpu_torch.ops.packed import u64
+
+    key = flip(k1).long() << 32
+    return key | u64(k2) if use_k2 else key
 
 
 def bounds(work) -> dict:
@@ -869,18 +997,12 @@ def verify_sector_bytes(args, smax: int) -> int:
     c, tcols = t_rows.shape
     nreads, nw = rpacked.shape
 
-    def sectors(first, nbytes):
-        """Distinct sectors of the byte spans [first, first + nbytes)."""
-        a, b = first >> 5, (first + nbytes - 1) >> 5
-        at = a[:, None] + torch.arange(int((b - a).max()) + 1, device=a.device)
-        return torch.unique(at[at <= b[:, None]]).numel()
-
     off = (d.clamp(0, smax - 1).long() >> 3) & 7
     rows = torch.unique(r.clamp(0, nreads - 1)).long()
     rlen = lengths[rows].clamp(0, budget.numel() - 1).long()
     n = (7 * -(-4 * c // 32)  # r, d, gstart, gend, nx, s, okbits
-         + sectors((torch.arange(c, device=d.device) * tcols + off) * 4, 4 * (nw + 1))
-         + sectors(rows * (4 * nw), 4 * nw)
+         + sector_count((torch.arange(c, device=d.device) * tcols + off) * 4, 4 * (nw + 1))
+         + sector_count(rows * (4 * nw), 4 * nw)
          + torch.unique(rows >> 3).numel() + torch.unique(rlen >> 3).numel())
     return 32 * n
 
@@ -1558,7 +1680,9 @@ def recorded_calls():
     try:
         yield calls
     finally:
-        for mod, attr, orig in saved:
+        # Last first: two call points that share a module reference (B8
+        # and B9 through fused.sops) stand in for it in turn.
+        for mod, attr, orig in reversed(saved):
             setattr(mod, attr, orig)
 
 
@@ -1729,31 +1853,59 @@ def probe_small_index(dev, cfg, rs, index) -> dict:
     return out
 
 
-def search_parity(cfg, sub, index, cpu_index, engine) -> dict:
+# The search parity's runs, each with the one probe kernel it must launch.
+SEARCH_PARITY_KERNEL = {"search_direct": "direct_probe", "search_binary": "binary_probe"}
+
+
+def search_parity(cfg, sub, index, cpu_index, engine) -> tuple:
     """The PARITY_READS reads through probe="search" against the full
     index, in direct mode and in binary mode (forced while the aux is
     built), by engine_device_check: each cuda MatchResult must equal the
-    sorted join's cpu run.  Adds the two paths' verdicts to ``engine``
-    ({path: ok}) and prints all of them as ENGINE_RESULTS, and each aux's
-    build seconds and device bytes; returns {mode: the cuda aux}, the
-    index keeping the direct one."""
+    sorted join's cpu run.  check_paths sets every launch counter to 0
+    just before each run and reads it just after: the direct run must
+    launch B8 and not B9, the binary run B9 and not B8, neither the sorted
+    join.  Adds the two paths' verdicts to ``engine`` ({path: ok}) and
+    prints all of them as ENGINE_RESULTS, and each aux's build seconds on
+    the card, peak device memory and device bytes; returns ({mode: the
+    cuda aux}, {path: its run's launches}), the index keeping the direct
+    one."""
+    import torch
+
     from muscato_tpu_torch.bench import engine_device_check
 
     out = engine_device_check.check_paths(cfg, sub, index, cpu_index,
-                                          paths=("search_direct", "search_binary"))
-    auxes = {}
+                                          paths=tuple(SEARCH_PARITY_KERNEL))
+    auxes, launches = {}, {}
     for path, run in out["runs"].items():
         engine[path] = run["ok"]
         check(run["ok"], f"engine_device_check {path}: {run['error'] or 'MatchResult differs'}")
+        own = SEARCH_PARITY_KERNEL[path]
+        other = ({*SEARCH_PARITY_KERNEL.values()} - {own}).pop()
+        got = launches[path] = run["launches"]
+        check(got[own] > 0 and got[other] == 0 and got["sorted_join"] == 0,
+              f"search parity, {path}: launches {got}")
         aux = auxes[run["timings"]["probe_kind"]] = run["aux"]
         print(f"parity, search probe, {aux.mode} mode ({aux.bucket_bits} bucket bits"
               + (f", {aux.probe_steps} steps" if aux.mode == "binary" else "")
               + f"): aux built in {aux.build_s:.2f}s, {aux.nbytes} device bytes; "
               f"{len(run['result'].read_row)} matches identical to the sorted join's cpu run "
-              f"({run['seconds']:.2f}s with the aux build)", flush=True)
+              f"({run['seconds']:.2f}s with the aux build); launches " + json.dumps(got),
+              flush=True)
     print("ENGINE_RESULTS " + json.dumps(engine), flush=True)
+    # Each aux built once more on its own, for its build's peak memory.
+    for mode in ("direct", "binary"):
+        index._aux = None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        aux = engine_device_check._build_aux(index, mode)
+        peak = torch.cuda.max_memory_allocated() - base
+        print(f"search aux, {mode} mode, built on the card: {aux.build_s:.4f}s, peak "
+              f"{peak / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB held before, "
+              f"{aux.nbytes} bytes kept", flush=True)
+        del aux
     index._aux = auxes["direct"]
-    return auxes
+    return auxes, launches
 
 
 def probe_crossover(dev, cfg, rs, index, auxes) -> dict:
@@ -1784,6 +1936,85 @@ def probe_crossover(dev, cfg, rs, index, auxes) -> dict:
     return out
 
 
+def probe_kernel_phase(dev, cfg, rs, auxes) -> dict:
+    """B8 and B9 (csrc/probe.cu) at the main path's shape: the sorted
+    queries of the flagship's first SMALL_BATCH reads (4 windows x 262,144
+    = 1,048,576, as the 16-batch flagship's first batch gives them to B8)
+    against the full index's direct aux (B8) and its binary aux (B9, forced
+    as search_parity forces it), each exact against its twin on every
+    query and measured (measure_case; the library call: torch.searchsorted
+    of the packed queries into the aux's unique keys packed into int64,
+    packed outside the timed window, which finds the same insertion
+    points); then both exact against their twins on the branch cases of
+    tests/probe_cases.py.  Returns {name: measure_case numbers}."""
+    import torch
+
+    from muscato_tpu_torch.engine import pipeline
+    from muscato_tpu_torch.engine.index import DIRECT_BUCKET_WIDTH
+    from muscato_tpu_torch.ops import fused, search as sops, windows as winops
+
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "probe_cases", os.path.join(ROOT, "tests", "probe_cases.py"))
+    probe_cases = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe_cases)
+
+    l_eff = int(rs.lengths.max())
+    rpacked, lengths = pipeline._device_read_batch(rs, 0, SMALL_BATCH, l_eff, dev)
+    _, (keyf, key2f, validf, _) = fused._sorted_queries(
+        rpacked, lengths, tuple(cfg.Windows), width=cfg.WindowWidth, min_dinuc=cfg.MinDinuc)
+    del rpacked, lengths
+    use_k2 = winops.uses_second_key(cfg.WindowWidth)
+    query = packed_keys(keyf, key2f, use_k2)
+    kernels = {"direct": (sops.direct_probe, sops.direct_probe_torch),
+               "binary": (sops.binary_probe, sops.binary_probe_torch)}
+    out = {}
+    for mode, (fn, twin) in kernels.items():
+        aux = auxes[mode]
+        name = fn.__name__
+        if mode == "direct":
+            args = (keyf, key2f, validf, aux.urec, aux.sbucket)
+            kw = dict(upshift=aux.upshift, bucket_bits=aux.bucket_bits,
+                      bucket_width=DIRECT_BUCKET_WIDTH, use_k2=use_k2)
+            rec = aux.urec.view(-1, 4)[:-DIRECT_BUCKET_WIDTH]
+            ent = packed_keys(rec[:, 0], rec[:, 1], use_k2)
+            shape = f"{aux.bucket_bits} bucket bits, {rec.shape[0]} unique keys"
+        else:
+            args = (keyf, key2f, validf, aux.ukeys, aux.ukeys2, aux.ukk, aux.ustart,
+                    aux.ucount, aux.sbucket)
+            kw = dict(upshift=aux.upshift, bucket_bits=aux.bucket_bits,
+                      probe_steps=aux.probe_steps, use_k2=use_k2)
+            ent = packed_keys(aux.ukeys, aux.ukeys2, use_k2)
+            shape = (f"{aux.bucket_bits} bucket bits, {aux.probe_steps} steps, "
+                     f"{ent.numel()} unique keys")
+        out[name] = measure_case(
+            name, lambda: fn(*args, **kw), lambda: twin(*args, **kw),
+            lambda: torch.searchsorted(ent, query), call_work(name, args, kw),
+            f"{keyf.numel()} sorted queries ({int(validf.sum())} valid) against the "
+            f"flagship's {mode} aux: {shape}")
+        out[name]["sector_bound_ms"] = (probe_sector_bytes(name, args, kw)
+                                        / HBM_BYTES_PER_S * 1e3)
+        del ent
+    edge = []
+    for label, (mode, aux, width, q) in probe_cases.cases(SEED, 4).items():
+        args, kw = probe_cases.probe_args(mode, aux, width, q)
+        fn, twin = kernels[mode]
+        got = fn(*(a.to(dev) for a in args), **kw)
+        _compare(f"{fn.__name__} {label}", tuple(t.cpu() for t in got), twin(*args, **kw))
+        edge.append(f"{fn.__name__} {label} ({q[0].numel()} queries)")
+    for name, r in out.items():
+        print(f"kernel {name}: exact vs twin; {r['ms']:.4f} ms a call ({r['back_to_back_ms']:.4f} "
+              f"back to back; host {r['host_ms']:.4f} ms a call over 100 unsynchronised "
+              f"calls; plain twin {r['plain_ms']:.3f} ms; torch.searchsorted "
+              f"{r['library_ms']:.4f} ms ({r['library_back_to_back_ms']:.4f} back to back); "
+              f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}: bytes "
+              f"{r['bytes_bound_ms']:.4f}, operations {r['ops_bound_ms']:.4f}; by its 32-byte "
+              f"sectors {r['sector_bound_ms']:.4f}) at {r['shapes']}", flush=True)
+    print("probe kernel branch cases exact vs twin: " + "; ".join(edge), flush=True)
+    return out
+
+
 def batched_flagships(dev, cfg, rs, ts, index, mr) -> tuple:
     """The flagship in SMALL_BATCH batches (16; the engine must pick the
     direct probe) and in MULTI_BATCH batches (4, sorted join) with the next
@@ -1804,6 +2035,9 @@ def batched_flagships(dev, cfg, rs, ts, index, mr) -> tuple:
     check(same_result(mr_sb, mr), "small-batch flagship MatchResult differs")
     check(flag_sb["probe_kind"] == "direct" and flag_sb["launches"]["sorted_join"] == 0,
           f"small-batch flagship took the {flag_sb['probe_kind']} probe")
+    check(flag_sb["launches"]["direct_probe"] == flag_sb["batches"] == -(-NUM_READ // SMALL_BATCH),
+          f"small-batch flagship: B8 launched {flag_sb['launches']['direct_probe']} times "
+          f"over {flag_sb['batches']} batches")
     prof = kernel_profile(dev, cfg_sb, rs, index)
     print(f"flagship in batches of {SMALL_BATCH} reads (auto-selected probe): "
           + json.dumps(flag_sb) + "; profile " + json.dumps({k: prof[k] for k in (
@@ -2152,10 +2386,14 @@ def big_shard_phase(dev) -> None:
     seconds and its peak memory above what was allocated before it.  The
     result must have the valid window count of its genes, keys ascending
     as uint32, the valid positions' sum, and, at 4,096 random entries, the
-    key of the window at the entry's position computed on the host."""
+    key of the window at the entry's position computed on the host.  Then
+    the same targets as one card's index with its second key word, and its
+    search aux built on the card: its seconds and peak memory above the
+    index, its counts summing to the window count."""
     import numpy as np
     import torch
 
+    from muscato_tpu_torch.engine.index import DIRECT_BUCKET_WIDTH, build_target_index
     from muscato_tpu_torch.io.targets import TargetSet
     from muscato_tpu_torch.parallel import mesh as pmesh
 
@@ -2196,7 +2434,29 @@ def big_shard_phase(dev) -> None:
           f"{json.dumps(index.build_timings)}; peak {peak / 2**30:.2f} GiB above the "
           f"{base / 2**30:.2f} GiB allocated before, {peak / index.num_valid:.1f} bytes a "
           f"window; count, order, positions and sampled keys checked", flush=True)
-    del index, ts
+    del index, sel, pos, keys
+    torch.cuda.empty_cache()
+    # The same targets as one card's index with its second key word (a
+    # single-device run's), and its search aux built on the card.
+    index = build_target_index(ts, WIDTH, dev, device_build=True)
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    aux = index.search_aux()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    nuniq = (aux.urec.numel() // 4 - DIRECT_BUCKET_WIDTH if aux.mode == "direct"
+             else aux.ukeys.numel())
+    total = int((aux.urec.view(-1, 4)[:nuniq, 3] if aux.mode == "direct"
+                 else aux.ucount).sum(dtype=torch.int64))
+    check(total == index.num_valid and int(aux.sbucket[-1]) == nuniq
+          and bool((aux.sbucket[1:] >= aux.sbucket[:-1]).all()),
+          "big index: search aux counts or bucket table")
+    print(f"big index, search aux built on the card: {aux.mode} mode ({aux.bucket_bits} "
+          f"bucket bits), {nuniq} unique keys of {index.num_valid} windows in "
+          f"{aux.build_s:.2f}s; peak {peak / 2**30:.2f} GiB above the index's "
+          f"{base / 2**30:.2f} GiB, {peak / max(nuniq, 1):.1f} bytes a unique key; "
+          f"{aux.nbytes} bytes kept; counts and bucket table checked", flush=True)
+    del aux, index, ts
     torch.cuda.empty_cache()
 
 
@@ -2332,8 +2592,9 @@ def match_phases(dev, unstaged=None) -> tuple:
           f"K x R = {len(WINDOWS) * BATCH} queries): " + json.dumps(small), flush=True)
     # The search probe's parity comes after the flagship cells, so that
     # their peak memory does not hold its two auxes (4.1 GB together).
-    auxes = search_parity(cfg, sub, index, cpu_index, engine)
+    auxes, launches_search = search_parity(cfg, sub, index, cpu_index, engine)
     del cpu_index
+    probe_kres = probe_kernel_phase(dev, cfg, rs, auxes)
     cross = probe_crossover(dev, cfg, rs, index, auxes)
     print(f"probe stage by batch size (ms a batch over the first {CROSSOVER_DEPTH} "
           f"batches; {index.num_valid} index keys): " + json.dumps(cross), flush=True)
@@ -2362,7 +2623,8 @@ def match_phases(dev, unstaged=None) -> tuple:
     runner_phase(dev, cfg, rs, ts, mr)
     launches_mesh = mesh_ranks_phase(dev, rs, ts, mr, got, got_nd)
     del rs, ts
-    return flag, flag_sw, flag_nd, flag_sb, flag_mb, launches_mesh
+    return (flag, flag_sw, flag_nd, flag_sb, flag_mb, launches_mesh, launches_search,
+            probe_kres)
 
 
 def report_files(results: str) -> dict:
@@ -2407,14 +2669,23 @@ def driver_phase(dev) -> None:
             t = time.perf_counter()
             rc = cli.main_muscato([f"-ConfigFileName={cfg_path}", f"-device={dev}"])
             check(rc == 0, f"muscato_torch ({tag}) exited {rc}")
+            wall = time.perf_counter() - t
             files = report_files(cfg.ResultsFileName)
             out = {}
             for k, p in files.items():
                 with open(p, "rb") as f:
                     out[k] = f.read()
-            return out, time.perf_counter() - t
+            return out, wall
 
         plain, t_plain = run("results")
+        # The run's probe line (muscato_screen.log): the probe it took and,
+        # for the search probe, the aux's bytes and its build's seconds on
+        # the card.
+        (run_id,) = os.listdir(os.path.join(work, "logs_results"))
+        probe_line = [m for _, m in _log_entries(os.path.join(
+            work, "logs_results", run_id, "muscato_screen.log")) if m.startswith("probe: ")]
+        check(len(probe_line) == 1 and probe_line[0].startswith("probe: direct"),
+              f"driver: the {DRIVER_READS}-read run's probe: {probe_line}")
         sizes = {k: len(v) for k, v in plain.items()}
         check(all(s > 0 for s in sizes.values()), f"empty output: {sizes}")
         nres = plain["results"].count(b"\n")
@@ -2422,7 +2693,8 @@ def driver_phase(dev) -> None:
         print(f"driver: muscato_torch on {DRIVER_READS} reads (read count cut "
               f"from {NUM_READ}; index size, read length and windows uncut) x "
               f"{NUM_GENE} genes: {nres} result rows, files {sizes}; "
-              f"data+prep {t1 - t0:.1f}s, run {t_plain:.1f}s", flush=True)
+              f"data+prep {t1 - t0:.1f}s, run {t_plain:.1f}s; its {probe_line[0]}",
+              flush=True)
         index_file = os.path.join(work, "index.npz")
         saved, t_save = run("index_saved", IndexFile=index_file, NoCleanTemp=True)
         check(os.path.exists(index_file), "the IndexFile run saved no index file")
@@ -2716,6 +2988,8 @@ def main() -> int:
     print(f"B7, -Xptxas -v: {ptxas_of(kern.log, SYMBOLS['verify_diagonals_swar'])}; "
           f"without staging: {ptxas_of(builds[0][2], 'verify_diagonals_direct_kernel')}",
           flush=True)
+    print(f"B8, -Xptxas -v: {ptxas_of(kern.log, SYMBOLS['direct_probe'])}; B9: "
+          f"{ptxas_of(kern.log, SYMBOLS['binary_probe'])}", flush=True)
     t0 = time.perf_counter()
     print(f"native host library: {native.ensure_built() is not None} "
           f"({time.perf_counter() - t0:.1f}s)", flush=True)
@@ -2726,20 +3000,31 @@ def main() -> int:
 
     kres = kernel_phase(dev, unstaged, variants, sub_variants)
     bench_tool_phases(dev)
-    flag, flag_sw, flag_nd, flag_sb, flag_mb, launches_mesh = match_phases(dev, unstaged)
+    (flag, flag_sw, flag_nd, flag_sb, flag_mb, launches_mesh, launches_search,
+     probe_kres) = match_phases(dev, unstaged)
+    kres.update(probe_kres)
     driver_phase(dev)
     launches_scale = scale_run_phase(dev)
     tool_run_phases(dev)
 
+    # Each kernel's "launches": the counted run of the path it is on (the
+    # default flagship; B6 the switched one; B8 the 16-batch flagship, whose
+    # batches take the direct probe; B9 the binary search-parity run).
+    main_run = {"expand_owners_sub": flag_sw["launches"],
+                "direct_probe": flag_sb["launches"],
+                "binary_probe": launches_search["search_binary"]}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1],
-         "launches": (flag if name in DEFAULT_PATH else flag_sw)["launches"][name],
+         "launches": main_run.get(name, flag["launches"])[name],
+         "launches_switched": flag_sw["launches"][name],
          "launches_streaming": flag_nd["launches"][name],
          "launches_small_batch": flag_sb["launches"][name],
          "launches_multi_batch": flag_mb["launches"][name],
          "launches_mesh": launches_mesh[name],
          "launches_scale_run": launches_scale[name],
+         "launches_search_direct": launches_search["search_direct"][name],
+         "launches_search_binary": launches_search["search_binary"][name],
          "max_abs_err": kres[name]["max_abs_err"], "ms": kres[name]["ms"],
          "plain_ms": kres[name]["plain_ms"], "bound_ms": kres[name]["bound_ms"],
          "bound_by": kres[name]["bound_by"], "library_ms": kres[name]["library_ms"],

@@ -91,10 +91,12 @@ def check_paths(cfg, rs, index, ref_index, paths=tuple(PATHS), log=print) -> dic
     default path's run on ``ref_index`` (the same targets on the CPU).
 
     Returns {"reference": MatchResult, "runs": {path: {"ok", "result",
-    "timings", "seconds", "aux", "error"}}}: "result" and "timings" are the
-    path's run on ``index`` (None after a fault), "aux" the search aux a
-    search path built on ``index``.  The index keeps the search aux it had
-    before the call."""
+    "timings", "seconds", "aux", "launches", "error"}}}: "result" and
+    "timings" are the path's run on ``index`` (None after a fault), "aux"
+    the search aux a search path built on ``index``, "launches" each
+    kernel's launches in that run alone (every count of
+    ``pipeline.KERNELS`` is set to 0 just before it).  The index keeps the
+    search aux it had before the call."""
     from ..engine import pipeline
 
     t0 = time.perf_counter()
@@ -107,17 +109,21 @@ def check_paths(cfg, rs, index, ref_index, paths=tuple(PATHS), log=print) -> dic
     try:
         for name in paths:
             env, fields, probe, mode = PATHS[name]
-            run = dict(ok=False, result=None, timings=None, aux=None, error=None)
+            run = dict(ok=False, result=None, timings=None, aux=None, launches=None,
+                       error=None)
             t0 = time.perf_counter()
             try:
                 if mode is not None:
                     run["aux"] = _build_aux(index, mode)
                 tm = {}
+                for fn in pipeline.KERNELS.values():
+                    fn.launches = 0
                 with _switched(env):
                     mr = pipeline.run_matching_indexed(
                         dataclasses.replace(cfg, **fields), rs, index, probe=probe,
                         timings=tm)
-                run.update(result=mr, timings=tm)
+                run.update(result=mr, timings=tm,
+                           launches={k: fn.launches for k, fn in pipeline.KERNELS.items()})
                 got = canon(mr)
                 run["ok"] = (got.shape == ref.shape and bool(np.array_equal(got, ref))
                              and (mode is None or tm["probe_kind"] == mode))

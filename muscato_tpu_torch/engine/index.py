@@ -27,8 +27,9 @@ mesh builds every shard; it keeps no host copy, so ``save`` and
 ``TargetIndex.load`` reads back instead of building; each package reads
 the other's.  The search probe, which the engine takes when the index is
 much larger than a read batch's queries, reads a unique-key view of the
-same arrays (``SearchAux``), built once per index on the host and
-uploaded to the index's device.
+same arrays (``SearchAux``), built once per index with torch ops on the
+index's device (``build_search_aux_device``; the numpy
+``build_search_aux`` is its plain reference).
 """
 
 from __future__ import annotations
@@ -85,7 +86,7 @@ class SearchAux:
     ucount: torch.Tensor | None = None  # (U,) run length
     ukk: torch.Tensor | None = None  # (2U,) interleaved [k1, k2]
     probe_steps: int = 0
-    build_s: float = 0.0  # host build and upload seconds
+    build_s: float = 0.0  # build seconds, on the index's device
 
     @property
     def nbytes(self) -> int:
@@ -149,18 +150,19 @@ class TargetIndex:
 
     def search_aux(self) -> SearchAux:
         """Build (once) the unique-key + bucket view for the search probe,
-        from the sorted arrays on the host, on the index's device."""
+        with torch ops on the index's device (``build_search_aux_device``)
+        from the sorted keys there.  A host build keeps its second key
+        word in ``host_arrays`` alone: it is uploaded for the build only."""
         if self._aux is None:
             t0 = time.perf_counter()
-            k1, k2, _ = self._sorted_host()
-            new_run = np.concatenate(
-                [[True], (k1[1:] != k1[:-1]) | (k2[1:] != k2[:-1])]
-            )
-            starts = np.flatnonzero(new_run).astype(np.int32)
-            counts = np.diff(np.append(starts, len(k1))).astype(np.int32)
-            self._aux = build_search_aux(
-                k1[starts], k2[starts], starts, counts, self.width, self.device
-            )
+            if self.skeys2 is not None:
+                k2 = self.skeys2
+            elif self.host_arrays is not None:
+                k2 = _upload(self.host_arrays[1], self.device)
+            else:
+                raise ValueError("a device build without keep_k2 (a mesh shard) keeps no "
+                                 "second key word to search")
+            self._aux = build_search_aux_device(self.skeys, k2, self.width)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             self._aux.build_s = time.perf_counter() - t0
@@ -205,7 +207,9 @@ class TargetIndex:
 
 
 def build_search_aux(uk1, uk2, starts, counts, width: int, device) -> SearchAux:
-    """Pick the search-probe layout for a unique-key table and upload it.
+    """Pick the search-probe layout for a unique-key table and upload it:
+    the host build, the plain reference that ``build_search_aux_device``
+    equals array for array.
 
     Prefers 'direct': the smallest bucket table whose largest bucket holds
     at most DIRECT_BUCKET_WIDTH distinct keys; skewed distributions fall
@@ -217,8 +221,7 @@ def build_search_aux(uk1, uk2, starts, counts, width: int, device) -> SearchAux:
     top32 = ((uk1.astype(np.uint64) << np.uint64(upshift)) & np.uint64(0xFFFFFFFF)).astype(
         np.uint32
     )
-    start_bits = max(16, int(np.ceil(np.log2(max(u, 1) / 4 + 1))))
-    for bits in range(start_bits, MAX_DIRECT_BITS + 1):
+    for bits in range(_direct_start_bits(u), MAX_DIRECT_BITS + 1):
         b = (top32 >> np.uint32(32 - bits)).astype(np.int64)
         per = np.bincount(b, minlength=1 << bits)
         if int(per.max(initial=0)) <= DIRECT_BUCKET_WIDTH:
@@ -242,6 +245,106 @@ def build_search_aux(uk1, uk2, starts, counts, width: int, device) -> SearchAux:
         ustart=_upload(starts, device), ucount=_upload(counts, device),
         ukk=_upload(np.stack([uk1, uk2], axis=1).reshape(-1), device),
         probe_steps=probe_steps,
+    )
+
+
+def _direct_start_bits(u: int) -> int:
+    """The first bucket width the direct layout tries for u unique keys."""
+    return max(16, int(np.ceil(np.log2(max(u, 1) / 4 + 1))))
+
+
+def _bucket_ids(uk1: torch.Tensor, upshift: int, bits: int) -> torch.Tensor:
+    """The bucket of each key at ``bits`` (``sops.bucket_of``: the top
+    ``bits`` of the uint32 ``key << upshift``, bits shifted past 32 lost),
+    sorted, as int32: computed in int32 in place (``<<`` on int32 wraps as
+    on uint32), with no int64 copy of the keys.  Keys of the width's range
+    keep their order under the shift; any others are sorted here (the
+    per-bucket counts are the same)."""
+    b = uk1 << upshift
+    b >>= 32 - bits
+    b &= (1 << bits) - 1
+    if b.numel() > 1 and bool((b[1:] < b[:-1]).any()):
+        b = torch.sort(b).values
+    return b
+
+
+def _binary_bucket_table(uk1: torch.Tensor, upshift: int, bits: int) -> torch.Tensor:
+    """``sops.build_buckets_host``'s table of the sorted keys ``uk1``:
+    bucket[j] counts the keys whose unshifted-width scaled key
+    ``(key << upshift) >> (32 - bits)`` (no 32-bit mask) is below j, that
+    is the keys below j's least key, ceil(j * 2**(32 - bits - upshift)).
+    The keys are sorted as uint32, so one searchsorted of the 2**bits + 1
+    least keys into the keys with the sign bit flipped gives the table."""
+    dev = uk1.device
+    j = torch.arange((1 << bits) + 1, dtype=torch.int64, device=dev)
+    r = 32 - bits - upshift
+    least = j << r if r >= 0 else (j + (1 << -r) - 1) >> -r
+    bound = (least.clamp(max=pops.M32) - (1 << 31)).to(torch.int32)
+    table = torch.searchsorted(uk1 ^ -(1 << 31), bound, out_int32=True)
+    table[least > pops.M32] = uk1.numel()
+    return table
+
+
+def build_search_aux_device(k1: torch.Tensor, k2: torch.Tensor, width: int) -> SearchAux:
+    """``build_search_aux`` of the sorted (V,) key words ``k1`` and ``k2``
+    (int32 bit patterns), computed with torch ops on their device: the runs
+    of equal (k1, k2), their starts and counts, then the direct layout or
+    the binary one, array for array as the host build gives them.  The
+    bucket ids of the sorted unique keys are sorted, so a bucket width fits
+    iff no id equals the one DIRECT_BUCKET_WIDTH places on, and the bucket
+    table is a searchsorted of the bucket boundaries: no bincount of each
+    width.
+
+    Peak memory, for u unique keys, is about 24 bytes a key beside k1 and
+    k2: the 16-byte records, the int32 starts and, while the records are
+    filled, one int32 column; the int32 bucket ids of the width search
+    (13 bytes a key with the starts and key1) come before the records."""
+    dev = k1.device
+    n = k1.numel()
+    new_run = torch.ones(n, dtype=torch.bool, device=dev)
+    if n > 1:
+        torch.ne(k1[1:], k1[:-1], out=new_run[1:])
+        new_run[1:] |= k2[1:] != k2[:-1]
+    first = torch.nonzero(new_run).squeeze(1)
+    del new_run
+    u = first.numel()
+    starts = first.to(torch.int32)
+    del first
+    uk1 = k1.index_select(0, starts)
+    end = starts.new_tensor([n])
+    upshift = sops.bucket_shift(width)
+    w = DIRECT_BUCKET_WIDTH
+    for bits in range(_direct_start_bits(u), MAX_DIRECT_BITS + 1):
+        b = _bucket_ids(uk1, upshift, bits)
+        fits = u <= w or not bool((b[w:] == b[:-w]).any())
+        if fits:
+            bucket = torch.searchsorted(
+                b, torch.arange((1 << bits) + 1, dtype=torch.int32, device=dev),
+                out_int32=True)
+        del b
+        if not fits:
+            continue
+        rec = torch.empty((u + w, 4), dtype=torch.int32, device=dev)
+        rec[:u, 0] = uk1
+        del uk1
+        rec[:u, 1] = k2.index_select(0, starts)
+        rec[:u, 3] = torch.diff(starts, append=end)
+        rec[:u, 2] = starts
+        del starts
+        # Padding records: never equal to a live query's key1 + key2.
+        rec[u:, :2] = -1
+        rec[u:, 2:] = 0
+        return SearchAux(mode="direct", sbucket=bucket, bucket_bits=bits,
+                         upshift=upshift, urec=rec.view(-1))
+    bits = sops.bucket_bits_for(u)
+    bucket = _binary_bucket_table(uk1, upshift, bits)
+    max_run = int(torch.diff(bucket).max()) if u else 1
+    uk2 = k2.index_select(0, starts)
+    return SearchAux(
+        mode="binary", sbucket=bucket, bucket_bits=bits, upshift=upshift,
+        ukeys=uk1, ukeys2=uk2, ustart=starts, ucount=torch.diff(starts, append=end),
+        ukk=torch.stack([uk1, uk2], dim=1).reshape(-1),
+        probe_steps=max(1, max_run.bit_length()),
     )
 
 

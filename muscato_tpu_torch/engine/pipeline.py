@@ -50,6 +50,7 @@ from ..ops import fused
 from ..ops import gather as gather_ops
 from ..ops import join as join_ops
 from ..ops import packed as packed_ops
+from ..ops import search as search_ops
 from ..ops import verify as vops
 from ..ops import window_queries as wq_ops
 from .index import TargetIndex, build_target_index
@@ -111,7 +112,8 @@ KERNELS = {"window_queries": wq_ops.window_queries, "sorted_join": join_ops.sort
            "expand_owners_sub": expand_ops.expand_owners_sub,
            "monotone_gather": gather_ops.monotone_gather,
            "monotone_gather_rows": gather_ops.monotone_gather_rows,
-           "verify_diagonals_swar": packed_ops.verify_diagonals_swar}
+           "verify_diagonals_swar": packed_ops.verify_diagonals_swar,
+           "direct_probe": search_ops.direct_probe, "binary_probe": search_ops.binary_probe}
 
 
 def switches() -> dict:

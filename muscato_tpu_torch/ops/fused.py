@@ -222,43 +222,21 @@ def _compact_lo_order(loc, counts, qid, keyf0, key2f0) -> Probe:
     )
 
 
-DIRECT_CHUNK = 1 << 20  # queries a chunk of the direct probe's record fetch
-
-
 def _probe_windows_direct_impl(rpacked, lengths, q1s, urec, sbucket, *, width,
                                min_dinuc, upshift, bucket_bits, bucket_width):
     """Direct-bucket probe (port of ``fused._probe_windows_direct_impl``):
     no bucket of the index's SearchAux holds more than ``bucket_width``
     distinct keys, so a query fetches its bucket's bounds and then the
-    bucket's (k1, k2, start, count) records, with no search loop.  The
-    queries run in chunks of DIRECT_CHUNK, which bounds the (C, 4w) record
-    fetch, as the JAX function's ``lax.map`` does.  Returns the Probe
+    bucket's (k1, k2, start, count) records, with no search loop: B8,
+    ``sops.direct_probe``, over the sorted queries.  Returns the Probe
     contract: active slots in lo order, keyf/key2f in qid order."""
-    use_k2 = winops.uses_second_key(width)
     (keyf0, key2f0), (keyf, key2f, validf, qid) = _sorted_queries(
         rpacked, lengths, q1s, width=width, min_dinuc=min_dinuc
     )
-    nflat = keyf.shape[0]
-    dev = keyf.device
-    w = bucket_width
-    recs = urec.view(-1, 4)  # 16-byte records
-    lane = torch.arange(w, dtype=torch.int64, device=dev)
-    counts = torch.zeros(nflat, dtype=torch.int32, device=dev)
-    loc = torch.zeros(nflat, dtype=torch.int32, device=dev)
-    for c0 in range(0, nflat, DIRECT_CHUNK):
-        keyc = keyf[c0 : c0 + DIRECT_CHUNK]
-        b = sops.bucket_of(keyc, upshift, bucket_bits)
-        lo = sbucket[b].to(torch.int64)
-        nb = sbucket[b + 1].to(torch.int64) - lo
-        rec = recs[lo[:, None] + lane[None, :]]  # (C, w, 4)
-        hit_j = (lane[None, :] < nb[:, None]) & (rec[:, :, 0] == keyc[:, None])
-        if use_k2:
-            hit_j = hit_j & (rec[:, :, 1] == key2f[c0 : c0 + DIRECT_CHUNK, None])
-        hit = validf[c0 : c0 + DIRECT_CHUNK] & hit_j.any(dim=1)
-        c = torch.where(hit_j, rec[:, :, 3], 0).sum(dim=1, dtype=torch.int32)
-        counts[c0 : c0 + DIRECT_CHUNK] = torch.where(hit, c, 0)
-        loc[c0 : c0 + DIRECT_CHUNK] = torch.where(hit_j, rec[:, :, 2], 0).sum(
-            dim=1, dtype=torch.int32)
+    counts, loc = sops.direct_probe(
+        keyf, key2f, validf, urec, sbucket, upshift=upshift, bucket_bits=bucket_bits,
+        bucket_width=bucket_width, use_k2=winops.uses_second_key(width),
+    )
     return _compact_lo_order(loc, counts, qid, keyf0, key2f0)
 
 
@@ -267,24 +245,17 @@ def _probe_windows_search_impl(rpacked, lengths, q1s, ukeys, ukeys2, ukk, ustart
                                probe_steps, bucket_bits):
     """Bucketed binary-search probe (port of
     ``fused._probe_windows_search_impl``): the sorted queries search the
-    index's unique keys from their bucket's bounds, ``probe_steps`` gather
-    pairs each.  Same Probe contract as the other probes."""
-    use_k2 = winops.uses_second_key(width)
+    index's unique keys from their bucket's bounds, ``probe_steps`` rounds
+    each: B9, ``sops.binary_probe``.  Same Probe contract as the other
+    probes."""
     (keyf0, key2f0), (keyf, key2f, validf, qid) = _sorted_queries(
         rpacked, lengths, q1s, width=width, min_dinuc=min_dinuc
     )
-    nuniq = ukeys.shape[0]
-    lo_u = sops.searchsorted2_bucketed(
-        ukeys, ukeys2, keyf, key2f, sbucket, upshift=upshift, steps=probe_steps,
-        use_k2=use_k2, bucket_bits=bucket_bits, interleaved=ukk,
+    counts, loc = sops.binary_probe(
+        keyf, key2f, validf, ukeys, ukeys2, ukk, ustart, ucount, sbucket,
+        upshift=upshift, bucket_bits=bucket_bits, probe_steps=probe_steps,
+        use_k2=winops.uses_second_key(width),
     )
-    loc = lo_u.clamp(max=nuniq - 1)
-    eq = ukeys[loc] == keyf
-    if use_k2:
-        eq = eq & (ukeys2[loc] == key2f)
-    hit = validf & eq & (lo_u < nuniq)
-    counts = torch.where(hit, ucount[loc], 0)
-    loc = torch.where(hit, ustart[loc], 0)
     return _compact_lo_order(loc, counts, qid, keyf0, key2f0)
 
 

@@ -1,5 +1,8 @@
 """Bucketed binary search over composite 64-bit keys (port of
-``muscato_tpu/ops/search.py``).
+``muscato_tpu/ops/search.py``), and the search probe's two bodies as
+kernels: ``direct_probe`` (B8) and ``binary_probe`` (B9) launch
+``csrc/probe.cu`` on CUDA tensors; ``direct_probe_torch`` and
+``binary_probe_torch``, their plain twins, run for CPU tensors.
 
 The target index for window widths > 13 uses a (key1, key2) pair of 32-bit
 hashes, so the search probe compares both words.  The search is an unrolled
@@ -19,6 +22,7 @@ import math
 import numpy as np
 import torch
 
+from . import _lib
 from . import windows as winops
 from .join import flip
 from .packed import M32, u64
@@ -120,3 +124,133 @@ def searchsorted2(a1, a2, k1, k2, side: str = "left"):
     steps = max(1, n).bit_length()
     return _search(lambda m: (a1[m], a2[m]), k1, k2, lo, hi, n, steps, True,
                    right=side != "left")
+
+
+DIRECT_CHUNK = 1 << 20  # queries a chunk of the direct twin's record fetch
+
+
+def direct_probe_torch(keyf, key2f, validf, urec, sbucket, *, upshift: int,
+                       bucket_bits: int, bucket_width: int, use_k2: bool):
+    """Plain twin of ``direct_probe``.  The queries run in chunks of
+    DIRECT_CHUNK, which bounds the (C, w, 4) record fetch, as the JAX
+    function's ``lax.map`` does."""
+    nflat = keyf.shape[0]
+    dev = keyf.device
+    w = bucket_width
+    recs = urec.view(-1, 4)  # 16-byte records
+    lane = torch.arange(w, dtype=torch.int64, device=dev)
+    counts = torch.zeros(nflat, dtype=torch.int32, device=dev)
+    loc = torch.zeros(nflat, dtype=torch.int32, device=dev)
+    for c0 in range(0, nflat, DIRECT_CHUNK):
+        keyc = keyf[c0 : c0 + DIRECT_CHUNK]
+        b = bucket_of(keyc, upshift, bucket_bits)
+        lo = sbucket[b].to(torch.int64)
+        nb = sbucket[b + 1].to(torch.int64) - lo
+        rec = recs[lo[:, None] + lane[None, :]]  # (C, w, 4)
+        hit_j = (lane[None, :] < nb[:, None]) & (rec[:, :, 0] == keyc[:, None])
+        if use_k2:
+            hit_j = hit_j & (rec[:, :, 1] == key2f[c0 : c0 + DIRECT_CHUNK, None])
+        hit = validf[c0 : c0 + DIRECT_CHUNK] & hit_j.any(dim=1)
+        c = torch.where(hit_j, rec[:, :, 3], 0).sum(dim=1, dtype=torch.int32)
+        counts[c0 : c0 + DIRECT_CHUNK] = torch.where(hit, c, 0)
+        loc[c0 : c0 + DIRECT_CHUNK] = torch.where(hit_j, rec[:, :, 2], 0).sum(
+            dim=1, dtype=torch.int32)
+    return counts, loc
+
+
+def _query_tensors(name, keyf, key2f, validf, *tables, bucket_bits) -> bool:
+    """True for CPU tensors (the twin runs); for CUDA ones checks what the
+    kernel takes: int32 keys and tables, a bool validity, one device,
+    contiguous, equal query lengths, a bucket table (the last of
+    ``tables``) of 2**bucket_bits + 1 bounds."""
+    if _lib.on_cpu(name, keyf, key2f, *tables) and validf.device.type == "cpu":
+        return True
+    if validf.device != keyf.device or validf.dtype != torch.bool or not validf.is_contiguous():
+        raise ValueError(f"{name}: validf must be a contiguous bool tensor on {keyf.device}")
+    if not keyf.shape[0] == key2f.shape[0] == validf.shape[0]:
+        raise ValueError(f"{name}: query lengths disagree")
+    if not 1 <= bucket_bits <= 31 or tables[-1].numel() != (1 << bucket_bits) + 1:
+        raise ValueError(f"{name}: sbucket must hold 2**bucket_bits + 1 bounds")
+    return False
+
+
+def direct_probe(keyf, key2f, validf, urec, sbucket, *, upshift: int, bucket_bits: int,
+                 bucket_width: int, use_k2: bool):
+    """B8, the direct-bucket probe (the body of
+    ``muscato_tpu/ops/fused.py:_probe_windows_direct_impl``): for each
+    sorted query (``keyf``, ``key2f``, ``validf``) the bucket's bounds in
+    ``sbucket``, then at most ``bucket_width`` of the bucket's (k1, k2,
+    start, count) records in ``urec`` (flat int32, 16-byte records).
+    Returns (counts, loc), (Q,) int32: the hit records' summed counts (0
+    unless valid) and summed starts.  Launches ``csrc/probe.cu`` on CUDA
+    tensors; raises where the launcher refuses (a ``bucket_width`` past
+    its 16 records, ``urec`` not 16-byte aligned)."""
+    if _query_tensors("direct_probe", keyf, key2f, validf, urec, sbucket,
+                      bucket_bits=bucket_bits):
+        return direct_probe_torch(keyf, key2f, validf, urec, sbucket, upshift=upshift,
+                                  bucket_bits=bucket_bits, bucket_width=bucket_width,
+                                  use_k2=use_k2)
+    n = keyf.shape[0]
+    counts, loc = (torch.empty(n, dtype=torch.int32, device=keyf.device) for _ in range(2))
+    if n:
+        _lib.launch("direct_probe", keyf, keyf.data_ptr(), key2f.data_ptr(),
+                    validf.data_ptr(), n, urec.data_ptr(), sbucket.data_ptr(), upshift,
+                    bucket_bits, bucket_width, int(use_k2), counts.data_ptr(),
+                    loc.data_ptr())
+        direct_probe.launches += 1
+    return counts, loc
+
+
+def binary_probe_torch(keyf, key2f, validf, ukeys, ukeys2, ukk, ustart, ucount, sbucket, *,
+                       upshift: int, bucket_bits: int, probe_steps: int, use_k2: bool):
+    """Plain twin of ``binary_probe``."""
+    nuniq = ukeys.shape[0]
+    lo_u = searchsorted2_bucketed(
+        ukeys, ukeys2, keyf, key2f, sbucket, upshift=upshift, steps=probe_steps,
+        use_k2=use_k2, bucket_bits=bucket_bits, interleaved=ukk,
+    )
+    loc = lo_u.clamp(max=nuniq - 1)
+    eq = ukeys[loc] == keyf
+    if use_k2:
+        eq = eq & (ukeys2[loc] == key2f)
+    hit = validf & eq & (lo_u < nuniq)
+    counts = torch.where(hit, ucount[loc], 0)
+    loc = torch.where(hit, ustart[loc], 0)
+    return counts, loc
+
+
+def binary_probe(keyf, key2f, validf, ukeys, ukeys2, ukk, ustart, ucount, sbucket, *,
+                 upshift: int, bucket_bits: int, probe_steps: int, use_k2: bool):
+    """B9, the bucketed binary search and hit test (the body of
+    ``muscato_tpu/ops/fused.py:_probe_windows_search_impl``, with
+    ``muscato_tpu/ops/search.py:searchsorted2_bucketed``): each sorted
+    query's left insertion point among the unique keys, ``probe_steps``
+    rounds from its bucket's bounds, then its run's count and start where
+    the key is there and the query valid.  Returns (counts, loc), (Q,)
+    int32, as ``direct_probe``.  The kernel reads the keys as ``ukk``'s
+    interleaved pairs (``ukeys`` and ``ukeys2`` are the twin's); raises for
+    an empty table, and where the launcher refuses (``probe_steps`` past
+    its 32 rounds)."""
+    if _query_tensors("binary_probe", keyf, key2f, validf, ukeys, ukeys2, ukk, ustart,
+                      ucount, sbucket, bucket_bits=bucket_bits):
+        return binary_probe_torch(keyf, key2f, validf, ukeys, ukeys2, ukk, ustart, ucount,
+                                  sbucket, upshift=upshift, bucket_bits=bucket_bits,
+                                  probe_steps=probe_steps, use_k2=use_k2)
+    nuniq = ukeys.shape[0]
+    if nuniq == 0 or ukk.shape[0] != 2 * nuniq or not (
+            ustart.shape[0] == ucount.shape[0] == nuniq):
+        raise ValueError("binary_probe: needs a nonempty table with ukk of 2 x its keys "
+                         "and a start and count a key")
+    n = keyf.shape[0]
+    counts, loc = (torch.empty(n, dtype=torch.int32, device=keyf.device) for _ in range(2))
+    if n:
+        _lib.launch("binary_probe", keyf, keyf.data_ptr(), key2f.data_ptr(),
+                    validf.data_ptr(), n, ukk.data_ptr(), ustart.data_ptr(),
+                    ucount.data_ptr(), nuniq, sbucket.data_ptr(), upshift, bucket_bits,
+                    probe_steps, int(use_k2), counts.data_ptr(), loc.data_ptr())
+        binary_probe.launches += 1
+    return counts, loc
+
+
+direct_probe.launches = 0
+binary_probe.launches = 0

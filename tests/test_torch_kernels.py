@@ -333,7 +333,7 @@ def test_build_requires_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc"):
         _lib._build()
     assert [os.path.basename(p) for p in _lib.sources()] == [
-        "expand.cu", "gather.cu", "join.cu", "verify.cu", "windows.cu"]
+        "expand.cu", "gather.cu", "join.cu", "probe.cu", "verify.cu", "windows.cu"]
 
 
 def test_build_digest_covers_headers(monkeypatch, tmp_path):

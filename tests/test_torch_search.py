@@ -14,6 +14,13 @@ same inputs, on the CPU; every comparison is exact.
   ReadBatch small enough that both packages pick the search probe.
 - The one-call match_windows and match_windows_dedup against the JAX
   functions, with and without the search probe and with a survivor cut.
+- The search aux built by torch ops (build_search_aux_device) against the
+  JAX numpy build and the port's; the probe bodies' twins
+  (direct_probe_torch, binary_probe_torch) against the JAX bodies query by
+  query; a model of each CUDA kernel's loop (tests/probe_cases.py)
+  against the twins on the kernels' branch cases, and chip_smoke's bytes
+  and sectors of each kernel against what its model reads; report bytes
+  of whole search-probe runs.
 """
 
 import dataclasses
@@ -27,6 +34,7 @@ from muscato_tpu import config as jconfig
 from muscato_tpu.bench import gendat as jgendat
 from muscato_tpu.engine import index as jindex
 from muscato_tpu.engine import pipeline as jpipeline
+from muscato_tpu.engine import report as jreport
 from muscato_tpu.io import seqcodec as jseqcodec
 from muscato_tpu.io.reads import ReadSet as JReadSet
 from muscato_tpu.io.targets import TargetSet as JTargetSet
@@ -37,12 +45,14 @@ from muscato_tpu_torch import config as tconfig
 from muscato_tpu_torch.bench import gendat as tgendat
 from muscato_tpu_torch.engine import index as tindex
 from muscato_tpu_torch.engine import pipeline as tpipeline
+from muscato_tpu_torch.engine import report as treport
 from muscato_tpu_torch.io import seqcodec as tseqcodec
 from muscato_tpu_torch.io.reads import ReadSet as TReadSet
 from muscato_tpu_torch.io.targets import TargetSet as TTargetSet
 from muscato_tpu_torch.ops import fused as tfused
 from muscato_tpu_torch.ops import packed as tpacked
 from muscato_tpu_torch.ops import search as tsearch
+import probe_cases
 
 _ARGS = (1500, 100, 100, 1000)
 WINDOWS = (10, 30, 50, 70)
@@ -402,3 +412,227 @@ def test_one_call_match_matches_jax(one_call_inputs, case):
         last = max(qid(r) for r in rows_j)
         assert max(qid(r) for r in rows_t) == last
         assert [r for r in rows_t if qid(r) < last] == [r for r in rows_j if qid(r) < last]
+
+
+# The search aux built by torch ops (build_search_aux_device, on the CPU
+# device here) against the JAX package's numpy build and the port's own.
+
+def _aux_table(case, rng):
+    """(sorted k1, sorted k2, width) of one aux-build case."""
+    u32 = lambda n, hi=2**32: rng.integers(0, hi, n, dtype=np.uint64).astype(np.uint32)  # noqa: E731
+    if case == "empty":
+        return np.zeros(0, np.uint32), np.zeros(0, np.uint32), 20
+    if case == "one key":
+        return np.full(50, 77, np.uint32), np.full(50, 3, np.uint32), 20
+    if case == "few keys":
+        k1 = np.repeat(u32(10), 4)
+        k2 = np.zeros_like(k1) + 9
+        width = 20
+    elif case.startswith("w12"):
+        hi = 2**32 if case.endswith("past range") else 5**12
+        k1 = np.concatenate([u32(20_000, hi), np.repeat(u32(100, hi), 5)])
+        k2 = np.zeros_like(k1)
+        width = 12
+    elif case == "w6 past range capped":  # 17 bucket bits + upshift 16 > 32
+        k1 = np.concatenate([u32(2**20 + 5000), np.repeat(u32(100), 3)])
+        k2 = np.zeros_like(k1)
+        width = 6
+    elif case == "w13 skewed":
+        base = 5 << 15
+        k1 = np.concatenate([base + np.arange(2000), np.arange(300) << 16, [0]]).astype(np.uint32)
+        k2 = np.zeros_like(k1)
+        width = 13
+    else:  # w20 uniform / capped: two key words, runs, equal key1 under other key2
+        k1 = np.concatenate([u32(30_000), np.repeat(u32(200), 3), [0, 2**32 - 1] * 2])
+        k2 = u32(k1.size)
+        k2[30_000:30_060] = 1
+        width = 20
+    order = np.lexsort((k2, k1))
+    return k1[order].astype(np.uint32), k2[order].astype(np.uint32), width
+
+
+_AUX_CASES = {"w20 uniform": "direct", "w12 exact": "direct", "w20 capped": "binary",
+              "w13 skewed": "binary", "few keys": "direct", "w12 past range": "direct",
+              "empty": "direct", "one key": "direct", "w12 past range capped": "binary",
+              "w6 past range capped": "binary"}
+
+
+@pytest.mark.parametrize("case", list(_AUX_CASES))
+def test_device_aux_build_matches_jax(monkeypatch, case):
+    """build_search_aux_device (torch ops) equals the JAX build_search_aux
+    and the port's numpy build_search_aux array for array: both modes,
+    key words with and without key2, MAX_DIRECT_BITS capped (w20 capped),
+    fewer than 16 unique keys, keys past the width's range (their top-32
+    image out of order; in binary mode at 16 and 17 bucket bits), no keys
+    at all."""
+    if case.endswith("capped"):
+        monkeypatch.setattr(tindex, "MAX_DIRECT_BITS", 15)
+        monkeypatch.setattr(jindex, "MAX_DIRECT_BITS", 15)
+    k1, k2, width = _aux_table(case, np.random.default_rng(len(case)))
+    new_run = np.concatenate([[True], (k1[1:] != k1[:-1]) | (k2[1:] != k2[:-1])])[:k1.size]
+    starts = np.flatnonzero(new_run).astype(np.int32)
+    counts = np.diff(np.append(starts, len(k1))).astype(np.int32)
+    exp = jindex.build_search_aux(k1[starts], k2[starts], starts, counts, width)
+    got = tindex.build_search_aux_device(_t(k1), _t(k2), width)
+    assert got.mode == _AUX_CASES[case]
+    _assert_same_aux(got, exp)
+    _assert_same_aux(got, tindex.build_search_aux(k1[starts], k2[starts], starts, counts,
+                                                  width, "cpu"))
+
+
+def _per_query(n, qid, counts, loc):
+    """(counts, loc) of each query id from a probe's slots."""
+    c, lo = np.zeros(n, np.int64), np.zeros(n, np.int64)
+    qid = np.asarray(qid).astype(np.int64)
+    c[qid], lo[qid] = np.asarray(counts), np.asarray(loc)
+    return c, lo
+
+
+@pytest.mark.parametrize("width,mode", [(20, "direct"), (12, "direct"), (20, "binary"),
+                                        (13, "binary")])
+def test_probe_twins_match_jax_bodies(workload, jax_workload, monkeypatch, width, mode):
+    """direct_probe_torch and binary_probe_torch on the port's sorted
+    queries give each query the JAX probe body's (count, loc), read off
+    the JAX stage's slots by query id (both ends of the compaction are
+    permutations of every query): exact, hits under an invalid query's
+    start included."""
+    if width == 13:
+        (trs, tts), (jrs, jts) = _skewed_sets(_PORT_MODS), _skewed_sets(_JAX_MODS)
+        windows, min_dinuc = (0,), 0
+    else:
+        (trs, tts), (jrs, jts) = workload, jax_workload
+        windows, min_dinuc = WINDOWS, 3
+    if mode == "binary" and width == 20:
+        monkeypatch.setattr(tindex, "MAX_DIRECT_BITS", 15)
+        monkeypatch.setattr(jindex, "MAX_DIRECT_BITS", 15)
+    tidx = tindex.build_target_index(tts, width, "cpu")
+    jidx = jindex.build_target_index(jts, width)
+    taux, jaux = tidx.search_aux(), jidx.search_aux()
+    assert taux.mode == jaux.mode == mode
+    n = min(trs.codes.shape[0], 2048)
+    tin = (tpacked.pack_rows(torch.from_numpy(np.array(trs.codes[:n]))),
+           torch.from_numpy(np.asarray(trs.lengths[:n], np.int32)))
+    jin = (jpacked.pack_rows(jnp.asarray(jrs.codes[:n])), jnp.asarray(jrs.lengths[:n]))
+    exp = jfused.probe_windows(*jin, jnp.asarray(np.asarray(windows, np.int32)), jidx.skeys,
+                               width=width, min_dinuc=min_dinuc, index_aux=jaux)
+    _, (keyf, key2f, validf, qid) = tfused._sorted_queries(
+        *tin, windows, width=width, min_dinuc=min_dinuc)
+    use_k2 = width > 13
+    if mode == "direct":
+        counts, loc = tsearch.direct_probe_torch(
+            keyf, key2f, validf, taux.urec, taux.sbucket, upshift=taux.upshift,
+            bucket_bits=taux.bucket_bits, bucket_width=tindex.DIRECT_BUCKET_WIDTH,
+            use_k2=use_k2)
+    else:
+        counts, loc = tsearch.binary_probe_torch(
+            keyf, key2f, validf, taux.ukeys, taux.ukeys2, taux.ukk, taux.ustart, taux.ucount,
+            taux.sbucket, upshift=taux.upshift, bucket_bits=taux.bucket_bits,
+            probe_steps=taux.probe_steps, use_k2=use_k2)
+    nq = keyf.shape[0]
+    got = _per_query(nq, qid.numpy(), counts.numpy(), loc.numpy())
+    want = _per_query(nq, exp[2], exp[0], exp[1])
+    assert (got[0] > 0).sum() > 10
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("case", list(probe_cases.cases()))
+def test_probe_kernel_model_matches_twin(case):
+    """A per-query model of each kernel's loop (csrc/probe.cu: B8 scans
+    min(bucket size, width) records, B9 stops its search once lo == hi and
+    reads the keys as ukk's pairs) equals the twin on every query of the
+    branch cases that the card's tests and chip_smoke.py hold the kernels
+    to; on the CPU the wrappers are the twins and launch nothing."""
+    kind, aux, width, q = probe_cases.cases()[case]
+    args, kw = probe_cases.probe_args(kind, aux, width, q)
+    wrapper, twin, model = {
+        "direct": (tsearch.direct_probe, tsearch.direct_probe_torch, probe_cases.direct_model),
+        "binary": (tsearch.binary_probe, tsearch.binary_probe_torch, probe_cases.binary_model),
+    }[kind]
+    before = wrapper.launches
+    got = wrapper(*args, **kw)
+    assert wrapper.launches == before
+    for a, b in zip(got, twin(*args, **kw)):
+        assert a.dtype == torch.int32 and torch.equal(a, b)
+    counts, loc = model(*args, **kw)
+    assert (counts > 0).sum() > 10 and (~q[2]).any()
+    np.testing.assert_array_equal(got[0].numpy(), counts)
+    np.testing.assert_array_equal(got[1].numpy().view(np.uint32), loc.astype(np.uint32))
+
+
+def test_probe_wrappers_refuse_other_devices():
+    """A tensor neither on the CPU nor on a CUDA device never reaches a
+    twin: the wrappers raise."""
+    kind, aux, width, q = probe_cases.cases()["w20 direct"]
+    args, kw = probe_cases.probe_args(kind, aux, width, q)
+    with pytest.raises(ValueError, match="direct_probe"):
+        tsearch.direct_probe(args[0].to("meta"), *args[1:], **kw)
+    kind, aux, width, q = probe_cases.cases()["w20 binary"]
+    args, kw = probe_cases.probe_args(kind, aux, width, q)
+    with pytest.raises(ValueError, match="binary_probe"):
+        tsearch.binary_probe(*args[:-1], args[-1].to("meta"), **kw)
+
+
+@pytest.mark.parametrize("mode", ["direct", "binary"])
+def test_search_probe_report_bytes_match_jax(workload, jax_workload, monkeypatch, tmp_path,
+                                             mode):
+    """Whole runs through probe="search" in each mode: the four report
+    files the port writes from its MatchResult equal the JAX package's
+    from its own run."""
+    if mode == "binary":
+        monkeypatch.setattr(tindex, "MAX_DIRECT_BITS", 15)
+        monkeypatch.setattr(jindex, "MAX_DIRECT_BITS", 15)
+    cfg = _cfg()
+    jmr = _jax_run(jax_workload, cfg, "search")
+    index = tpipeline.build_target_index(workload[1], 20, "cpu")
+    timings = {}
+    mr = tpipeline.run_matching_indexed(cfg, workload[0], index, probe="search",
+                                        timings=timings)
+    assert timings["probe_kind"] == mode and len(mr.read_row) > 0
+    files = {}
+    for mod, name, m, (rs, ts) in ((treport, "t.txt", mr, workload),
+                                   (jreport, "j.txt", jmr, jax_workload)):
+        path = str(tmp_path / name)
+        table = mod.write_results(path, m, rs, ts)
+        mod.write_nonmatch(path, m, rs)
+        mod.write_readstats(path, table)
+        mod.write_genestats(path, table)
+        files[name] = [open(p, "rb").read() for p in (
+            path, mod.nonmatch_path(path), mod._stats_path(path, "readstats"),
+            mod._stats_path(path, "genestats"))]
+    assert files["t.txt"] == files["j.txt"]
+
+
+def _chip_smoke():
+    """chip_smoke.py at the repository root, imported by path."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("case", ["w20 direct", "w12 binary", "binary, full steps"])
+def test_probe_bounds_count_what_the_kernels_read(case):
+    """chip_smoke's bytes of B8 and B9 (call_work: each table entry read
+    once) and their 32-byte sectors (probe_sector_bytes) equal a count,
+    entry by entry, of what each kernel's per-query model reads, beside
+    the query arrays and the two outputs whole."""
+    kind, aux, width, q = probe_cases.cases()[case]
+    args, kw = probe_cases.probe_args(kind, aux, width, q)
+    entries = set()
+    model = probe_cases.direct_model if kind == "direct" else probe_cases.binary_model
+    model(*args, **kw, touch=lambda array, index, nbytes: entries.add((array, index, nbytes)))
+    nq, k2 = q[0].numel(), int(kw["use_k2"])
+    per_query = 4 + 4 * k2 + 1 + 8  # key1, key2, validity, counts and loc
+    cs = _chip_smoke()
+    name = f"{kind}_probe"
+    assert cs.call_work(name, args, kw)[0] == nq * per_query + sum(e[2] for e in entries)
+    sectors = {(array, (index * nbytes + byte) >> 5) for array, index, nbytes in entries
+               for byte in range(nbytes)}
+    whole = sum(-(-nbytes // 32) for nbytes in [4 * nq] * (3 + k2) + [nq])
+    assert cs.probe_sector_bytes(name, args, kw) == 32 * (whole + len(sectors))
