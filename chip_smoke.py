@@ -6,10 +6,10 @@
 Run from the root of a checkout.  It builds the nine CUDA kernels from
 muscato_tpu_torch/csrc with nvcc (one process per source, in parallel),
 a variant of them built with -DMUSCATO_NO_STAGE (B1 and B4 never stage a
-span, B5 stages by a copy loop, B7 reads every word from global memory)
-and variants of csrc/expand.cu built with other constants (B2: tiles a
-warp, register cut; B6: ring depth, lo and qid in the ring or not, lanes a
-warp, register cut), all at once, then:
+span, B5 stages by a copy loop, B7 reads every word from global memory, B8
+and B9 take one thread a query) and variants of csrc/expand.cu built with
+other constants (B2: tiles a warp, register cut; B6: ring depth, lo and
+qid in the ring or not, lanes a warp, register cut), all at once, then:
 
   1. prints the card (nvidia-smi name and power limit), torch and CUDA
      versions, the kernel build times, and the integer rate the bounds
@@ -68,7 +68,11 @@ warp, register cut), all at once, then:
      times and the device build's peak memory; then a shard of 1.5e9
      bases, the largest the driver's auto mesh gives, built on the card
      by mesh.shard_targets, with its seconds and peak memory, its window
-     count, key order, positions and sampled keys checked; then matches
+     count, key order, positions and sampled keys checked, its search
+     aux's peak, and B9 on that aux (binary on its own: hashed keys, 22
+     bucket bits) beside the one-thread build in turns; then B9 so on a
+     1e8-base AT-rich genome's index at width 13 (exact base-5 keys, a
+     skewed aux, binary on its own); then matches
      100k reads of
      the flagship workload against the FULL 100M-base index through
      engine_device_check: the default path, MUSCATO_PJOIN=0 (the
@@ -109,15 +113,19 @@ warp, register cut), all at once, then:
      once more alone) and device bytes, and prints ENGINE_RESULTS (path
      -> true); then B8 and B9 against their twins at 1,048,576 sorted
      queries of the flagship's reads against the full index's direct and
-     binary aux, timed with their bounds and torch.searchsorted's time
-     over the same unique keys, and exact on the branch cases of
-     tests/probe_cases.py; then times
+     binary aux, timed with their bounds, torch.searchsorted's time
+     over the same unique keys and a floor (an index_select of one word
+     of each table sector any exact probe reads), the one-thread build
+     exact and timed against them in turns, and both builds exact on the
+     branch cases of tests/probe_cases.py; then times
      the probe stage on the direct and the binary search probe and the
      sorted join
      at 16,384, 65,536, 262,144 and 1,048,576 reads a batch (the first 4
-     batches of each); then runs the flagship in batches of 262,144 reads
+     batches of each), and cuts each probe's stage into its parts at
+     262,144 and 1,048,576 reads; then profiles B9 on one binary-mode
+     batch of 262,144 reads; then runs the flagship in batches of 262,144 reads
      (16 batches; the engine must auto-select the direct probe, B8 once a
-     batch) and of
+     batch; its profile prints B8's call site) and of
      1,048,576 reads (4 batches, sorted join) with the next batch's probe
      queued ahead of the wait on the current batch's total and under
      MUSCATO_PREFETCH_PROBE=0 (the upload goes ahead in both), in turns,
@@ -271,6 +279,7 @@ SEARCH_PATH = ("window_queries", "direct_probe", "expand_owners", "monotone_gath
 SMALL_BATCH, MULTI_BATCH = 1 << 18, 1 << 20
 CROSSOVER_BATCHES = (1 << 14, 1 << 16, 1 << 18, 1 << 20)
 CROSSOVER_DEPTH = 4
+SPLIT_BATCHES = (1 << 18, 1 << 20)  # the probe stage cut into its parts
 RUNNER_REPEATS = 2
 # The device mesh: a 1x1 mesh of this process on NCCL, and a 2x2 mesh of
 # MESH_RANKS gloo processes that share the one card (NCCL refuses two
@@ -283,6 +292,13 @@ RUNNER_SMALL = ["--Workload", "small", "--NumRead", "1000000", "--Repeats", "2"]
 # _choose_mesh keeps every shard under 1.5e9 bases), built on the card as a
 # mesh rank builds it, in genes of 1,000-19,999 bases.
 BIG_SHARD_BASES = 1_500_000_000
+# B9 where the binary mode is the fallback for skewed keys: an AT-rich
+# genome (codes A, C, G, T drawn 4:1:1:4, as in AT-rich genomes such as
+# Plasmodium's) indexed at the widest width whose keys are the windows'
+# exact base-5 codes; its direct layout overflows, so its aux is binary.
+SKEW_BASES, SKEW_WIDTH = 100_000_000, 13
+SKEW_CODES = (0, 0, 0, 0, 1, 2, 3, 3, 3, 3)
+PROBE_QUERIES = 1 << 20  # B9's sorted queries on those auxes
 # Where the engine calls each kernel wrapper (module, attribute; fused
 # reaches B1 through its reference to the join module), and each kernel's
 # CUDA symbol as a profile names it.
@@ -299,6 +315,7 @@ SYMBOLS = {
     "verify_diagonals_swar": "verify_diagonals_kernel",
     "direct_probe": "direct_probe_kernel", "binary_probe": "binary_probe_kernel",
 }
+PROFILE_TRIES = 3  # profiled runs kernel_profile makes before a count mismatch fails
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM peak memory rate (NVIDIA data sheet)
 # 32-bit integer results a clock on one SM, for each of its two integer
 # pipes: multiply-add, and add/compare/shift/logic (the table of
@@ -540,7 +557,7 @@ def binary_replay(args, kw) -> tuple:
     keyf, key2f, validf, ukeys, ukeys2, *_, sbucket = args
     n = ukeys.numel()
     key = packed_keys(keyf, key2f, kw["use_k2"])
-    ent = packed_keys(ukeys, ukeys2, kw["use_k2"])
+    ent = lambda at: packed_keys(ukeys[at], ukeys2[at], kw["use_k2"])  # noqa: E731
     b = sops.bucket_of(keyf, kw["upshift"], kw["bucket_bits"])
     lo, hi = sbucket[b].long(), sbucket[b + 1].long()
     read, rounds = [], 0
@@ -549,27 +566,33 @@ def binary_replay(args, kw) -> tuple:
         mid = (lo + hi) >> 1
         read.append(mid[act])
         rounds += int(act.sum())
-        right = act & (ent[mid.clamp(max=n - 1)] < key)
+        right = act & (ent(mid.clamp(max=n - 1)) < key)
         lo = torch.where(right, mid + 1, lo)
         hi = torch.where(act & ~right, mid, hi)
     at = lo.clamp(max=n - 1)
-    hit = validf & (lo < n) & (ent[at] == key)
+    hit = validf & (lo < n) & (ent(at) == key)
     return torch.cat(read + [at]), at[hit], rounds
 
 
-def sector_count(first, nbytes) -> int:
-    """Distinct 32-byte sectors of the byte spans [first, first + nbytes)
-    (int64 tensors; spans of no bytes touch none)."""
+def sector_ids(first, nbytes):
+    """The distinct 32-byte sectors (ascending int64 ids, byte // 32) of the
+    byte spans [first, first + nbytes) (int64 tensors; spans of no bytes
+    touch none)."""
     import torch
 
     if torch.is_tensor(nbytes):
         keep = nbytes > 0
         first, nbytes = first[keep], nbytes[keep]
     if first.numel() == 0:
-        return 0
+        return first.new_empty(0, dtype=torch.int64)
     a, b = first >> 5, (first + nbytes - 1) >> 5
     at = a[:, None] + torch.arange(int((b - a).max()) + 1, device=a.device)
-    return torch.unique(at[at <= b[:, None]]).numel()
+    return torch.unique(at[at <= b[:, None]])
+
+
+def sector_count(first, nbytes) -> int:
+    """How many distinct 32-byte sectors (sector_ids) the spans touch."""
+    return sector_ids(first, nbytes).numel()
 
 
 def probe_sector_bytes(kernel: str, args, kw) -> int:
@@ -1712,7 +1735,11 @@ def kernel_profile(dev, cfg, rs, index, unstaged=None) -> dict:
     own inputs through the staged kernel and the unstaged one in turns (ms
     a batch, each call timed alone).  Fails if the profile holds no device time,
     or if it counts other launches of a port kernel than the calls the
-    hook recorded (a call site missing from CALL_POINTS)."""
+    hook recorded (a call site missing from CALL_POINTS).  The profiler
+    can miss a launch now and then (on an H100 it once listed 3 of the 4
+    B5 launches that the hook saw in a 4-batch run), so a run whose counts
+    disagree is profiled again, up to PROFILE_TRIES runs in all; a missing
+    call site disagrees in every one."""
     import re
 
     import torch
@@ -1721,19 +1748,28 @@ def kernel_profile(dev, cfg, rs, index, unstaged=None) -> dict:
     from muscato_tpu_torch.bench import profile_match
     from muscato_tpu_torch.engine import pipeline
 
-    torch.cuda.synchronize(dev)
-    with recorded_calls() as calls, profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        pipeline.run_matching_indexed(cfg, rs, index)
-        torch.cuda.synchronize(dev)
-        wall = time.perf_counter() - t0
-    evs = profile_match.device_events(prof)
-    check(evs, "the profiler recorded no device time")
-    out = dict(source="torch.profiler", wall_s=wall)
     pats = {k: re.compile(r"(?<![\w])" + sym + r"\b") for k, sym in SYMBOLS.items()}
-    per_launch = {k: [(e.time_range.end - e.time_range.start) / 1e3
-                      for e in evs if p.search(e.name)] for k, p in pats.items()}
+    for attempt in range(1, PROFILE_TRIES + 1):
+        torch.cuda.synchronize(dev)
+        with recorded_calls() as calls, profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            pipeline.run_matching_indexed(cfg, rs, index)
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t0
+        evs = profile_match.device_events(prof)
+        check(evs, "the profiler recorded no device time")
+        per_launch = {k: [(e.time_range.end - e.time_range.start) / 1e3
+                          for e in evs if p.search(e.name)] for k, p in pats.items()}
+        lost = {k: (len(v), sum(c["kernel"] == k for c in calls))
+                for k, v in per_launch.items()}
+        lost = {k: n for k, n in lost.items() if n[0] != n[1]}
+        if not lost or attempt == PROFILE_TRIES:
+            break
+        print(f"kernel profile, run {attempt}: the profile's launches disagree with the "
+              f"hook's calls (kernel: [profile, hook]) {json.dumps(lost)}; profiled again",
+              flush=True)
+    out = dict(source="torch.profiler", wall_s=wall, profile_runs=attempt)
     by_name = profile_match.kernel_table(evs, lambda n: next(
         (k for k, p in pats.items() if p.search(n)), profile_match.short_name(n)))
     starts = [e.time_range.start for e in evs if pats["window_queries"].search(e.name)]
@@ -1936,7 +1972,241 @@ def probe_crossover(dev, cfg, rs, index, auxes) -> dict:
     return out
 
 
-def probe_kernel_phase(dev, cfg, rs, auxes) -> dict:
+def probe_stage_split(dev, cfg, rs, index, auxes, size) -> dict:
+    """The probe stage of the flagship's first ``size`` reads cut into its
+    parts, each timed alone on the inputs the part before it made
+    (time_ms, back to back): for the direct and the binary search probe
+    B5, the (key1, key2) int64 key and its stable sort, the three query
+    gathers into sorted order, the kernel (B8 or B9), and the (inactive,
+    loc) int64 sort with its gathers (fused._compact_lo_order); for the
+    sorted join B5, the key1 int32 sort, the qid gather, B1 and the
+    (inactive, lo) int32 sort with its gathers; each beside the whole
+    stage (fused.probe_windows)."""
+    import torch
+
+    from muscato_tpu_torch.engine import pipeline
+    from muscato_tpu_torch.engine.index import DIRECT_BUCKET_WIDTH
+    from muscato_tpu_torch.ops import fused, search as sops, windows as winops
+    from muscato_tpu_torch.ops import join as tjoin
+    from muscato_tpu_torch.ops.packed import u64
+
+    l_eff = int(rs.lengths.max())
+    rpacked, lengths = pipeline._device_read_batch(rs, 0, size, l_eff, dev)
+    q1s, width = tuple(cfg.Windows), cfg.WindowWidth
+    wq = dict(width=width, min_dinuc=cfg.MinDinuc)
+    use_k2 = winops.uses_second_key(width)
+    b2b = lambda f: time_ms(f, inner=10)  # noqa: E731
+    keyf0, key2f0, validf0 = fused.window_queries(rpacked, lengths, q1s, **wq)
+    out = {}
+    _, order = torch.sort(fused._key_u(u64(keyf0), u64(key2f0)), stable=True)
+    keyf, key2f, validf = keyf0[order], key2f0[order], validf0[order]
+    qid = order.to(torch.int32)
+    for mode in ("direct", "binary"):
+        aux = auxes[mode]
+        if mode == "direct":
+            args = (keyf, key2f, validf, aux.urec, aux.sbucket)
+            kw = dict(upshift=aux.upshift, bucket_bits=aux.bucket_bits,
+                      bucket_width=DIRECT_BUCKET_WIDTH, use_k2=use_k2)
+        else:
+            args = (keyf, key2f, validf, aux.ukeys, aux.ukeys2, aux.ukk, aux.ustart,
+                    aux.ucount, aux.sbucket)
+            kw = dict(upshift=aux.upshift, bucket_bits=aux.bucket_bits,
+                      probe_steps=aux.probe_steps, use_k2=use_k2)
+        kernel = f"{mode}_probe"
+        counts, loc = launch_probe(kernel, None, args, kw)
+        parts = {
+            "window_queries (B5)": b2b(lambda: fused.window_queries(rpacked, lengths, q1s, **wq)),
+            "(key1, key2) int64 key and stable sort": b2b(lambda: torch.sort(
+                fused._key_u(u64(keyf0), u64(key2f0)), stable=True)),
+            "three query gathers": b2b(lambda: (keyf0[order], key2f0[order],
+                                                validf0[order], order.to(torch.int32))),
+            f"{kernel} ({'B8' if mode == 'direct' else 'B9'})": b2b(
+                lambda: launch_probe(kernel, None, args, kw)),
+            "(inactive, loc) int64 sort and its gathers": b2b(
+                lambda: fused._compact_lo_order(loc, counts, qid, keyf0, key2f0)),
+        }
+        out[mode] = dict(parts=parts, parts_sum=sum(parts.values()), stage=b2b(
+            lambda: fused.probe_windows(rpacked, lengths, q1s, index.skeys, **wq,
+                                        index_aux=aux)))
+    del keyf, key2f, validf, qid, counts, loc, order
+    ks_flip, order = torch.sort(tjoin.flip(keyf0))
+    keys = tjoin.flip(ks_flip)
+    lo_m, counts_m, _ = tjoin.sorted_join(index.skeys, keys)
+    qid_pay = torch.where(validf0, torch.arange(keyf0.numel(), dtype=torch.int32,
+                                                device=dev), -1)
+    packed_key = ((counts_m == 0).to(torch.int32) << 30) | lo_m.clamp(0, (1 << 30) - 1)
+    parts = {
+        "window_queries (B5)": b2b(lambda: fused.window_queries(rpacked, lengths, q1s, **wq)),
+        "key1 int32 sort": b2b(lambda: torch.sort(tjoin.flip(keyf0))),
+        "qid gather": b2b(lambda: qid_pay[order]),
+        "sorted_join (B1)": b2b(lambda: tjoin.sorted_join(index.skeys, keys)),
+        "(inactive, lo) int32 sort and its gathers": b2b(lambda: (
+            lambda o: (counts_m[o[1]], qid_pay[o[1]]))(torch.sort(packed_key))),
+    }
+    out["sorted_join"] = dict(parts=parts, parts_sum=sum(parts.values()), stage=b2b(
+        lambda: fused.probe_windows(rpacked, lengths, q1s, index.skeys, **wq)))
+    return out
+
+
+def binary_batch_profile(dev, cfg, rs, index, aux) -> list:
+    """kernel_profile of one binary-mode batch: the flagship's first
+    SMALL_BATCH reads as one batch with the binary aux in the index's
+    place (the engine picks the search probe, as the 16-batch flagship
+    does, and the aux's mode selects B9).  Returns B9's sites."""
+    import dataclasses
+
+    from muscato_tpu_torch.engine import pipeline
+    from muscato_tpu_torch.io.reads import ReadSet
+
+    sub = ReadSet(codes=rs.codes[:SMALL_BATCH], lengths=rs.lengths[:SMALL_BATCH],
+                  counts=rs.counts[:SMALL_BATCH], num_total=SMALL_BATCH)
+    cfg_b = dataclasses.replace(cfg, ReadBatch=SMALL_BATCH)
+    saved, index._aux = index._aux, aux
+    try:
+        timings = {}
+        pipeline.run_matching_indexed(cfg_b, sub, index, timings=timings)
+        check(timings["probe_kind"] == "binary", f"binary batch: {timings['probe_kind']}")
+        sub._dev_cache = None  # the profiled run uploads its reads, as a user's run does
+        prof = kernel_profile(dev, cfg_b, sub, index)
+    finally:
+        index._aux = saved
+    sites = [s for s in prof["sites"] if s["kernel"] == "binary_probe"]
+    check(sum(s["launches"] for s in sites) == 1, f"binary batch: B9's sites {sites}")
+    return sites
+
+
+def probe_floor(kernel: str, args, kw) -> tuple:
+    """A plain gather of the table sectors that any exact B8 or B9 must
+    read, one int32 word from each distinct 32-byte sector, by index_select
+    with int32 indices computed ahead into outputs allocated ahead, so that
+    no load waits on another and nothing else runs: the sectors of the
+    queries' bucket bounds; B8's of each query's bucket records (at most
+    bucket_width); B9's of the key pairs on either side of each valid
+    query's insertion point inside its bucket (which prove it) and of the
+    hits' (start, count) pairs.  The query arrays and the outputs, which
+    the kernels stream, are left out.  Returns (the function to time, the
+    sectors it reads, the bytes it moves: 32 a sector, its 4-byte output
+    word and its index, 4 bytes, 8 for a table past 2^31 words)."""
+    import torch
+
+    from muscato_tpu_torch.ops import search as sops
+
+    keyf, key2f, validf, *tables = args
+    sbucket = tables[-1]
+    b = sops.bucket_of(keyf, kw["upshift"], kw["bucket_bits"])
+    lo, hi = sbucket[b].long(), sbucket[b + 1].long()
+    spans = [(sbucket, sector_ids(b * 4, 8))]
+    if kernel == "direct_probe":
+        nb = (hi - lo).clamp(0, kw["bucket_width"])
+        spans.append((tables[0], sector_ids(lo * 16, nb * 16)))
+    else:
+        ukeys, ukeys2, ukk, ustart = tables[:4]
+        p = sops.searchsorted2_bucketed(  # the insertion point, inside [lo, hi]
+            ukeys, ukeys2, keyf, key2f, sbucket, upshift=kw["upshift"],
+            steps=kw["probe_steps"], use_k2=kw["use_k2"], bucket_bits=kw["bucket_bits"])
+        below = validf & (p > lo)
+        above = validf & (p < hi)
+        at = torch.cat([p[below] - 1, p[above]])
+        q = packed_keys(keyf[above], key2f[above], kw["use_k2"])
+        hits = p[above][packed_keys(ukeys[p[above]], ukeys2[p[above]], kw["use_k2"]) == q]
+        pairs = ustart.as_strided((2 * ukeys.numel(),), (1,))
+        spans += [(ukk, sector_ids(at * 8, 8)), (pairs, sector_ids(hits * 8, 8))]
+    gathers = []
+    for table, sec in spans:
+        # The sector's first int32 word; int64 only past 2^31 words.
+        idx = (sec * 8).to(torch.int32 if table.numel() < 2**31 else torch.int64)
+        gathers.append((table.view(-1), idx, table.new_empty(idx.numel())))
+    sectors = sum(idx.numel() for _, idx, _ in gathers)
+
+    def run():
+        for table, idx, out in gathers:
+            torch.index_select(table, 0, idx, out=out)
+
+    return run, sectors, sum((36 + idx.element_size()) * idx.numel() for _, idx, _ in gathers)
+
+
+def launch_probe(kernel: str, lib, args, kw):
+    """B8 or B9 of the kernel library ``lib`` (the -DMUSCATO_NO_STAGE build;
+    None the default library) on a wrapper's arguments, launched as the
+    wrapper launches it, counting nothing."""
+    from muscato_tpu_torch.ops import search as sops
+
+    if kernel == "direct_probe":
+        return sops._launch_direct(*args, **kw, lib=lib)
+    keyf, key2f, validf, ukeys, _, ukk, ustart, _, sbucket = args
+    return sops._launch_binary(keyf, key2f, validf, ukk, ustart, ukeys.numel(), sbucket,
+                               **kw, lib=lib)
+
+
+def probe_builds(unstaged) -> dict:
+    """{label: kernel library} of the builds of csrc/probe.cu: the default
+    one (None) and, given, the -DMUSCATO_NO_STAGE one."""
+    return {"default build": None,
+            **({"one thread a query (-DMUSCATO_NO_STAGE)": unstaged} if unstaged else {})}
+
+
+def probe_builds_in_turns(kernel: str, args, kw, unstaged) -> dict:
+    """The default build's B8 or B9 and, given ``unstaged``, the
+    -DMUSCATO_NO_STAGE build's (the first design), each exact against the
+    twin on ``args``, then timed in turns (one call and back to back, three
+    turns, the second in reverse order).  Returns {build: {"ms": [...],
+    "back_to_back_ms": [...]}}."""
+    from muscato_tpu_torch.ops import search as sops
+
+    twin = {"direct_probe": sops.direct_probe_torch,
+            "binary_probe": sops.binary_probe_torch}[kernel]
+    builds = probe_builds(unstaged)
+    exp = twin(*args, **kw)
+    for label, lib in builds.items():
+        _compare(f"{kernel} {label}", launch_probe(kernel, lib, args, kw), exp)
+    del exp
+    turns = {}
+    for order in (list(builds), list(builds)[::-1], list(builds)):
+        for label in order:
+            f = functools.partial(launch_probe, kernel, builds[label], args, kw)
+            t = turns.setdefault(label, {"ms": [], "back_to_back_ms": []})
+            t["ms"].append(time_ms(f))
+            t["back_to_back_ms"].append(time_ms(f, inner=10))
+    return turns
+
+
+def binary_args(aux, keyf, key2f, validf, use_k2) -> tuple:
+    """B9's wrapper arguments for the sorted queries against a binary aux."""
+    return ((keyf, key2f, validf, aux.ukeys, aux.ukeys2, aux.ukk, aux.ustart, aux.ucount,
+             aux.sbucket),
+            dict(upshift=aux.upshift, bucket_bits=aux.bucket_bits,
+                 probe_steps=aux.probe_steps, use_k2=use_k2))
+
+
+def sorted_query_arrays(k1, k2, use_k2) -> tuple:
+    """(keyf, key2f, validf) of the int32 key words k1, k2 sorted by (key1,
+    key2) as uint32, every query valid, as the main path gives B9 its
+    queries."""
+    import torch
+
+    order = torch.argsort(packed_keys(k1, k2, use_k2))
+    keyf, key2f = k1[order].contiguous(), k2[order].contiguous()
+    return keyf, key2f, torch.ones_like(keyf, dtype=torch.bool)
+
+
+def native_binary_b9(label: str, aux, keyf, key2f, validf, use_k2, unstaged) -> dict:
+    """B9 on a binary aux that took that mode on its own: both builds exact
+    and in turns (probe_builds_in_turns), beside PR 13's sector bound and
+    the floor; printed and returned."""
+    args, kw = binary_args(aux, keyf, key2f, validf, use_k2)
+    floor, sectors, nbytes = probe_floor("binary_probe", args, kw)
+    out = dict(queries=keyf.numel(), unique_keys=aux.ukeys.numel(),
+               bucket_bits=aux.bucket_bits, probe_steps=aux.probe_steps,
+               sector_bound_ms=probe_sector_bytes("binary_probe", args, kw)
+               / HBM_BYTES_PER_S * 1e3,
+               floor_ms=time_ms(floor, inner=10), floor_sectors=sectors, floor_bytes=nbytes,
+               builds_in_turns=probe_builds_in_turns("binary_probe", args, kw, unstaged))
+    print(f"B9 on {label} (binary on its own), each build exact vs twin: " + json.dumps(out),
+          flush=True)
+    return out
+
+
+def probe_kernel_phase(dev, cfg, rs, auxes, unstaged=None) -> dict:
     """B8 and B9 (csrc/probe.cu) at the main path's shape: the sorted
     queries of the flagship's first SMALL_BATCH reads (4 windows x 262,144
     = 1,048,576, as the 16-batch flagship's first batch gives them to B8)
@@ -1945,8 +2215,13 @@ def probe_kernel_phase(dev, cfg, rs, auxes) -> dict:
     query and measured (measure_case; the library call: torch.searchsorted
     of the packed queries into the aux's unique keys packed into int64,
     packed outside the timed window, which finds the same insertion
-    points); then both exact against their twins on the branch cases of
-    tests/probe_cases.py.  Returns {name: measure_case numbers}."""
+    points), beside its sector bound and its floor (probe_floor, back to
+    back); then the default and, given ``unstaged``, the
+    -DMUSCATO_NO_STAGE build (the first design's one-thread kernels) in
+    turns (probe_builds_in_turns); then both builds exact against the twins
+    on the branch cases of tests/probe_cases.py.  Returns {name:
+    measure_case numbers, with floor_ms, floor_sectors, floor_bytes and
+    builds_in_turns}."""
     import torch
 
     from muscato_tpu_torch.engine import pipeline
@@ -1981,37 +2256,47 @@ def probe_kernel_phase(dev, cfg, rs, auxes) -> dict:
             ent = packed_keys(rec[:, 0], rec[:, 1], use_k2)
             shape = f"{aux.bucket_bits} bucket bits, {rec.shape[0]} unique keys"
         else:
-            args = (keyf, key2f, validf, aux.ukeys, aux.ukeys2, aux.ukk, aux.ustart,
-                    aux.ucount, aux.sbucket)
-            kw = dict(upshift=aux.upshift, bucket_bits=aux.bucket_bits,
-                      probe_steps=aux.probe_steps, use_k2=use_k2)
+            args, kw = binary_args(aux, keyf, key2f, validf, use_k2)
             ent = packed_keys(aux.ukeys, aux.ukeys2, use_k2)
             shape = (f"{aux.bucket_bits} bucket bits, {aux.probe_steps} steps, "
                      f"{ent.numel()} unique keys")
-        out[name] = measure_case(
+        res = out[name] = measure_case(
             name, lambda: fn(*args, **kw), lambda: twin(*args, **kw),
             lambda: torch.searchsorted(ent, query), call_work(name, args, kw),
             f"{keyf.numel()} sorted queries ({int(validf.sum())} valid) against the "
             f"flagship's {mode} aux: {shape}")
-        out[name]["sector_bound_ms"] = (probe_sector_bytes(name, args, kw)
-                                        / HBM_BYTES_PER_S * 1e3)
         del ent
-    edge = []
-    for label, (mode, aux, width, q) in probe_cases.cases(SEED, 4).items():
-        args, kw = probe_cases.probe_args(mode, aux, width, q)
-        fn, twin = kernels[mode]
-        got = fn(*(a.to(dev) for a in args), **kw)
-        _compare(f"{fn.__name__} {label}", tuple(t.cpu() for t in got), twin(*args, **kw))
-        edge.append(f"{fn.__name__} {label} ({q[0].numel()} queries)")
-    for name, r in out.items():
+        res["sector_bound_ms"] = probe_sector_bytes(name, args, kw) / HBM_BYTES_PER_S * 1e3
+        floor, res["floor_sectors"], res["floor_bytes"] = probe_floor(name, args, kw)
+        res["floor_ms"] = time_ms(floor, inner=10)
+        del floor
+        res["builds_in_turns"] = probe_builds_in_turns(name, args, kw, unstaged)
+        r = res
         print(f"kernel {name}: exact vs twin; {r['ms']:.4f} ms a call ({r['back_to_back_ms']:.4f} "
               f"back to back; host {r['host_ms']:.4f} ms a call over 100 unsynchronised "
               f"calls; plain twin {r['plain_ms']:.3f} ms; torch.searchsorted "
               f"{r['library_ms']:.4f} ms ({r['library_back_to_back_ms']:.4f} back to back); "
               f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}: bytes "
               f"{r['bytes_bound_ms']:.4f}, operations {r['ops_bound_ms']:.4f}; by its 32-byte "
-              f"sectors {r['sector_bound_ms']:.4f}) at {r['shapes']}", flush=True)
-    print("probe kernel branch cases exact vs twin: " + "; ".join(edge), flush=True)
+              f"sectors {r['sector_bound_ms']:.4f}; floor, index_select of a word of each of "
+              f"the {r['floor_sectors']} table sectors any exact probe reads "
+              f"({r['floor_bytes']} bytes), {r['floor_ms']:.4f} back to back) at {r['shapes']}; "
+              f"builds, each exact vs twin, in turns (ms): {json.dumps(r['builds_in_turns'])}",
+              flush=True)
+    edge = []
+    libs = probe_builds(unstaged)
+    for label, (mode, aux, width, q) in probe_cases.cases(SEED, 4).items():
+        args, kw = probe_cases.probe_args(mode, aux, width, q)
+        fn, twin = kernels[mode]
+        exp = twin(*args, **kw)
+        dargs = probe_cases.to_device(mode, args, dev)
+        _compare(f"{fn.__name__} {label}", tuple(t.cpu() for t in fn(*dargs, **kw)), exp)
+        for build, lib in libs.items():
+            _compare(f"{fn.__name__} {label}, {build}", tuple(
+                t.cpu() for t in launch_probe(fn.__name__, lib, dargs, kw)), exp)
+        edge.append(f"{fn.__name__} {label} ({q[0].numel()} queries)")
+    print(f"probe kernel branch cases exact vs twin, every build ({', '.join(libs)}): "
+          + "; ".join(edge), flush=True)
     return out
 
 
@@ -2041,7 +2326,9 @@ def batched_flagships(dev, cfg, rs, ts, index, mr) -> tuple:
     prof = kernel_profile(dev, cfg_sb, rs, index)
     print(f"flagship in batches of {SMALL_BATCH} reads (auto-selected probe): "
           + json.dumps(flag_sb) + "; profile " + json.dumps({k: prof[k] for k in (
-              "wall_s", "window_ms", "busy_ms", "busy_share")}), flush=True)
+              "wall_s", "window_ms", "busy_ms", "busy_share")}) + "; B8's sites "
+          + json.dumps([s for s in prof["sites"] if s["kernel"] == "direct_probe"]),
+          flush=True)
 
     cfg_mb = dataclasses.replace(cfg, ReadBatch=MULTI_BATCH)
     arms = {"prefetch": "1", "no_prefetch": "0"}
@@ -2380,7 +2667,7 @@ def index_build_phase(dev, ts, index, host_s: float) -> None:
           flush=True)
 
 
-def big_shard_phase(dev) -> None:
+def big_shard_phase(dev, unstaged=None) -> None:
     """A shard of BIG_SHARD_BASES random bases built on the card by
     ``mesh.shard_targets``, as a mesh rank builds its shard: prints its
     seconds and its peak memory above what was allocated before it.  The
@@ -2389,7 +2676,8 @@ def big_shard_phase(dev) -> None:
     key of the window at the entry's position computed on the host.  Then
     the same targets as one card's index with its second key word, and its
     search aux built on the card: its seconds and peak memory above the
-    index, its counts summing to the window count."""
+    index, its counts summing to the window count; then B9 on that aux,
+    which takes the binary mode on its own (native_binary_b9)."""
     import numpy as np
     import torch
 
@@ -2451,12 +2739,61 @@ def big_shard_phase(dev) -> None:
     check(total == index.num_valid and int(aux.sbucket[-1]) == nuniq
           and bool((aux.sbucket[1:] >= aux.sbucket[:-1]).all()),
           "big index: search aux counts or bucket table")
+    # At most what separate key, start and count arrays took (24 bytes a key).
+    check(peak <= 33.46 * 2**30, f"big index: the aux's peak {peak / 2**30:.2f} GiB")
     print(f"big index, search aux built on the card: {aux.mode} mode ({aux.bucket_bits} "
           f"bucket bits), {nuniq} unique keys of {index.num_valid} windows in "
           f"{aux.build_s:.2f}s; peak {peak / 2**30:.2f} GiB above the index's "
           f"{base / 2**30:.2f} GiB, {peak / max(nuniq, 1):.1f} bytes a unique key; "
           f"{aux.nbytes} bytes kept; counts and bucket table checked", flush=True)
-    del aux, index, ts
+    # B9 on it: half the queries keys of the index, half random pairs.
+    check(aux.mode == "binary", f"big index: a {aux.mode} aux")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    pick = torch.randint(nuniq, (PROBE_QUERIES // 2,), device=dev, generator=g)
+    rand = torch.randint(-2**31, 2**31, (2, PROBE_QUERIES // 2), dtype=torch.int32,
+                         device=dev, generator=g)
+    queries = sorted_query_arrays(torch.cat([aux.ukeys[pick], rand[0]]),
+                                  torch.cat([aux.ukeys2[pick], rand[1]]), True)
+    del pick, rand
+    native_binary_b9(f"the {int(gs[-1])}-base index, half its keys, half random pairs", aux,
+                     *queries, True, unstaged)
+    del aux, index, ts, queries
+    torch.cuda.empty_cache()
+
+
+def skewed_index_phase(dev, unstaged) -> None:
+    """B9 where the binary mode is the fallback for skewed keys: an index
+    of SKEW_BASES bases of an AT-rich genome (SKEW_CODES) at SKEW_WIDTH, in
+    genes of 1,000-19,999 bases, built on the card; its search aux must
+    take the binary mode on its own.  The queries: the windows at
+    PROBE_QUERIES positions of another draw of that genome, sorted as the
+    main path sorts them.  native_binary_b9 on them."""
+    import numpy as np
+    import torch
+
+    from muscato_tpu_torch.engine.index import build_target_index
+    from muscato_tpu_torch.io.targets import TargetSet
+    from muscato_tpu_torch.ops import windows as winops
+
+    rng = np.random.default_rng(SEED + 1)
+    codes = np.array(SKEW_CODES, np.uint8)
+    lengths = rng.integers(1_000, 20_000, SKEW_BASES // 1_000)
+    lengths = lengths[: int(np.searchsorted(np.cumsum(lengths), SKEW_BASES, 'right'))]
+    gs = np.concatenate([[0], np.cumsum(lengths)])
+    ts = TargetSet(tcat=codes[rng.integers(0, codes.size, int(gs[-1]), dtype=np.uint8)],
+                   gene_start=gs, names=[b""] * len(lengths), lengths=lengths)
+    index = build_target_index(ts, SKEW_WIDTH, dev, device_build=True)
+    aux = index.search_aux()
+    check(aux.mode == "binary", f"skewed index: a {aux.mode} aux")
+    draw = torch.from_numpy(codes[rng.integers(0, codes.size, PROBE_QUERIES + SKEW_WIDTH - 1,
+                                               dtype=np.uint8)]).to(dev)
+    k1 = winops.sliding_window_keys(draw, SKEW_WIDTH)[:PROBE_QUERIES].to(torch.int32)
+    queries = sorted_query_arrays(k1, torch.zeros_like(k1), False)
+    run = torch.diff(aux.sbucket)
+    native_binary_b9(f"a {int(gs[-1])}-base AT-rich genome at width {SKEW_WIDTH} (buckets "
+                     f"of up to {int(run.max())} keys, {float(run[run > 0].float().mean()):.1f}"
+                     f" a nonempty one)", aux, *queries, False, unstaged)
+    del aux, index, ts, queries, draw, k1, run
     torch.cuda.empty_cache()
 
 
@@ -2483,7 +2820,8 @@ def match_phases(dev, unstaged=None) -> tuple:
     print(f"index: {index.num_valid} window keys in "
           f"{host_s:.1f}s {index.build_timings}", flush=True)
     index_build_phase(dev, ts, index, host_s)
-    big_shard_phase(dev)
+    big_shard_phase(dev, unstaged)
+    skewed_index_phase(dev, unstaged)
 
     # Parity against the full index: cuda kernels vs cpu plain twins, then
     # each switched path on cuda against the default cuda run, then the
@@ -2594,10 +2932,17 @@ def match_phases(dev, unstaged=None) -> tuple:
     # their peak memory does not hold its two auxes (4.1 GB together).
     auxes, launches_search = search_parity(cfg, sub, index, cpu_index, engine)
     del cpu_index
-    probe_kres = probe_kernel_phase(dev, cfg, rs, auxes)
+    probe_kres = probe_kernel_phase(dev, cfg, rs, auxes, unstaged)
     cross = probe_crossover(dev, cfg, rs, index, auxes)
     print(f"probe stage by batch size (ms a batch over the first {CROSSOVER_DEPTH} "
           f"batches; {index.num_valid} index keys): " + json.dumps(cross), flush=True)
+    for size in SPLIT_BATCHES:
+        split = probe_stage_split(dev, cfg, rs, index, auxes, size)
+        print(f"probe stage split at {size} reads a batch (ms, each part alone, "
+              f"back to back): " + json.dumps(split), flush=True)
+    b9_site = binary_batch_profile(dev, cfg, rs, index, auxes["binary"])
+    print(f"B9 on the profile of one binary-mode batch of {SMALL_BATCH} reads: "
+          + json.dumps(b9_site), flush=True)
     del auxes
     flag_sb, flag_mb = batched_flagships(dev, cfg, rs, ts, index, mr)
     pm = profile_match.profile(cfg, rs, index, dev)
@@ -2989,7 +3334,9 @@ def main() -> int:
           f"without staging: {ptxas_of(builds[0][2], 'verify_diagonals_direct_kernel')}",
           flush=True)
     print(f"B8, -Xptxas -v: {ptxas_of(kern.log, SYMBOLS['direct_probe'])}; B9: "
-          f"{ptxas_of(kern.log, SYMBOLS['binary_probe'])}", flush=True)
+          f"{ptxas_of(kern.log, SYMBOLS['binary_probe'])}; one thread a query "
+          f"(-DMUSCATO_NO_STAGE): B8 {ptxas_of(builds[0][2], 'direct_probe_thread_kernel')}, "
+          f"B9 {ptxas_of(builds[0][2], 'binary_probe_thread_kernel')}", flush=True)
     t0 = time.perf_counter()
     print(f"native host library: {native.ensure_built() is not None} "
           f"({time.perf_counter() - t0:.1f}s)", flush=True)
@@ -3032,7 +3379,9 @@ def main() -> int:
          "ops_bound_ms": kres[name]["ops_bound_ms"],
          "back_to_back_ms": kres[name]["back_to_back_ms"],
          "library_back_to_back_ms": kres[name]["library_back_to_back_ms"],
-         **{k: kres[name][k] for k in ("sector_bound_ms",) if k in kres[name]}}
+         **{k: kres[name][k] for k in ("sector_bound_ms", "floor_ms", "floor_sectors",
+                                        "floor_bytes", "builds_in_turns")
+            if k in kres[name]}}
         for name in KERNELS
     ]}
     print(smi.stdout.strip(), flush=True)  # again, beside the numbers it qualifies

@@ -68,9 +68,12 @@ class SearchAux:
     then the bucket's 16-byte (k1, k2, start, count) records in ``urec``:
     no search loop.
 
-    mode='binary': the fallback for skewed keys, a bounded binary search
-    within the bucket over the interleaved key pairs ``ukk``, probe_steps
-    dependent gather pairs a query.
+    mode='binary': the fallback for skewed keys, a bounded search within
+    the bucket over the interleaved key pairs ``ukk``, then the hit's run
+    start and length.  ``ukeys`` and ``ukeys2`` are the two columns of
+    ``ukk`` and ``ustart`` and ``ucount`` the two columns of one (U, 2)
+    tensor of (start, count) pairs, so that B9 reads a hit's start and
+    count in one 8-byte load: 16 bytes a unique key in all.
     """
 
     mode: str
@@ -80,20 +83,25 @@ class SearchAux:
     # direct mode
     urec: torch.Tensor | None = None  # (U*4 + pad,) [k1, k2, start, count]
     # binary mode
-    ukeys: torch.Tensor | None = None  # (U,) key1
-    ukeys2: torch.Tensor | None = None  # (U,) key2
-    ustart: torch.Tensor | None = None  # (U,) run start in spos
-    ucount: torch.Tensor | None = None  # (U,) run length
+    ukeys: torch.Tensor | None = None  # (U,) key1, ukk's even words
+    ukeys2: torch.Tensor | None = None  # (U,) key2, ukk's odd words
+    ustart: torch.Tensor | None = None  # (U,) run start in spos, stride 2
+    ucount: torch.Tensor | None = None  # (U,) run length, beside its start
     ukk: torch.Tensor | None = None  # (2U,) interleaved [k1, k2]
     probe_steps: int = 0
     build_s: float = 0.0  # build seconds, on the index's device
 
     @property
     def nbytes(self) -> int:
-        """Device bytes of the aux's tensors."""
-        return sum(t.numel() * t.element_size() for t in (
-            self.sbucket, self.urec, self.ukeys, self.ukeys2, self.ustart,
-            self.ucount, self.ukk) if t is not None)
+        """Device bytes of the aux's tensors, each storage counted once
+        (the binary mode's columns share two)."""
+        storages = {}
+        for t in (self.sbucket, self.urec, self.ukeys, self.ukeys2, self.ustart,
+                  self.ucount, self.ukk):
+            if t is not None:
+                st = t.untyped_storage()
+                storages[st.data_ptr()] = st.nbytes()
+        return sum(storages.values())
 
 
 @dataclass
@@ -239,12 +247,12 @@ def build_search_aux(uk1, uk2, starts, counts, width: int, device) -> SearchAux:
                 upshift=upshift, urec=_upload(rec.reshape(-1), device),
             )
     bucket, probe_steps, bucket_bits = sops.build_buckets_host(uk1, upshift)
+    ukk = _upload(np.stack([uk1, uk2], axis=1), device)
+    usc = _upload(np.stack([starts.astype(np.int32), counts.astype(np.int32)], axis=1), device)
     return SearchAux(
         mode="binary", sbucket=_upload(bucket, device), bucket_bits=bucket_bits,
-        upshift=upshift, ukeys=_upload(uk1, device), ukeys2=_upload(uk2, device),
-        ustart=_upload(starts, device), ucount=_upload(counts, device),
-        ukk=_upload(np.stack([uk1, uk2], axis=1).reshape(-1), device),
-        probe_steps=probe_steps,
+        upshift=upshift, ukeys=ukk[:, 0], ukeys2=ukk[:, 1], ustart=usc[:, 0],
+        ucount=usc[:, 1], ukk=ukk.view(-1), probe_steps=probe_steps,
     )
 
 
@@ -285,6 +293,25 @@ def _binary_bucket_table(uk1: torch.Tensor, upshift: int, bits: int) -> torch.Te
     return table
 
 
+def _runs_in_place(buf: torch.Tensor, u: int, n: int) -> torch.Tensor:
+    """(u, 2) [start, count] pairs of the u runs of n sorted windows, made in
+    place in ``buf`` (2u int32, the runs' starts in its first half): the
+    starts move to the even words in blocks [ceil(a / 2), a) from the top,
+    each landing on [a, 2a), words already moved or free, so that no block
+    overlaps its source; then each count is the next start less its own."""
+    pairs = buf.view(u, 2)
+    a = u
+    while a > 1:
+        lo = (a + 1) // 2
+        pairs[lo:a, 0] = buf[lo:a]
+        a = lo
+    if u:
+        pairs[:-1, 1] = pairs[1:, 0]
+        pairs[-1, 1] = n
+        pairs[:, 1] -= pairs[:, 0]
+    return pairs
+
+
 def build_search_aux_device(k1: torch.Tensor, k2: torch.Tensor, width: int) -> SearchAux:
     """``build_search_aux`` of the sorted (V,) key words ``k1`` and ``k2``
     (int32 bit patterns), computed with torch ops on their device: the runs
@@ -295,10 +322,14 @@ def build_search_aux_device(k1: torch.Tensor, k2: torch.Tensor, width: int) -> S
     table is a searchsorted of the bucket boundaries: no bincount of each
     width.
 
-    Peak memory, for u unique keys, is about 24 bytes a key beside k1 and
-    k2: the 16-byte records, the int32 starts and, while the records are
-    filled, one int32 column; the int32 bucket ids of the width search
-    (13 bytes a key with the starts and key1) come before the records."""
+    The starts and the unique key1 share one buffer of 8 bytes a unique
+    key.  Peak memory, for u unique keys, beside k1 and k2: the direct
+    layout 24 bytes a key (its 16-byte records and the buffer, through
+    whose second half key2 and the counts pass; before them the int32
+    bucket ids of the width search); the binary layout 16, what it keeps:
+    ukk is filled from the buffer's second half (key1, then key2 gathered
+    there), and the buffer then becomes the (start, count) pairs in place
+    (``_runs_in_place``)."""
     dev = k1.device
     n = k1.numel()
     new_run = torch.ones(n, dtype=torch.bool, device=dev)
@@ -308,10 +339,11 @@ def build_search_aux_device(k1: torch.Tensor, k2: torch.Tensor, width: int) -> S
     first = torch.nonzero(new_run).squeeze(1)
     del new_run
     u = first.numel()
-    starts = first.to(torch.int32)
+    buf = torch.empty(2 * u, dtype=torch.int32, device=dev)
+    starts, uk1 = buf[:u], buf[u:]
+    starts.copy_(first)
     del first
-    uk1 = k1.index_select(0, starts)
-    end = starts.new_tensor([n])
+    torch.index_select(k1, 0, starts, out=uk1)
     upshift = sops.bucket_shift(width)
     w = DIRECT_BUCKET_WIDTH
     for bits in range(_direct_start_bits(u), MAX_DIRECT_BITS + 1):
@@ -325,12 +357,15 @@ def build_search_aux_device(k1: torch.Tensor, k2: torch.Tensor, width: int) -> S
         if not fits:
             continue
         rec = torch.empty((u + w, 4), dtype=torch.int32, device=dev)
+        # Key2, then the counts, pass through the buffer's second half.
         rec[:u, 0] = uk1
-        del uk1
-        rec[:u, 1] = k2.index_select(0, starts)
-        rec[:u, 3] = torch.diff(starts, append=end)
+        torch.index_select(k2, 0, starts, out=uk1)
+        rec[:u, 1] = uk1
+        torch.sub(starts[1:], starts[:-1], out=uk1[:-1])
+        uk1[-1:] = n - starts[-1:]
+        rec[:u, 3] = uk1
         rec[:u, 2] = starts
-        del starts
+        del starts, uk1, buf
         # Padding records: never equal to a live query's key1 + key2.
         rec[u:, :2] = -1
         rec[u:, 2:] = 0
@@ -339,12 +374,16 @@ def build_search_aux_device(k1: torch.Tensor, k2: torch.Tensor, width: int) -> S
     bits = sops.bucket_bits_for(u)
     bucket = _binary_bucket_table(uk1, upshift, bits)
     max_run = int(torch.diff(bucket).max()) if u else 1
-    uk2 = k2.index_select(0, starts)
+    ukk = torch.empty((u, 2), dtype=torch.int32, device=dev)
+    ukk[:, 0] = uk1
+    torch.index_select(k2, 0, starts, out=uk1)
+    ukk[:, 1] = uk1
+    del starts, uk1
+    usc = _runs_in_place(buf, u, n)
     return SearchAux(
         mode="binary", sbucket=bucket, bucket_bits=bits, upshift=upshift,
-        ukeys=uk1, ukeys2=uk2, ustart=starts, ucount=torch.diff(starts, append=end),
-        ukk=torch.stack([uk1, uk2], dim=1).reshape(-1),
-        probe_steps=max(1, max_run.bit_length()),
+        ukeys=ukk[:, 0], ukeys2=ukk[:, 1], ustart=usc[:, 0], ucount=usc[:, 1],
+        ukk=ukk.view(-1), probe_steps=max(1, max_run.bit_length()),
     )
 
 

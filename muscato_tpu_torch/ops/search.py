@@ -158,20 +158,53 @@ def direct_probe_torch(keyf, key2f, validf, urec, sbucket, *, upshift: int,
     return counts, loc
 
 
-def _query_tensors(name, keyf, key2f, validf, *tables, bucket_bits) -> bool:
+def _query_tensors(name, keyf, key2f, validf, *tables, bucket_bits, columns=()) -> bool:
     """True for CPU tensors (the twin runs); for CUDA ones checks what the
     kernel takes: int32 keys and tables, a bool validity, one device,
     contiguous, equal query lengths, a bucket table (the last of
-    ``tables``) of 2**bucket_bits + 1 bounds."""
-    if _lib.on_cpu(name, keyf, key2f, *tables) and validf.device.type == "cpu":
+    ``tables``) of 2**bucket_bits + 1 bounds.  ``columns``, column views of
+    a table, need only lie on the queries' device."""
+    if (_lib.on_cpu(name, keyf, key2f, *tables) and validf.device.type == "cpu"
+            and all(c.device.type == "cpu" for c in columns)):
         return True
     if validf.device != keyf.device or validf.dtype != torch.bool or not validf.is_contiguous():
         raise ValueError(f"{name}: validf must be a contiguous bool tensor on {keyf.device}")
+    if any(c.device != keyf.device for c in columns):
+        raise ValueError(f"{name}: every table must lie on {keyf.device}")
     if not keyf.shape[0] == key2f.shape[0] == validf.shape[0]:
         raise ValueError(f"{name}: query lengths disagree")
     if not 1 <= bucket_bits <= 31 or tables[-1].numel() != (1 << bucket_bits) + 1:
         raise ValueError(f"{name}: sbucket must hold 2**bucket_bits + 1 bounds")
     return False
+
+
+def _outputs(keyf):
+    return tuple(torch.empty(keyf.shape[0], dtype=torch.int32, device=keyf.device)
+                 for _ in range(2))
+
+
+def _launch_direct(keyf, key2f, validf, urec, sbucket, *, upshift: int, bucket_bits: int,
+                   bucket_width: int, use_k2: bool, lib=None):
+    """B8's launch on checked CUDA tensors, from ``lib`` (a library of
+    another build of csrc/probe.cu; default: the kernel library); counts
+    nothing.  Returns (counts, loc)."""
+    counts, loc = _outputs(keyf)
+    _lib.launch("direct_probe", keyf, keyf.data_ptr(), key2f.data_ptr(), validf.data_ptr(),
+                keyf.shape[0], urec.data_ptr(), sbucket.data_ptr(), upshift, bucket_bits,
+                bucket_width, int(use_k2), counts.data_ptr(), loc.data_ptr(), lib=lib)
+    return counts, loc
+
+
+def _launch_binary(keyf, key2f, validf, ukk, ustart, nuniq: int, sbucket, *, upshift: int,
+                   bucket_bits: int, probe_steps: int, use_k2: bool, lib=None):
+    """B9's launch on checked CUDA tensors (``ustart`` the first column of
+    the (start, count) pairs), as ``_launch_direct``."""
+    counts, loc = _outputs(keyf)
+    _lib.launch("binary_probe", keyf, keyf.data_ptr(), key2f.data_ptr(), validf.data_ptr(),
+                keyf.shape[0], ukk.data_ptr(), ustart.data_ptr(), nuniq, sbucket.data_ptr(),
+                upshift, bucket_bits, probe_steps, int(use_k2), counts.data_ptr(),
+                loc.data_ptr(), lib=lib)
+    return counts, loc
 
 
 def direct_probe(keyf, key2f, validf, urec, sbucket, *, upshift: int, bucket_bits: int,
@@ -185,20 +218,16 @@ def direct_probe(keyf, key2f, validf, urec, sbucket, *, upshift: int, bucket_bit
     unless valid) and summed starts.  Launches ``csrc/probe.cu`` on CUDA
     tensors; raises where the launcher refuses (a ``bucket_width`` past
     its 16 records, ``urec`` not 16-byte aligned)."""
+    kw = dict(upshift=upshift, bucket_bits=bucket_bits, bucket_width=bucket_width,
+              use_k2=use_k2)
     if _query_tensors("direct_probe", keyf, key2f, validf, urec, sbucket,
                       bucket_bits=bucket_bits):
-        return direct_probe_torch(keyf, key2f, validf, urec, sbucket, upshift=upshift,
-                                  bucket_bits=bucket_bits, bucket_width=bucket_width,
-                                  use_k2=use_k2)
-    n = keyf.shape[0]
-    counts, loc = (torch.empty(n, dtype=torch.int32, device=keyf.device) for _ in range(2))
-    if n:
-        _lib.launch("direct_probe", keyf, keyf.data_ptr(), key2f.data_ptr(),
-                    validf.data_ptr(), n, urec.data_ptr(), sbucket.data_ptr(), upshift,
-                    bucket_bits, bucket_width, int(use_k2), counts.data_ptr(),
-                    loc.data_ptr())
-        direct_probe.launches += 1
-    return counts, loc
+        return direct_probe_torch(keyf, key2f, validf, urec, sbucket, **kw)
+    if not keyf.shape[0]:
+        return _outputs(keyf)
+    out = _launch_direct(keyf, key2f, validf, urec, sbucket, **kw)
+    direct_probe.launches += 1
+    return out
 
 
 def binary_probe_torch(keyf, key2f, validf, ukeys, ukeys2, ukk, ustart, ucount, sbucket, *,
@@ -228,28 +257,31 @@ def binary_probe(keyf, key2f, validf, ukeys, ukeys2, ukk, ustart, ucount, sbucke
     rounds from its bucket's bounds, then its run's count and start where
     the key is there and the query valid.  Returns (counts, loc), (Q,)
     int32, as ``direct_probe``.  The kernel reads the keys as ``ukk``'s
-    interleaved pairs (``ukeys`` and ``ukeys2`` are the twin's); raises for
-    an empty table, and where the launcher refuses (``probe_steps`` past
-    its 32 rounds)."""
-    if _query_tensors("binary_probe", keyf, key2f, validf, ukeys, ukeys2, ukk, ustart,
-                      ucount, sbucket, bucket_bits=bucket_bits):
+    interleaved pairs (``ukeys`` and ``ukeys2`` are the twin's) and a hit's
+    start and count as one pair: ``ustart`` and ``ucount`` must be the two
+    columns of one (U, 2) int32 tensor, as SearchAux holds them.  Raises
+    for an empty table, for another layout, and where the launcher refuses
+    (``probe_steps`` past its 32 rounds)."""
+    kw = dict(upshift=upshift, bucket_bits=bucket_bits, probe_steps=probe_steps,
+              use_k2=use_k2)
+    if _query_tensors("binary_probe", keyf, key2f, validf, ukk, sbucket,
+                      bucket_bits=bucket_bits, columns=(ukeys, ukeys2, ustart, ucount)):
         return binary_probe_torch(keyf, key2f, validf, ukeys, ukeys2, ukk, ustart, ucount,
-                                  sbucket, upshift=upshift, bucket_bits=bucket_bits,
-                                  probe_steps=probe_steps, use_k2=use_k2)
+                                  sbucket, **kw)
     nuniq = ukeys.shape[0]
     if nuniq == 0 or ukk.shape[0] != 2 * nuniq or not (
             ustart.shape[0] == ucount.shape[0] == nuniq):
         raise ValueError("binary_probe: needs a nonempty table with ukk of 2 x its keys "
                          "and a start and count a key")
-    n = keyf.shape[0]
-    counts, loc = (torch.empty(n, dtype=torch.int32, device=keyf.device) for _ in range(2))
-    if n:
-        _lib.launch("binary_probe", keyf, keyf.data_ptr(), key2f.data_ptr(),
-                    validf.data_ptr(), n, ukk.data_ptr(), ustart.data_ptr(),
-                    ucount.data_ptr(), nuniq, sbucket.data_ptr(), upshift, bucket_bits,
-                    probe_steps, int(use_k2), counts.data_ptr(), loc.data_ptr())
-        binary_probe.launches += 1
-    return counts, loc
+    if not (ustart.dtype == ucount.dtype == torch.int32 and ustart.stride() == (2,)
+            and ucount.stride() == (2,) and ucount.data_ptr() == ustart.data_ptr() + 4):
+        raise ValueError("binary_probe: ustart and ucount must be the two columns of one "
+                         "(U, 2) int32 tensor")
+    if not keyf.shape[0]:
+        return _outputs(keyf)
+    out = _launch_binary(keyf, key2f, validf, ukk, ustart, nuniq, sbucket, **kw)
+    binary_probe.launches += 1
+    return out
 
 
 direct_probe.launches = 0

@@ -5,10 +5,13 @@ batches that reach each branch of the kernels (empty buckets, buckets of
 1 and of 16 records, the last bucket, queries past the last unique key,
 invalid queries, widths with and without the second key word, the
 padding records' keys, a binary table whose largest bucket needs every
-search step).  Numpy and the port only, no JAX: the card's tests
+search step, a bucket of exactly 16 records whose key1 repeats, a binary
+bucket of 2**probe_steps - 1 keys).  Numpy and the port only, no JAX: the card's tests
 (test_torch_probe_cuda.py) and chip_smoke.py use them too.  Also a
-per-query model of each kernel's loop (``direct_model``,
-``binary_model``), which the CPU tests hold against the twins."""
+per-query model of each kernel: the one-thread kernels of the
+-DMUSCATO_NO_STAGE build (``direct_model``, ``binary_model``) and those of
+the default build (``direct_group_model``, ``binary_window_model``), which
+the CPU tests hold against the twins."""
 
 import functools
 
@@ -125,6 +128,39 @@ def cases(seed: int = 0, scale: int = 1) -> dict:
     aux = aux_of(k1, k2, 13)
     assert aux.mode == "binary" and aux.probe_steps == 12
     out["binary, full steps"] = ("binary", aux, 13, q)
+
+    # Width 12 at 16 bucket bits (upshift 4: a bucket is bits 27..12 of
+    # key1): one bucket of exactly 16 records, key1 repeated under other
+    # key2 words, so that a query's hits (which ignore key2) lie in several
+    # lanes' records and its last record is the bucket's sixteenth.
+    base = 0x0ABC << 12
+    low = np.array([0, 0, 0, 1, 1] + list(range(2, 13)))
+    k1 = np.concatenate([base + low, (rng.choice(np.arange(20, 0xE800), 1500, replace=False)
+                                      << 12) + _u32(rng, 1500, 2**12)]).astype(np.uint32)
+    k2 = _u32(rng, k1.size)
+    k1, k2 = _sorted(k1, k2)
+    q = _queries(rng, k1, k2, 4000, last_bucket=list(base + np.arange(-1, 14)))
+    aux = aux_of(k1, k2, 12)
+    sb = aux.sbucket.numpy()
+    assert aux.mode == "direct" and aux.bucket_bits == 16 and sb[0x0ABC + 1] - sb[0x0ABC] == 16
+    out["a bucket of exactly 16 records, w12"] = ("direct", aux, 12, q)
+
+    # Width 20 at 16 bucket bits, binary: the largest bucket holds 63 =
+    # 2**6 - 1 keys, the most that probe_steps 6 covers, key1 repeated
+    # under other key2 words among them.
+    base = 0x4321 << 16
+    low = np.sort(np.concatenate([rng.choice(np.arange(1, 2**16 - 1), 53, replace=False),
+                                  np.repeat(rng.choice(np.arange(1, 2**16 - 1), 5), 2)]))
+    k1 = np.concatenate([base + low, (rng.choice(np.arange(0x4400, 0xFF00), 4000,
+                                                 replace=False) << 16)]).astype(np.uint32)
+    k2 = _u32(rng, k1.size)
+    k1, k2 = _sorted(k1, k2)
+    edges = [base, base + low[0], base + low[0] + 1, base + low[-1], base + low[-1] + 1,
+             base + 2**16 - 1, base - 1]
+    q = _queries(rng, k1, k2, 6000, last_bucket=edges + list(base + low[::7]))
+    aux = aux_of(k1, k2, 20, 0)
+    assert aux.mode == "binary" and aux.probe_steps == 6 and int(aux.sbucket.diff().max()) == 63
+    out["a binary bucket of 2**probe_steps - 1 keys"] = ("binary", aux, 20, q)
     return out
 
 
@@ -140,6 +176,19 @@ def probe_args(kind, aux, width, q) -> tuple:
         use_k2=use_k2)
 
 
+def to_device(kind, args, dev) -> tuple:
+    """probe_args' arguments on ``dev``, the binary aux's column views kept
+    as views of one key-pair tensor and one (start, count) pair tensor (a
+    view moved alone becomes a tensor of its own, which B9 refuses)."""
+    if kind == "direct":
+        return tuple(a.to(dev) for a in args)
+    keyf, key2f, validf, ukeys, _, ukk, ustart, _, sbucket = args
+    kk = ukk.to(dev).view(-1, 2)
+    sc = ustart.as_strided((ukeys.numel(), 2), (2, 1)).to(dev)
+    return (keyf.to(dev), key2f.to(dev), validf.to(dev), kk[:, 0], kk[:, 1], kk.view(-1),
+            sc[:, 0], sc[:, 1], sbucket.to(dev))
+
+
 def _np(t) -> np.ndarray:
     return t.numpy().view(np.uint32).astype(np.int64)
 
@@ -150,7 +199,7 @@ def _ignore(array, index, nbytes):
 
 def direct_model(keyf, key2f, validf, urec, sbucket, *, upshift, bucket_bits, bucket_width,
                  use_k2, touch=_ignore):
-    """csrc/probe.cu direct_probe_kernel's loop, one query at a time;
+    """csrc/probe.cu direct_probe_thread_kernel's loop, one query at a time;
     ``touch(array, index, nbytes)`` hears of each table entry it reads."""
     k1s, k2s, rec, sb = _np(keyf), _np(key2f), _np(urec).reshape(-1, 4), _np(sbucket)
     counts, loc = np.zeros(k1s.size, np.int64), np.zeros(k1s.size, np.int64)
@@ -171,7 +220,7 @@ def direct_model(keyf, key2f, validf, urec, sbucket, *, upshift, bucket_bits, bu
 
 def binary_model(keyf, key2f, validf, ukeys, ukeys2, ukk, ustart, ucount, sbucket, *,
                  upshift, bucket_bits, probe_steps, use_k2, touch=_ignore):
-    """csrc/probe.cu binary_probe_kernel's loop, one query at a time: it
+    """csrc/probe.cu binary_probe_thread_kernel's loop, one query at a time: it
     reads the keys as ``ukk``'s pairs and stops once lo == hi;
     ``touch(array, index, nbytes)`` hears of each table entry it reads."""
     k1s, k2s, kk, sb = _np(keyf), _np(key2f), _np(ukk).reshape(-1, 2), _np(sbucket)
@@ -200,4 +249,111 @@ def binary_model(keyf, key2f, validf, ukeys, ukeys2, ukk, ustart, ucount, sbucke
             touch("ucount", at, 4)
             touch("ustart", at, 4)
         counts[i], loc[i] = (ct[at], st[at]) if hit else (0, 0)
+    return counts, loc
+
+
+# The default build's designs (csrc/probe.cu): B8's lanes a query, B9's
+# key pairs a round and its rounds that guess by interpolation.
+DIRECT_GROUP = 4  # kDirectGroup
+BINARY_WINDOW = 4  # kBinaryWindow
+INTERPOLATED_ROUNDS = 2  # kInterpolatedRounds
+
+
+def direct_group_model(keyf, key2f, validf, urec, sbucket, *, upshift, bucket_bits,
+                       bucket_width, use_k2):
+    """csrc/probe.cu direct_probe_kernel, one query at a time: lane l of
+    DIRECT_GROUP loads the records l, l + DIRECT_GROUP, ... below the
+    bucket's count (min(its size, bucket_width)), sums its hits' counts and
+    starts as uint32, and the lanes' sums meet by a butterfly of xor
+    shuffles."""
+    group = DIRECT_GROUP
+    k1s, k2s, rec, sb = _np(keyf), _np(key2f), _np(urec).reshape(-1, 4), _np(sbucket)
+    counts, loc = np.zeros(k1s.size, np.int64), np.zeros(k1s.size, np.int64)
+    for i, (k1, k2) in enumerate(zip(k1s, k2s)):
+        b = ((k1 << upshift) & M32) >> (32 - bucket_bits)
+        lo, nb = sb[b], min(sb[b + 1] - sb[b], bucket_width)
+        c, s = [0] * group, [0] * group
+        for lane in range(group):
+            for j in range(lane, 16, group):
+                r = rec[lo + j] if j < nb else None
+                if r is not None and r[0] == k1 and (not use_k2 or r[1] == k2):
+                    c[lane], s[lane] = (c[lane] + r[3]) & M32, (s[lane] + r[2]) & M32
+        off = group // 2
+        while off:
+            c = [(c[lane] + c[lane ^ off]) & M32 for lane in range(group)]
+            s = [(s[lane] + s[lane ^ off]) & M32 for lane in range(group)]
+            off //= 2
+        counts[i], loc[i] = (c[0] if validf[i] else 0), s[0]
+    return counts, loc
+
+
+def _guess(lo, m, q, vlo, vhi, rnd, hashed) -> int:
+    """B9's window guess in [lo, lo + m): over ``hashed`` keys, the key1
+    image q placed between the images vlo..vhi bounding the range, in
+    float32 as the kernel computes it, for its interpolated rounds; else
+    the middle."""
+    if hashed and rnd < INTERPOLATED_ROUNDS and vlo <= q <= vhi:
+        f32 = np.float32
+        frac = f32(q - vlo) / (f32(vhi - vlo) + f32(1.0)) * f32(m)
+        return lo + min(m - 1, int(frac))
+    return lo + (m - 1) // 2
+
+
+def binary_window_model(keyf, key2f, validf, ukeys, ukeys2, ukk, ustart, ucount, sbucket, *,
+                        upshift, bucket_bits, probe_steps, use_k2):
+    """csrc/probe.cu binary_probe_kernel, one query at a time: rounds of
+    BINARY_WINDOW probes x(0) <= ... <= x(window - 1) inside [lo, hi),
+    whose "below the query" bits must be a prefix of c (0 < c < window:
+    the insertion point p is x(c - 1) + 1 = x(c); c = 0: p <= x(0); c =
+    window: p > x(window - 1)), down to p: a window of pairs aligned to its
+    size around a guess (_guess, by interpolation where use_k2, whose keys
+    are hashes; the images bounding the range are the bucket's, then those
+    of the probes that ended a round); then the
+    twin's probe_steps rounds replayed on indices (mid < p); the hit from
+    the probe that set hi, or, where none did, from the key at min(lo, n -
+    1); an invalid query searches nothing."""
+    window = BINARY_WINDOW
+    k1s, k2s, kk, sb = _np(keyf), _np(key2f), _np(ukk).reshape(-1, 2), _np(sbucket)
+    st, ct = ustart.numpy().astype(np.int64), ucount.numpy().astype(np.int64)
+    n = kk.shape[0]
+    counts, loc = np.zeros(k1s.size, np.int64), np.zeros(k1s.size, np.int64)
+    tail = M32 >> bucket_bits
+    for i, (k1, k2) in enumerate(zip(k1s, k2s)):
+        if not validf[i]:
+            continue
+        key = (k1, k2 if use_k2 else 0)
+        entry = lambda x: (kk[x][0], kk[x][1] if use_k2 else 0)  # noqa: E731
+        image = lambda k: (k << upshift) & M32  # noqa: E731
+        b = image(k1) >> (32 - bucket_bits)
+        lo0, hi0 = sb[b], sb[b + 1]
+        lo, hi, hi_probed, hi_equal = lo0, hi0, False, False
+        q, vlo = image(k1), b << (32 - bucket_bits)
+        vhi, rnd = vlo | tail, 0
+        while lo < hi:
+            m = hi - lo
+            start = _guess(lo, m, q, vlo, vhi, rnd, use_k2) & ~(window - 1)
+            xs = [min(max(start + j, lo), hi - 1) for j in range(window)]
+            below = [entry(x) < key for x in xs]
+            c = sum(below)
+            assert below == [True] * c + [False] * (window - c)
+            if c == window:
+                lo, vlo = xs[-1] + 1, image(kk[xs[-1]][0])
+            else:
+                lo = lo if c == 0 else xs[c - 1] + 1
+                hi, vhi = xs[c], image(kk[xs[c]][0])
+                hi_probed, hi_equal = True, entry(xs[c]) == key
+            rnd += 1
+        tlo, thi = lo0, hi0
+        for _ in range(probe_steps):
+            if tlo >= thi:
+                break
+            mid = (tlo + thi) >> 1
+            tlo, thi = (mid + 1, thi) if mid < lo else (tlo, mid)
+        if tlo == lo and hi_probed:
+            at, hit = lo, hi_equal
+        else:
+            at = min(tlo, n - 1)
+            hit = tlo < n and entry(at) == key
+        if hit:
+            counts[i], loc[i] = ct[at], st[at]
     return counts, loc

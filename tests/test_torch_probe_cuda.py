@@ -4,18 +4,26 @@ query's (count, loc) exact against the plain twins on the CPU, on the
 branch cases of tests/probe_cases.py (empty buckets, buckets of 1 and 16
 records, the last bucket, queries past the last key, invalid queries,
 widths with and without the second key word, the padding records' keys,
-a binary table that needs every search step, unsorted queries); the
-search aux built on the card equal to the CPU's; and the shapes the
-kernels refuse.  Every test is marked ``gpu`` and skips without a card.
+a binary table that needs every search step, unsorted queries, a bucket
+of exactly 16 records, a binary bucket of 2**probe_steps - 1 keys), by
+the default build and by the -DMUSCATO_NO_STAGE build of csrc/probe.cu
+(the first design's one-thread kernels, which chip_smoke.py times beside
+it); B9 with fewer rounds than its largest bucket needs; the search
+aux built on the card equal to the CPU's; and the shapes the kernels
+refuse.  Every test is marked ``gpu`` and skips without a card.
 The file imports nothing of JAX: ``python -m pytest --noconftest -m gpu
 tests/test_torch_probe_cuda.py``.
 """
+
+import functools
+import os
 
 import pytest
 import torch
 
 import probe_cases
 from muscato_tpu_torch.engine import index as tindex
+from muscato_tpu_torch.ops import _lib
 from muscato_tpu_torch.ops import search as tsearch
 
 _WRAPPERS = {"direct": (tsearch.direct_probe, tsearch.direct_probe_torch),
@@ -40,9 +48,52 @@ def test_cuda_probe_kernels_match_twins(cuda_device, case):
     args, kw = probe_cases.probe_args(kind, aux, width, q)
     kernel, twin = _WRAPPERS[kind]
     before = kernel.launches
-    got = kernel(*_to(args, cuda_device), **kw)
+    got = kernel(*probe_cases.to_device(kind, args, cuda_device), **kw)
     assert kernel.launches == before + 1
     for a, b in zip(got, twin(*args, **kw)):
+        assert torch.equal(a.cpu(), b)
+
+
+@functools.lru_cache(maxsize=None)
+def _unstaged():
+    """csrc/probe.cu alone, built with -DMUSCATO_NO_STAGE."""
+    path, _, _ = _lib._build(_lib.NVCC_FLAGS + ("-DMUSCATO_NO_STAGE",),
+                             [os.path.join(_lib.CSRC, "probe.cu")])
+    return _lib.load(path)
+
+
+@pytest.mark.gpu
+def test_cuda_probe_unstaged_build_matches_twins(cuda_device):
+    """The -DMUSCATO_NO_STAGE build's B8 and B9, one thread a query
+    (launched as the wrappers launch the default ones), on every branch
+    case, exact against the twins."""
+    lib = _unstaged()
+    for case, (kind, aux, width, q) in probe_cases.cases().items():
+        args, kw = probe_cases.probe_args(kind, aux, width, q)
+        dev_args = probe_cases.to_device(kind, args, cuda_device)
+        if kind == "direct":
+            got = tsearch._launch_direct(*dev_args, **kw, lib=lib)
+            exp = tsearch.direct_probe_torch(*args, **kw)
+        else:
+            keyf, key2f, validf, ukeys, _, ukk, ustart, _, sbucket = dev_args
+            got = tsearch._launch_binary(keyf, key2f, validf, ukk, ustart, ukeys.numel(),
+                                         sbucket, **kw, lib=lib)
+            exp = tsearch.binary_probe_torch(*args, **kw)
+        for a, b in zip(got, exp):
+            assert torch.equal(a.cpu(), b), case
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("steps", [0, 1, 3, 5])
+def test_cuda_binary_probe_fewer_steps_matches_twin(cuda_device, steps):
+    """B9 with fewer rounds than its largest bucket (63 keys) needs: the
+    twin's search stops short for some queries, and the kernel's replay of
+    its rounds with it."""
+    kind, aux, width, q = probe_cases.cases()["a binary bucket of 2**probe_steps - 1 keys"]
+    args, kw = probe_cases.probe_args(kind, aux, width, q)
+    kw["probe_steps"] = steps
+    got = tsearch.binary_probe(*probe_cases.to_device(kind, args, cuda_device), **kw)
+    for a, b in zip(got, tsearch.binary_probe_torch(*args, **kw)):
         assert torch.equal(a.cpu(), b)
 
 
@@ -78,9 +129,11 @@ def test_cuda_aux_build_matches_cpu(cuda_device, mode):
 @pytest.mark.gpu
 def test_cuda_probe_kernels_refuse(cuda_device):
     """What the kernels do not take raises, with no fallback to a twin:
-    a bucket width past 16 records, probe steps past 32 and records that
-    are not 16-byte aligned (the launcher's refusal), a bucket table of
-    another size than the bits give (the wrapper's)."""
+    a bucket width past 16 records, probe steps past 32, records that are
+    not 16-byte aligned and (start, count) pairs that are not 8-byte
+    aligned (the launcher's refusal), a bucket table of another size than
+    the bits give, starts and counts that are not the columns of one pair
+    tensor (the wrapper's)."""
     kind, aux, width, q = probe_cases.cases()["w20 direct"]
     args, kw = probe_cases.probe_args(kind, aux, width, q)
     args = _to(args, cuda_device)
@@ -93,5 +146,14 @@ def test_cuda_probe_kernels_refuse(cuda_device):
         tsearch.direct_probe(*args[:4], args[4][:-1], **kw)
     kind, aux, width, q = probe_cases.cases()["w20 binary"]
     args, kw = probe_cases.probe_args(kind, aux, width, q)
+    args = probe_cases.to_device(kind, args, cuda_device)
     with pytest.raises(RuntimeError, match="binary_probe: CUDA kernel launch failed"):
-        tsearch.binary_probe(*_to(args, cuda_device), **dict(kw, probe_steps=33))
+        tsearch.binary_probe(*args, **dict(kw, probe_steps=33))
+    ustart, ucount = args[6], args[7]
+    odd = torch.empty(2 * ustart.numel() + 1, dtype=torch.int32, device=cuda_device)
+    pairs = odd[1:].view(-1, 2)
+    pairs[:, 0], pairs[:, 1] = ustart, ucount
+    with pytest.raises(RuntimeError, match="binary_probe: CUDA kernel launch failed"):
+        tsearch.binary_probe(*args[:6], pairs[:, 0], pairs[:, 1], args[8], **kw)
+    with pytest.raises(ValueError, match="columns"):
+        tsearch.binary_probe(*args[:6], ustart.contiguous(), ucount.contiguous(), args[8], **kw)

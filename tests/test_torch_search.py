@@ -538,26 +538,66 @@ def test_probe_twins_match_jax_bodies(workload, jax_workload, monkeypatch, width
 
 @pytest.mark.parametrize("case", list(probe_cases.cases()))
 def test_probe_kernel_model_matches_twin(case):
-    """A per-query model of each kernel's loop (csrc/probe.cu: B8 scans
-    min(bucket size, width) records, B9 stops its search once lo == hi and
-    reads the keys as ukk's pairs) equals the twin on every query of the
-    branch cases that the card's tests and chip_smoke.py hold the kernels
-    to; on the CPU the wrappers are the twins and launch nothing."""
+    """A per-query model of each kernel (csrc/probe.cu) equals the twin on
+    every query of the branch cases that the card's tests and
+    chip_smoke.py hold the kernels to: the one-thread kernels of the
+    -DMUSCATO_NO_STAGE build (B8 scans min(bucket size, width) records, B9
+    stops its search once lo == hi and reads the keys as ukk's pairs), and
+    those of the default build (B8's 4 lanes each take every fourth record
+    and sum by xor shuffles; B9's rounds of a window of 4 pairs around an
+    interpolated guess down to the insertion point, the twin's rounds
+    replayed on indices).  On the CPU the wrappers are the twins and
+    launch nothing."""
     kind, aux, width, q = probe_cases.cases()[case]
     args, kw = probe_cases.probe_args(kind, aux, width, q)
-    wrapper, twin, model = {
-        "direct": (tsearch.direct_probe, tsearch.direct_probe_torch, probe_cases.direct_model),
-        "binary": (tsearch.binary_probe, tsearch.binary_probe_torch, probe_cases.binary_model),
+    wrapper, twin, model, design_model = {
+        "direct": (tsearch.direct_probe, tsearch.direct_probe_torch, probe_cases.direct_model,
+                   probe_cases.direct_group_model),
+        "binary": (tsearch.binary_probe, tsearch.binary_probe_torch, probe_cases.binary_model,
+                   probe_cases.binary_window_model),
     }[kind]
     before = wrapper.launches
     got = wrapper(*args, **kw)
     assert wrapper.launches == before
     for a, b in zip(got, twin(*args, **kw)):
         assert a.dtype == torch.int32 and torch.equal(a, b)
-    counts, loc = model(*args, **kw)
-    assert (counts > 0).sum() > 10 and (~q[2]).any()
-    np.testing.assert_array_equal(got[0].numpy(), counts)
-    np.testing.assert_array_equal(got[1].numpy().view(np.uint32), loc.astype(np.uint32))
+    for label, fn in {"one thread": model, "default build": design_model}.items():
+        counts, loc = fn(*args, **kw)
+        assert (counts > 0).sum() > 10 and (~q[2]).any(), label
+        np.testing.assert_array_equal(got[0].numpy(), counts, err_msg=label)
+        np.testing.assert_array_equal(got[1].numpy().view(np.uint32), loc.astype(np.uint32),
+                                      err_msg=label)
+
+
+@pytest.mark.parametrize("steps", [0, 1, 3, 5])
+def test_binary_window_model_with_fewer_steps_matches_twin(steps):
+    """B9's window search is exact for every probe_steps the launcher takes,
+    not only the aux's: with fewer rounds than its largest bucket needs,
+    the twin's search stops short of the insertion point for some queries,
+    and the kernel's replay of the twin's rounds on indices stops there
+    too."""
+    kind, aux, width, q = probe_cases.cases()["a binary bucket of 2**probe_steps - 1 keys"]
+    args, kw = probe_cases.probe_args(kind, aux, width, q)
+    full = tsearch.binary_probe_torch(*args, **kw)
+    kw["probe_steps"] = steps
+    exp = tsearch.binary_probe_torch(*args, **kw)
+    assert not torch.equal(exp[0], full[0])
+    counts, loc = probe_cases.binary_window_model(*args, **kw)
+    np.testing.assert_array_equal(exp[0].numpy(), counts)
+    np.testing.assert_array_equal(exp[1].numpy(), loc)
+
+
+def test_binary_aux_columns_share_two_tensors():
+    """The binary aux keeps 16 bytes a unique key beside its bucket table:
+    ukeys and ukeys2 are ukk's columns, ustart and ucount the columns of
+    one (U, 2) tensor, and nbytes counts each storage once."""
+    _, aux, _, _ = probe_cases.cases()["w20 binary"]
+    u = aux.ukeys.numel()
+    assert aux.ukeys.data_ptr() == aux.ukk.data_ptr()
+    assert aux.ukeys2.data_ptr() == aux.ukk.data_ptr() + 4
+    assert aux.ucount.data_ptr() == aux.ustart.data_ptr() + 4
+    assert aux.ustart.stride() == aux.ucount.stride() == (2,)
+    assert aux.nbytes == 16 * u + 4 * aux.sbucket.numel()
 
 
 def test_probe_wrappers_refuse_other_devices():
