@@ -3,13 +3,14 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout.  It builds the nine CUDA kernels from
+Run from the root of a checkout.  It builds the ten CUDA kernels from
 muscato_tpu_torch/csrc with nvcc (one process per source, in parallel),
 a variant of them built with -DMUSCATO_NO_STAGE (B1 and B4 never stage a
 span, B5 stages by a copy loop, B7 reads every word from global memory, B8
-and B9 take one thread a query) and variants of csrc/expand.cu built with
-other constants (B2: tiles a warp, register cut; B6: ring depth, lo and
-qid in the ring or not, lanes a warp, register cut), all at once, then:
+and B9 take one thread a query; B10 is the same in both) and variants of
+csrc/expand.cu built with other constants (B2: tiles a warp, register
+cut; B6: ring depth, lo and qid in the ring or not, lanes a warp, register
+cut), all at once, then:
 
   1. prints the card (nvidia-smi name and power limit), torch and CUDA
      versions, the kernel build times, and the integer rate the bounds
@@ -99,9 +100,15 @@ qid in the ring or not, lanes a warp, register cut), all at once, then:
      same run and profile with both switches
      set (sort-merge probe and B6), whose MatchResult must equal the
      default run's; then the same through the streaming expand
-     (NoDedup: B5, B1, one B2 and B3 a chunk of 131,072 pair lanes, B3 in
-     the rank), counted, timed and profiled, whose MatchResult must equal
-     the default run's; then times the probe stage of the flagship
+     (NoDedup: B5, B1, one B2, B3 and B10 a chunk of 131,072 pair lanes,
+     B3 in the rank), counted, timed and profiled, whose MatchResult must
+     equal the default run's, with B10 launched once a chunk (in the
+     parity runs through the streaming expand too), its wall,
+     expand_verify, the profile's device events in the stage window and
+     busy share printed; then B10, the per-pair verify, exact against its
+     twin on every lane of that run's first chunk (as the engine called it
+     in the profile), timed beside its bound, and exact on its last chunk;
+     then times the probe stage of the flagship
      batch with B5 and with its plain twin, in turns, and with each probe
      against small sorted prefixes of the index; then matches the 100k
      reads of step 3 through probe="search" in direct mode and in binary
@@ -242,6 +249,9 @@ KERNELS = {
     "binary_probe": ("muscato_tpu_torch/csrc/probe.cu",
                      "muscato_tpu/ops/search.py:70 searchsorted2_bucketed and the hit test of "
                      "fused.py:674 _probe_windows_search_impl (XLA bodies, no pl.pallas_call)"),
+    "verify_pairs": ("muscato_tpu_torch/csrc/verify.cu",
+                     "muscato_tpu/ops/packed.py:432 verify_pairs_packed (an XLA body, no "
+                     "pl.pallas_call)"),
 }
 # The kernels of each driven path: the default one, and the one the two
 # switches select (sort-merge probe, so no B1; B6 instead of B2).
@@ -261,9 +271,10 @@ MICRO_VERIFY_LANES = 1 << 20
 VERIFY_CHUNK = 1 << 20
 VERIFY_BRANCH_LANES, VERIFY_BRANCH_READS = 1 << 17, 1 << 16
 # The streaming expand's path (NoDedup): B2 a chunk over its slot window,
-# B3 for the postings and in the rank, no B4 (the row fetch is a plain
-# gather there).
-STREAM_PATH = ("window_queries", "sorted_join", "expand_owners", "monotone_gather")
+# B3 for the postings and in the rank, B10 the per-pair verify a chunk (its
+# row and gene fetches included: no B4).
+STREAM_PATH = ("window_queries", "sorted_join", "expand_owners", "monotone_gather",
+               "verify_pairs")
 STREAM_CHUNK = 1 << 17  # the engine's pair_chunk when MaxPairChunk is 0
 STREAM_WINDOWS = tuple(range(0, 64, 2))  # 32 windows: more than the dedup verify takes
 SHARDS = 3
@@ -306,7 +317,7 @@ CALL_POINTS = (("fused", "window_queries"), ("fused", "_join.sorted_join"),
                ("fused", "expand_owners"), ("fused", "monotone_gather"),
                ("packed", "monotone_gather"), ("packed", "monotone_gather_rows"),
                ("packed", "verify_diagonals_swar"), ("fused", "sops.direct_probe"),
-               ("fused", "sops.binary_probe"))
+               ("fused", "sops.binary_probe"), ("fused", "verify_pairs_packed"))
 SYMBOLS = {
     "sorted_join": "sorted_join_kernel", "expand_owners": "expand_owners_kernel",
     "monotone_gather": "gather_kernel", "monotone_gather_rows": "gather_rows_kernel",
@@ -314,6 +325,7 @@ SYMBOLS = {
     "expand_owners_sub": "expand_owners_sub_kernel",
     "verify_diagonals_swar": "verify_diagonals_kernel",
     "direct_probe": "direct_probe_kernel", "binary_probe": "binary_probe_kernel",
+    "verify_pairs": "verify_pairs_kernel",
 }
 PROFILE_TRIES = 3  # profiled runs kernel_profile makes before a count mismatch fails
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM peak memory rate (NVIDIA data sheet)
@@ -483,6 +495,17 @@ def call_work(kernel: str, args, kw) -> tuple:
                         nwords + 1 target words, gstart and gend, the
                         three outputs, and each read row and length the
                         lanes touch, once.
+      verify_pairs      B7's work a word with one window (a funnel shift,
+                        an xor, the length mask, three shift-ors, an and,
+                        a popcount and an add; the window's two masks, an
+                        and, a popcount and an add), four a refine step of
+                        the gene lookup, thirty a lane (clamps, the fit
+                        and the verdict).  Its bytes: (r, p), q1 where it
+                        is one a lane, the lane's nwords + 1 target
+                        words, the four outputs (keep one byte), each
+                        read row and length the lanes touch and each
+                        gblock and gene_start entry of their genes
+                        (bounds, start, end), once.
       direct_probe      a query: its bucket (two shifts), the validity
                         select; a record of its bucket: a compare a key
                         word and an add.  Its bytes: the queries (key1,
@@ -516,6 +539,23 @@ def call_work(kernel: str, args, kw) -> tuple:
         read, hits, rounds = binary_replay(args, kw)
         return (fixed + 8 * torch.unique(read).numel() + 8 * torch.unique(hits).numel(), 0,
                 6 * rounds + 4 * q)
+
+    if kernel == "verify_pairs":
+        from muscato_tpu_torch.ops import packed as pops
+
+        r, p, rpacked, lengths, gene_start, budget, q1 = args[:7]
+        smax, trows, gblock, gsteps = args[9:13]
+        c, (nreads, nw) = r.numel(), rpacked.shape
+        pc = p.clamp(0, smax - 1)
+        g = pops.gene_of_pos_block(gene_start, gblock, pc, gsteps)
+        b = pc >> pops.GENE_BLOCK_BITS
+        uniq = lambda *xs, hi: torch.unique(torch.cat(xs).clamp(0, hi)).numel()  # noqa: E731
+        entries = (uniq(b, b + 1, hi=gblock.numel() - 1)
+                   + uniq(g, g + 1, hi=gene_start.numel() - 1))
+        rows = torch.unique(r.clamp(0, nreads - 1)).numel()
+        lane = 8 + 4 * int(torch.is_tensor(q1) and q1.numel() > 1) + 4 * (nw + 1) + 13
+        return (c * lane + rows * 4 * (nw + 1) + 4 * entries + 4 * budget.numel(),
+                0, c * (nw * 14 + 4 * gsteps + 30))
 
     if kernel == "verify_diagonals_swar":
         r, _, _, rpacked, _, _, _, budget, q1s = args
@@ -1212,6 +1252,42 @@ def verify_phase(dev, unstaged=None) -> dict:
     return res
 
 
+def verify_pairs_phase(calls) -> dict:
+    """B10, the streaming expand's per-pair verify, exact against its twin
+    on every lane of the streaming flagship's first chunk: its STREAM_CHUNK
+    pair lanes in the probe's lo order over the 100M-base stream's rows,
+    with the arguments the engine gave B10 in a profiled run (``calls``,
+    that run's B10 calls in order), measured beside its bound
+    (measure_case; no PyTorch call computes the function); then exact on
+    the run's last chunk (short: dead lanes past the pair total).  Returns
+    the first chunk's numbers."""
+    from muscato_tpu_torch.ops import packed as pops
+
+    first, last = calls[0]["args"], calls[-1]["args"]
+    r, p, rpacked = first[:3]
+    res = measure_case(
+        "verify_pairs", lambda: pops.verify_pairs_packed(*first),
+        lambda: pops.verify_pairs_packed_torch(*first), None,
+        call_work("verify_pairs", first, {}),
+        f"the streaming flagship's first chunk: lanes ({r.numel()},) trows "
+        f"{tuple(first[10].shape)} rpacked {tuple(rpacked.shape)} width {first[7]}, "
+        f"one window offset a lane")
+    keep = pops.verify_pairs_packed(*first)[0]
+    res.update(live_lanes=int(((r >= 0) & (p >= 0)).sum()), kept=int(keep.sum()))
+    check(res["kept"] > 0, "verify_pairs: no pair of the first chunk passes")
+    lr = last[0]
+    _compare("verify_pairs, the last chunk", pops.verify_pairs_packed(*last),
+             pops.verify_pairs_packed_torch(*last))
+    print(f"verify_pairs (B10) at the streaming flagship's first chunk: exact vs twin, "
+          f"{res['live_lanes']} live lanes, {res['kept']} kept; {res['ms']:.4f} ms a call "
+          f"({res['back_to_back_ms']:.4f} back to back; host {res['host_ms']:.4f} ms a call "
+          f"over 100 unsynchronised calls; plain twin {res['plain_ms']:.3f} ms) against a "
+          f"bound of {res['bound_ms']:.4f} ms by {res['bound_by']}; the last chunk of "
+          f"{len(calls)} exact vs twin ({int((lr >= 0).sum())} live lanes of {lr.numel()})",
+          flush=True)
+    return res
+
+
 def kernel_phase(dev, unstaged, variants, sub_variants) -> dict:
     """Each kernel against its twin at main-path shapes; returns
     {name: {max_abs_err, ms, back_to_back_ms, host_ms, plain_ms,
@@ -1719,13 +1795,14 @@ def stream_shape(idx) -> dict:
                 lines_128b=int(torch.unique(idx >> 5).numel()))
 
 
-def kernel_profile(dev, cfg, rs, index, unstaged=None) -> dict:
+def kernel_profile(dev, cfg, rs, index, unstaged=None, keep=None) -> dict:
     """One more flagship run on the path the switches select, after its
     warm-up, under torch.profiler: every device kernel's total time and
     launches by name,
     the device's busy share of the stage window (from the start of the
     first B5 launch, which opens the probe, to the start of the last
-    device-to-host copy, the row fetch), and, per call site of each of the
+    device-to-host copy, the row fetch) and the device events (kernels and
+    copies) that start in it, and, per call site of each of the
     port's kernels, launches, device time and the summed bound (bounds)
     of the launches' own inputs; for the postings fetch (the B3 launches
     that read the index's spos) also the shape of their index streams
@@ -1739,7 +1816,9 @@ def kernel_profile(dev, cfg, rs, index, unstaged=None) -> dict:
     can miss a launch now and then (on an H100 it once listed 3 of the 4
     B5 launches that the hook saw in a 4-batch run), so a run whose counts
     disagree is profiled again, up to PROFILE_TRIES runs in all; a missing
-    call site disagrees in every one."""
+    call site disagrees in every one.  ``keep``, a dict, gets for each
+    kernel it names the list of that kernel's recorded calls (their
+    arguments), in order."""
     import re
 
     import torch
@@ -1783,7 +1862,8 @@ def kernel_profile(dev, cfg, rs, index, unstaged=None) -> dict:
             busy += b - a
             edge = b
     out.update(window_ms=(w1 - w0) / 1e3, busy_ms=busy / 1e3,
-               busy_share=busy / max(w1 - w0, 1e-9))
+               busy_share=busy / max(w1 - w0, 1e-9),
+               window_events=sum(w0 <= e.time_range.start <= w1 for e in evs))
     out["kernels"] = {n: {"launches": c, "ms": ms} for i, (n, (c, ms))
                       in enumerate(by_name.items()) if n in SYMBOLS or i < 25}
     # PyTorch's elementwise kernels, all of them (the verify's body ran as
@@ -1821,6 +1901,8 @@ def kernel_profile(dev, cfg, rs, index, unstaged=None) -> dict:
                     post[key] += bound[key]
                 for key, val in shape.items():
                     post[key] += val
+    for k in keep or ():
+        keep[k] = [c for c in calls if c["kernel"] == k]
     b7 = [c for c in calls if c["kernel"] == "verify_diagonals_swar"]
     if unstaged is not None and b7:
         ab = out["b7_staging_ab"] = {"staged": [], "unstaged": []}
@@ -2797,6 +2879,65 @@ def skewed_index_phase(dev, unstaged) -> None:
     torch.cuda.empty_cache()
 
 
+def streaming_flagship(dev, cfg, rs, ts, index, path=STREAM_PATH, keep=None) -> tuple:
+    """The flagship through the streaming expand (NoDedup): a warm-up from
+    the first survivor capacity (earlier runs grow the process-wide hint),
+    then the counted and timed run (flagship_run, which fails unless each
+    kernel of ``path`` launched), starting from the capacity its warm-up
+    grew, then one profile (kernel_profile, given ``keep``).  Prints their
+    numbers and a summary: wall, expand_verify, chunks, each port kernel's
+    launches a chunk, the device events that start in the profile's stage
+    window and its busy share.  Returns (MatchResult, the counted run's
+    numbers, the profile)."""
+    import dataclasses
+
+    from muscato_tpu_torch.engine import pipeline
+
+    cfg_nd = dataclasses.replace(cfg, NoDedup=True)
+    pipeline._CAP_HINT[0] = pipeline._SURV_CAP0
+    cold = {}
+    pipeline.run_matching_indexed(cfg_nd, rs, index, timings=cold)
+    mr_nd, flag_nd = flagship_run(dev, cfg_nd, rs, ts, index, path)
+    flag_nd["chunks_a_pass"] = -(-flag_nd["pairs"] // STREAM_CHUNK)
+    flag_nd["warm_up_chunks"] = cold["chunks"]
+    print("flagship streaming (NoDedup): " + json.dumps(flag_nd), flush=True)
+    prof_nd = kernel_profile(dev, cfg_nd, rs, index, keep=keep)
+    print("profile (flagship batch, streaming path, NoDedup): " + json.dumps(prof_nd),
+          flush=True)
+    chunks = flag_nd["streaming_chunks"]
+    print("streaming (NoDedup): " + json.dumps(dict(
+        wall_s=flag_nd["wall_s"], expand_verify_s=flag_nd["stage_s"]["expand_verify"],
+        chunks=chunks, launches_a_chunk={k: n / chunks for k, n in flag_nd["launches"].items()},
+        profile_window_events=prof_nd["window_events"],
+        profile_window_events_a_chunk=prof_nd["window_events"] / chunks,
+        busy_ms=prof_nd["busy_ms"], window_ms=prof_nd["window_ms"],
+        busy_share=prof_nd["busy_share"], elementwise=prof_nd["elementwise"],
+        verify_pairs_sites=[{k: v for k, v in site.items() if k != "shapes"}
+                            for site in prof_nd["sites"] if site["kernel"] == "verify_pairs"])),
+        flush=True)
+    return mr_nd, flag_nd, prof_nd
+
+
+def stream_cell(path: str) -> None:
+    """``python3 chip_smoke.py --stream-cell K1,K2,...``: the flagship's
+    workload and index, then streaming_flagship alone (``path``: the
+    kernels that must launch).  The port it times is the one first on
+    sys.path, so the same function times a checkout of another commit of
+    the port when this file is loaded by its path from that checkout's
+    root: two trees in turns on one card."""
+    import torch
+
+    import muscato_tpu_torch
+    from muscato_tpu_torch.bench import gendat
+    from muscato_tpu_torch.engine import pipeline
+
+    dev = torch.device("cuda")
+    print(f"stream cell: the port at {os.path.dirname(muscato_tpu_torch.__file__)}", flush=True)
+    rs, ts = gendat.generate_arrays_realistic(NUM_READ, READ_LEN, NUM_GENE, GENE_LEN, SEED)
+    index = pipeline.build_target_index(ts, WIDTH, dev)
+    streaming_flagship(dev, config(), rs, ts, index, tuple(path.split(",")))
+
+
 def match_phases(dev, unstaged=None) -> tuple:
     import dataclasses
 
@@ -2839,6 +2980,8 @@ def match_phases(dev, unstaged=None) -> tuple:
     got_nd = runs["NoDedup"]["result"]
     check_result(got, sub, ts, cfg)
     check(runs["NoDedup"]["timings"]["chunks"] > 0, "NoDedup: the streaming expand did not run")
+    check(runs["NoDedup"]["launches"]["verify_pairs"] == runs["NoDedup"]["timings"]["chunks"],
+          "NoDedup parity: B10 did not launch once a chunk")
     check(parity_t["probe_kind"] == "sorted_join"
           and runs["MUSCATO_PJOIN=0"]["timings"]["probe_kind"] == "sort_merge", "parity probes")
     print(f"parity (engine_device_check): {n} reads vs the full index, {len(got.read_row)} "
@@ -2851,13 +2994,16 @@ def match_phases(dev, unstaged=None) -> tuple:
         f"_MAX_PAIR_CAP {pair_cap}, below the batch's {parity_t['pairs']} pairs":
             (cfg, pair_cap),
     }
+    pairs_wrapper = wrappers()["verify_pairs"]
     for label, (c, cap) in streaming.items():
         saved_cap = pipeline._MAX_PAIR_CAP
         pipeline._MAX_PAIR_CAP = cap or saved_cap
         try:
             t0 = time.perf_counter()
             tg, tc = {}, {}
+            pairs_wrapper.launches = 0
             alt = pipeline.run_matching_indexed(c, sub, index, probe="sort", timings=tg)
+            b10_launches = pairs_wrapper.launches
             t1 = time.perf_counter()
             alt_cpu = pipeline.run_matching_indexed(c, sub, cpu_index, probe="sort",
                                                     timings=tc)
@@ -2865,12 +3011,15 @@ def match_phases(dev, unstaged=None) -> tuple:
         finally:
             pipeline._MAX_PAIR_CAP = saved_cap
         check(tg["chunks"] > 0 and tc["chunks"] > 0, f"{label}: the streaming expand did not run")
+        check(b10_launches == tg["chunks"], f"{label}: B10 launched {b10_launches} times in "
+              f"{tg['chunks']} chunks")
         check(same_result(alt, alt_cpu), f"{label}: cuda and cpu MatchResults differ")
         check_result(alt, sub, ts, c)
         if c.Windows == cfg.Windows:
             check(same_result(alt, got), f"{label}: MatchResult differs from the default run")
         print(f"parity, streaming expand, {label}: {len(alt.read_row)} matches identical on "
-              f"cuda ({t1 - t0:.2f}s, {tg['chunks']} chunks) and cpu ({t2 - t1:.2f}s)"
+              f"cuda ({t1 - t0:.2f}s, {tg['chunks']} chunks, B10 once a chunk) and cpu "
+              f"({t2 - t1:.2f}s)"
               + (", and to the default run" if c.Windows == cfg.Windows else ""), flush=True)
 
     # The flagship through the main path: one warm-up run, then the
@@ -2906,22 +3055,17 @@ def match_phases(dev, unstaged=None) -> tuple:
     print(f"profile (flagship batch, switched path, {switches}): " + json.dumps(prof_sw),
           flush=True)
 
-    # The flagship through the streaming expand (NoDedup): a warm-up from
-    # the first survivor capacity (the runs above grew the process-wide
-    # hint), then the counted and timed run, which starts from the
-    # capacity its warm-up grew, then one profile.
-    cfg_nd = dataclasses.replace(cfg, NoDedup=True)
-    pipeline._CAP_HINT[0] = pipeline._SURV_CAP0
-    cold = {}
-    pipeline.run_matching_indexed(cfg_nd, rs, index, timings=cold)
-    mr_nd, flag_nd = flagship_run(dev, cfg_nd, rs, ts, index, STREAM_PATH)
+    b10_calls = {"verify_pairs": None}
+    mr_nd, flag_nd, prof_nd = streaming_flagship(dev, cfg, rs, ts, index, keep=b10_calls)
     check(same_result(mr_nd, mr), "streaming (NoDedup) flagship MatchResult differs")
-    flag_nd["chunks_a_pass"] = -(-flag_nd["pairs"] // STREAM_CHUNK)
-    flag_nd["warm_up_chunks"] = cold["chunks"]
-    print("flagship streaming (NoDedup): " + json.dumps(flag_nd), flush=True)
-    prof_nd = kernel_profile(dev, cfg_nd, rs, index)
-    print("profile (flagship batch, streaming path, NoDedup): " + json.dumps(prof_nd),
-          flush=True)
+    check(flag_nd["launches"]["verify_pairs"] == flag_nd["streaming_chunks"],
+          f"streaming flagship: B10 launched {flag_nd['launches']['verify_pairs']} times in "
+          f"{flag_nd['streaming_chunks']} chunks")
+    check(sum(site["launches"] for site in prof_nd["sites"] if site["kernel"] == "verify_pairs")
+          == prof_nd["kernels"]["expand_owners"]["launches"],
+          "the streaming profile: B10 did not launch once a chunk, as B2 does")
+    b10 = verify_pairs_phase(b10_calls["verify_pairs"])
+    del b10_calls
 
     ab = probe_ab(dev, cfg, rs, index)
     print("probe stage A/B (ms, flagship batch): " + json.dumps(ab), flush=True)
@@ -2969,7 +3113,7 @@ def match_phases(dev, unstaged=None) -> tuple:
     launches_mesh = mesh_ranks_phase(dev, rs, ts, mr, got, got_nd)
     del rs, ts
     return (flag, flag_sw, flag_nd, flag_sb, flag_mb, launches_mesh, launches_search,
-            probe_kres)
+            {**probe_kres, "verify_pairs": b10})
 
 
 def report_files(results: str) -> dict:
@@ -3333,6 +3477,7 @@ def main() -> int:
     print(f"B7, -Xptxas -v: {ptxas_of(kern.log, SYMBOLS['verify_diagonals_swar'])}; "
           f"without staging: {ptxas_of(builds[0][2], 'verify_diagonals_direct_kernel')}",
           flush=True)
+    print(f"B10, -Xptxas -v: {ptxas_of(kern.log, SYMBOLS['verify_pairs'])}", flush=True)
     print(f"B8, -Xptxas -v: {ptxas_of(kern.log, SYMBOLS['direct_probe'])}; B9: "
           f"{ptxas_of(kern.log, SYMBOLS['binary_probe'])}; one thread a query "
           f"(-DMUSCATO_NO_STAGE): B8 {ptxas_of(builds[0][2], 'direct_probe_thread_kernel')}, "
@@ -3348,18 +3493,20 @@ def main() -> int:
     kres = kernel_phase(dev, unstaged, variants, sub_variants)
     bench_tool_phases(dev)
     (flag, flag_sw, flag_nd, flag_sb, flag_mb, launches_mesh, launches_search,
-     probe_kres) = match_phases(dev, unstaged)
-    kres.update(probe_kres)
+     match_kres) = match_phases(dev, unstaged)
+    kres.update(match_kres)
     driver_phase(dev)
     launches_scale = scale_run_phase(dev)
     tool_run_phases(dev)
 
     # Each kernel's "launches": the counted run of the path it is on (the
     # default flagship; B6 the switched one; B8 the 16-batch flagship, whose
-    # batches take the direct probe; B9 the binary search-parity run).
+    # batches take the direct probe; B9 the binary search-parity run; B10
+    # the streaming flagship).
     main_run = {"expand_owners_sub": flag_sw["launches"],
                 "direct_probe": flag_sb["launches"],
-                "binary_probe": launches_search["search_binary"]}
+                "binary_probe": launches_search["search_binary"],
+                "verify_pairs": flag_nd["launches"]}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1],
@@ -3396,5 +3543,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-rank"]:
         mesh_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--stream-cell"]:
+        stream_cell(sys.argv[2] if len(sys.argv) > 2 else ",".join(STREAM_PATH))
         sys.exit(0)
     sys.exit(main())

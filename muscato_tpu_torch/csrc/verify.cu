@@ -317,6 +317,117 @@ cudaError_t pick_tile(int nwords, int tcols, int* lanes, size_t* smem) {
   return e;
 }
 
+// ---- B10 verify_pairs: the streaming expand's per-pair verify ----------
+//
+// For every lane j of a streaming chunk (one (read, window position) pair
+// a lane, in the probe's lo order: neither its read rows nor its positions
+// are monotone), with rc = clamp(r), pc = clamp(p, 0, smax - 1) and q1 the
+// lane's window offset (q1v[j], or the scalar q1 when q1v is null), it
+// emits
+//   g    = the gene owning pc (gene_of_pos_block: bounds from
+//          gblock[pc >> 8] and gblock[(pc >> 8) + 1], then gsteps
+//          branchless refines on gene_start[mid] <= pc),
+//   s    = pc - gene_start[g] - q1 (the read start in the gene),
+//   nx   = mismatching bases of rpacked[rc] against the target under the
+//          diagonal dc = max(pc - q1, 0), over the read's length,
+//   keep = r >= 0, p >= 0, s >= 0, the right-tail fit with the
+//          reference's pos-0 cap (rlen - q2 <= min(glen, cap) - (pl +
+//          width), cap = 100 - q2 where pl == 0 and q1 == 0, else pl +
+//          width + max_read_length - q2; pl = pc - gene_start[g], q2 = q1 +
+//          width), no mismatch in nibbles [q1, q2) and nx <= budget[rlen].
+//
+// Replaces the XLA body of muscato_tpu/ops/packed.py:verify_pairs_packed
+// (:432; there is no pl.pallas_call), which the JAX package's streaming
+// expand runs once a chunk inside the lax.while_loop of
+// muscato_tpu/ops/fused.py:_expand_verify_impl.  Its plain twin is
+// muscato_tpu_torch/ops/packed.py:verify_pairs_packed_torch, the same steps
+// as int64 tensor passes (about 100 launches a chunk), every lane exact.
+//
+// Bound on the card: bytes, and at the streaming chunk shape far below a
+// launch.  131,072 lanes of 13-word reads read about 190 bytes a lane (r,
+// p, q1, the read row and length, 56 bytes of target words, ~10 gene-table
+// words) and write 13: ~25 MB, 0.008 ms at 3.35 TB/s (0.0056 ms with each
+// read row counted once, chip_smoke.py's call_work); its integer work is
+// ~250 operations a lane, 0.002 ms on one pipe.  So one call is bound by
+// its launch, and the kernel's worth is the ~100 launches of its twin that
+// it takes off each chunk.  On an H100 80GB HBM3 at 700 W it takes 0.033
+// ms a launch on the streaming flagship (chip_smoke.py's profile), about
+// 6x that bound: its loads are scattered, and the gene lookup's are a
+// chain of dependent ones.
+//
+// The design is simple and exact: one thread a lane in blocks of kTile,
+// every load a __ldg from global memory, nothing staged (the lanes share no
+// rows a tile could stage).  The lane's nwords + 1 target words are read
+// from its row of trows (dc >> 6, clamped) at word (dc >> 3) & 7, the row
+// and column the twin's 3-level select picks; the words stream with the
+// previous target word in a register, aligned by one __funnelshift_r as in
+// verify_lane, so no word count is compiled in (reads up to the packed
+// path's 4096 bases).  Each word's nibbles fold to one bit, counted by
+// __popc for nx and, masked to the lane's one window, for its window's
+// mismatches.
+__global__ void __launch_bounds__(kTile)
+    verify_pairs_kernel(const int32_t* __restrict__ r, const int32_t* __restrict__ p,
+                        long long n, const int32_t* __restrict__ q1v, int q1s,
+                        const uint32_t* __restrict__ trows, int ntrows, int tcols,
+                        const uint32_t* __restrict__ rpacked, int nreads, int nwords,
+                        const int32_t* __restrict__ lengths,
+                        const int32_t* __restrict__ gene_start, int ngs,
+                        const int32_t* __restrict__ gblock, int nblock, int gsteps,
+                        const int32_t* __restrict__ budget, int nbudget, int width,
+                        int max_read_length, int smax, uint8_t* __restrict__ keep_out,
+                        int32_t* __restrict__ nx_out, int32_t* __restrict__ g_out,
+                        int32_t* __restrict__ s_out) {
+  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= n) return;
+  const int rj = __ldg(r + j), pj = __ldg(p + j);
+  const int q1 = q1v ? __ldg(q1v + j) : q1s;
+  const int rc = min(max(rj, 0), nreads - 1);
+  const int pc = min(max(pj, 0), smax - 1);
+  const int rlen = __ldg(lengths + rc);
+
+  // The owning gene, as gene_of_pos_block finds it.
+  const int glast = ngs - 1;
+  const int b = pc >> 8;
+  int lo = __ldg(gblock + min(max(b, 0), nblock - 1));
+  int hi = __ldg(gblock + min(max(b + 1, 0), nblock - 1));
+  for (int i = 0; i < gsteps; ++i) {
+    const int mid = (lo + hi + 1) >> 1;
+    const bool up = __ldg(gene_start + min(max(mid, 0), glast)) <= pc;
+    lo = up ? mid : lo;
+    hi = up ? hi : mid - 1;
+  }
+  const int gstart = __ldg(gene_start + min(max(lo, 0), glast));
+  const int glen = __ldg(gene_start + min(max(lo + 1, 0), glast)) - gstart;
+  const int pl = pc - gstart;
+  const int s = pl - q1;
+  const int q2 = q1 + width;
+  const int cap = (pl == 0 && q1 == 0) ? 100 - q2 : pl + width + (max_read_length - q2);
+  const bool fit = rlen - q2 <= min(glen, cap) - (pl + width);
+
+  // The SWAR compare along the diagonal.
+  const int dc = max(pc - q1, 0);
+  const int row = min(max(dc >> 6, 0), ntrows - 1);
+  const uint32_t* t = trows + (long long)row * tcols + ((dc >> 3) & 7);
+  const uint32_t* rw = rpacked + (long long)rc * nwords;
+  const int rshift = (dc & 7) * 4;
+  uint32_t prev = __ldg(t);
+  int nx = 0, win = 0;
+  for (int w = 0; w < nwords; ++w) {
+    const uint32_t next = __ldg(t + w + 1);
+    uint32_t x = __funnelshift_r(prev, next, rshift) ^ __ldg(rw + w);
+    prev = next;
+    x &= nib_mask(rlen - 8 * w);
+    const uint32_t nz = (x | (x >> 1) | (x >> 2) | (x >> 3)) & 0x11111111u;
+    nx += __popc(nz);
+    win += __popc(nz & nib_mask(q2 - 8 * w) & ~nib_mask(q1 - 8 * w));
+  }
+  const int bud = __ldg(budget + min(max(rlen, 0), nbudget - 1));
+  keep_out[j] = rj >= 0 && pj >= 0 && s >= 0 && fit && win == 0 && nx <= bud;
+  nx_out[j] = nx;
+  g_out[j] = lo;
+  s_out[j] = s;
+}
+
 }  // namespace
 
 // The tile that muscato_verify_diagonals takes for reads of nwords words
@@ -364,5 +475,29 @@ extern "C" int muscato_verify_diagonals(
       (const uint32_t*)rpacked, nreads, nwords, (const int32_t*)lengths,
       (const int32_t*)gstart, (const int32_t*)gend, (const int32_t*)budget, nbudget, win,
       width, smax, (int32_t*)nx, (int32_t*)s, (int32_t*)okbits);
+  return (int)cudaGetLastError();
+}
+
+// B10.  q1v: a device array of n window offsets, or null for the scalar
+// q1.  trows holds ntrows rows of tcols >= nwords + 8 words.  Refused
+// (cudaErrorInvalidValue, nothing launched): narrower rows, empty tables
+// (trows, reads, gene_start of fewer than 2 entries, gblock, budget), a
+// negative gsteps, smax < 1.
+extern "C" int muscato_verify_pairs(
+    const void* r, const void* p, long long n, const void* q1v, int q1, const void* trows,
+    int ntrows, int tcols, const void* rpacked, int nreads, int nwords, const void* lengths,
+    const void* gene_start, int ngs, const void* gblock, int nblock, int gsteps,
+    const void* budget, int nbudget, int width, int max_read_length, int smax, void* keep,
+    void* nx, void* g, void* s, void* stream) {
+  if (nwords < 1 || tcols < nwords + 8 || ntrows < 1 || nreads < 1 || ngs < 2 ||
+      nblock < 1 || gsteps < 0 || nbudget < 1 || smax < 1)
+    return (int)cudaErrorInvalidValue;
+  if (n <= 0) return (int)cudaGetLastError();
+  verify_pairs_kernel<<<(unsigned)((n + kTile - 1) / kTile), kTile, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)r, (const int32_t*)p, n, (const int32_t*)q1v, q1,
+      (const uint32_t*)trows, ntrows, tcols, (const uint32_t*)rpacked, nreads, nwords,
+      (const int32_t*)lengths, (const int32_t*)gene_start, ngs, (const int32_t*)gblock,
+      nblock, gsteps, (const int32_t*)budget, nbudget, width, max_read_length, smax,
+      (uint8_t*)keep, (int32_t*)nx, (int32_t*)g, (int32_t*)s);
   return (int)cudaGetLastError();
 }

@@ -113,6 +113,7 @@ KERNELS = {"window_queries": wq_ops.window_queries, "sorted_join": join_ops.sort
            "monotone_gather": gather_ops.monotone_gather,
            "monotone_gather_rows": gather_ops.monotone_gather_rows,
            "verify_diagonals_swar": packed_ops.verify_diagonals_swar,
+           "verify_pairs": packed_ops.verify_pairs_packed,
            "direct_probe": search_ops.direct_probe, "binary_probe": search_ops.binary_probe}
 
 

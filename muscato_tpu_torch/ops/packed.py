@@ -7,14 +7,16 @@ little-endian nibble order.  Packed words are stored as int32 bit patterns
 on int64 copies holding values in [0, 2**32), because torch has no logical
 right shift on int32 and no uint32 shifts on the CPU.
 
-Two verifies are ported: ``verify_diagonals_packed``, the dedup path's, in
-diagonal-major order with the target-row view (``trows``) fetched by the
-B4 row gather and the gene lookup on the B3 gather, and its SWAR body in
-the CUDA kernel of ``csrc/verify.cu`` (``verify_diagonals_swar``, whose
-plain twin is ``verify_diagonals_swar_torch``); and
-``verify_pairs_packed``, the streaming path's, one pair a lane in the
-probe's lo order, whose row and gene streams are not monotone and are
-fetched by plain indexing.
+Two verifies are ported, each with a CUDA kernel in ``csrc/verify.cu``:
+``verify_diagonals_packed``, the dedup path's, in diagonal-major order
+with the target-row view (``trows``) fetched by the B4 row gather and the
+gene lookup on the B3 gather, and its SWAR body in B7
+(``verify_diagonals_swar``, whose plain twin is
+``verify_diagonals_swar_torch``); and ``verify_pairs_packed``, the
+streaming path's, one pair a lane in the probe's lo order, whose row and
+gene streams are not monotone: B10 does the whole verify, its fetches
+included, one thread a lane (its plain twin, ``verify_pairs_packed_torch``,
+fetches by plain indexing).
 """
 
 from __future__ import annotations
@@ -359,26 +361,10 @@ def verify_diagonals_packed(
     return nx, g.to(torch.int32), s, okbits
 
 
-def verify_pairs_packed(
-    r: torch.Tensor,  # (P,) int32 read rows (-1 = inactive lane)
-    p: torch.Tensor,  # (P,) int32 global window positions (-1 = inactive)
-    rpacked: torch.Tensor,  # (R, NW) int32 nibble-packed reads
-    lengths: torch.Tensor,  # (R,) int32
-    gene_start: torch.Tensor,  # (G+1,) int32
-    budget: torch.Tensor,  # (max_read_length+1,) int32
-    q1,  # int or (P,) int32: the window offset of each pair lane
-    width: int,
-    max_read_length: int,
-    smax: int,
-    trows: torch.Tensor,  # (T, NW+9) int32 target-row view
-    gblock: torch.Tensor,  # gene block table
-    gsteps: int,
-):
-    """Verify one (read, window position) pair a lane, each with its own
-    window offset q1.  Returns (keep, nx, g, s): keep says the pair passes
-    (window region exact, left and right-tail fit including the
-    reference's pos-0 cap quirk, mismatch budget); s is the read start in
-    the gene."""
+def verify_pairs_packed_torch(r, p, rpacked, lengths, gene_start, budget, q1, width: int,
+                              max_read_length: int, smax: int, trows, gblock, gsteps: int):
+    """Plain twin of ``verify_pairs_packed``: the JAX function's steps as
+    int64 tensor passes, with the row and gene fetches by plain indexing."""
     nwords = rpacked.shape[1]
     active = (r >= 0) & (p >= 0)
     rc = r.clamp(0, rpacked.shape[0] - 1).long()
@@ -424,3 +410,54 @@ def verify_pairs_packed(
         & (nx <= budget[rlen.clamp(0, budget.shape[0] - 1).long()])
     )
     return keep, nx, g.to(torch.int32), s_local.to(torch.int32)
+
+
+def verify_pairs_packed(
+    r: torch.Tensor,  # (P,) int32 read rows (-1 = inactive lane)
+    p: torch.Tensor,  # (P,) int32 global window positions (-1 = inactive)
+    rpacked: torch.Tensor,  # (R, NW) int32 nibble-packed reads
+    lengths: torch.Tensor,  # (R,) int32
+    gene_start: torch.Tensor,  # (G+1,) int32
+    budget: torch.Tensor,  # (max_read_length+1,) int32
+    q1,  # int or (P,) int32: the window offset of each pair lane
+    width: int,
+    max_read_length: int,
+    smax: int,
+    trows: torch.Tensor,  # (T, NW+9) int32 target-row view
+    gblock: torch.Tensor,  # gene block table
+    gsteps: int,
+):
+    """Verify one (read, window position) pair a lane, each with its own
+    window offset q1: launches B10, the CUDA kernel in ``csrc/verify.cu``
+    (the body of ``muscato_tpu/ops/packed.py:verify_pairs_packed``, which
+    XLA fuses; it has no Pallas kernel); on CPU tensors its plain twin
+    ``verify_pairs_packed_torch``.  Returns (keep, nx, g, s): keep (bool)
+    says the pair passes (window region exact, left and right-tail fit
+    including the reference's pos-0 cap quirk, mismatch budget); s is the
+    read start in the gene; nx, g and s are int32."""
+    q1v = q1.expand(r.shape).contiguous() if torch.is_tensor(q1) else None
+    tensors = (r, p, rpacked, lengths, gene_start, budget, trows, gblock)
+    if _lib.on_cpu("verify_pairs_packed", *tensors, *([] if q1v is None else [q1v])):
+        return verify_pairs_packed_torch(r, p, rpacked, lengths, gene_start, budget, q1,
+                                         width, max_read_length, smax, trows, gblock, gsteps)
+    n = r.shape[0]
+    if p.shape[0] != n:
+        raise ValueError("verify_pairs_packed: lane shapes disagree")
+    keep = torch.empty(n, dtype=torch.bool, device=r.device)
+    nx, g, s = (torch.empty(n, dtype=torch.int32, device=r.device) for _ in range(3))
+    if n:
+        # The launcher refuses trows narrower than nwords + 8 words and
+        # empty tables; the launch then raises.
+        _lib.launch(
+            "verify_pairs", r, r.data_ptr(), p.data_ptr(), n,
+            None if q1v is None else q1v.data_ptr(), int(q1) if q1v is None else 0,
+            trows.data_ptr(), *trows.shape, rpacked.data_ptr(), *rpacked.shape,
+            lengths.data_ptr(), gene_start.data_ptr(), gene_start.numel(), gblock.data_ptr(),
+            gblock.numel(), gsteps, budget.data_ptr(), budget.numel(), width,
+            max_read_length, smax, keep.data_ptr(), nx.data_ptr(), g.data_ptr(), s.data_ptr(),
+        )
+        verify_pairs_packed.launches += 1
+    return keep, nx, g, s
+
+
+verify_pairs_packed.launches = 0

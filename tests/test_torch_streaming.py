@@ -30,6 +30,7 @@ from muscato_tpu_torch.engine import index as tindex
 from muscato_tpu_torch.engine import pipeline as tpipeline
 from muscato_tpu_torch.ops import fused as tfused
 from muscato_tpu_torch.ops import packed as tpacked
+from verify_pairs_cases import CASES, pair_args
 
 _ARGS = (5000, 100, 200, 1000)  # tests/test_torch_pipeline.py's workload
 
@@ -99,61 +100,110 @@ def test_gene_of_pos_block_matches_jax():
     assert got.numpy().max() == len(gene_start) - 2  # the last gene is hit
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_verify_pairs_packed_matches_jax(seed):
-    """Lanes in random order with a window offset each: inactive lanes,
-    negative diagonals, position-0 hits of reads longer than 100 with
-    q1 == 0, hits in the last gene and planted exact matches.  Every
-    output of every lane must be equal."""
-    rng = np.random.default_rng(40 + seed)
-    max_rl, width, S = 160, 12, 7000
-    gene_start = np.array([0, 1500, 2600, 4100, S], np.int32)
-    tcat = rng.integers(0, 4, S).astype(np.uint8)
-    nreads, n = 48, 4096
-    codes = rng.integers(0, 4, (nreads, max_rl)).astype(np.uint8)
-    lengths = rng.integers(width + 10, max_rl + 1, nreads).astype(np.int32)
-    lengths[:8] = rng.integers(101, max_rl + 1, 8)  # longer than 100
-    lengths[8:16] = rng.integers(width + 10, 100 - width + 1, 8)  # fit the pos-0 cap
-    q1s = np.array([0, 10, 33, 60], np.int32)
-    q1 = q1s[rng.integers(0, 4, n)]
-    r = rng.integers(0, nreads, n).astype(np.int32)
-    p = rng.integers(0, S, n).astype(np.int32)
-    r[rng.random(n) < 0.05] = -1
-    p[rng.random(n) < 0.05] = -1
-    neg = rng.random(n) < 0.05  # the window starts before its read would
-    p[neg] = rng.integers(0, 40, neg.sum())
-    # Planted hits: the read is the target under its diagonal.
-    for i in rng.integers(0, n, 300):
-        rr, d = r[i], p[i] - q1[i]
-        if rr >= 0 and d >= 0 and d + lengths[rr] <= S:
-            codes[rr, : lengths[rr]] = tcat[d : d + lengths[rr]]
-    # Position-0 hits: q1 == 0 at a gene start, with reads longer than 100
-    # (the cap rejects them) and with reads that fit it.
-    for j, i in enumerate(range(n - 24, n)):
-        rr = j % 16
-        p[i], q1[i], r[i] = gene_start[j % 4], 0, rr
-        codes[rr, : lengths[rr]] = tcat[p[i] : p[i] + lengths[rr]]
-    p[n - 40 : n - 24] = rng.integers(gene_start[-2], S, 16)  # the last gene
-    budget = jverify.mismatch_budget_table(0.9, max_rl)
-    rp = jpacked.pack_rows_np(codes)
-    tp = jpacked.pack_stream(tcat)
-    trows = np.asarray(jpacked.build_trows(tp, rp.shape[1], S))
-    gb, steps = jpacked.build_gene_block(gene_start, S)
-
+@pytest.mark.parametrize("case", list(CASES))
+def test_verify_pairs_packed_matches_jax(case):
+    """The per-pair verify's twin (``verify_pairs_packed_torch``, which the
+    wrapper runs on CPU tensors) against the JAX function on every case of
+    tests/verify_pairs_cases.py: lanes in random order with a window
+    offset each or one scalar, inactive lanes, negative diagonals,
+    position-0 hits of reads longer than 100 and within the cap, the last
+    gene and stream position, fixed in-word shifts, X codes, widths 8-40
+    and reads of 4-512 words.  Every output of every lane must be equal."""
+    args, tp = pair_args(case)
+    r, p, rp, lengths, gene_start, budget, q1, width, max_rl, s, trows, gb, steps = args
+    u32 = lambda t: t.numpy().view(np.uint32)  # noqa: E731
     exp = jpacked.verify_pairs_packed(
-        jnp.asarray(r), jnp.asarray(p), jnp.asarray(rp), jnp.asarray(lengths), tp,
-        jnp.asarray(gene_start), jnp.asarray(budget), jnp.asarray(q1), width,
-        max_rl, S, trows=jnp.asarray(trows), gblock=jnp.asarray(gb), gsteps=steps,
+        jnp.asarray(r.numpy()), jnp.asarray(p.numpy()), jnp.asarray(u32(rp)),
+        jnp.asarray(lengths.numpy()), jnp.asarray(tp), jnp.asarray(gene_start.numpy()),
+        jnp.asarray(budget.numpy()), q1 if isinstance(q1, int) else jnp.asarray(q1.numpy()),
+        width, max_rl, s, trows=jnp.asarray(u32(trows)), gblock=jnp.asarray(gb.numpy()),
+        gsteps=steps,
     )
-    got = tpacked.verify_pairs_packed(
-        _t(r), _t(p), _t(rp), _t(lengths), _t(gene_start), _t(budget), _t(q1),
-        width, max_rl, S, _t(trows), _t(gb), steps,
-    )
-    keep = np.asarray(exp[0])
-    assert keep[: n - 40].sum() > 20 and keep[n - 24 :].any()
-    assert not keep[n - 24 :][r[n - 24 :] < 8].any()  # the pos-0 cap
+    before = tpacked.verify_pairs_packed.launches
+    got = tpacked.verify_pairs_packed(*args)
+    assert tpacked.verify_pairs_packed.launches == before  # the CPU runs the twin
+    assert [a.dtype for a in got] == [torch.bool] + [torch.int32] * 3
     for name, a, b in zip(("keep", "nx", "g", "s"), got, exp):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=name)
+    keep, n = got[0].numpy(), r.shape[0]
+    assert keep[: n - 64].sum() > 20
+    if not (isinstance(q1, int) and q1):  # the last 24 lanes: q1 == 0 at gene starts
+        assert keep[n - 24:].any()
+        if max_rl > 100:
+            assert not keep[n - 24:][r.numpy()[n - 24:] < 8].any()  # the pos-0 cap
+
+
+def _nib_mask(k: int) -> int:
+    k = min(max(k, 0), 8)
+    return (1 << (4 * k)) - 1
+
+
+def _pairs_model(r, p, rpacked, lengths, gene_start, budget, q1, width, max_rl, smax,
+                 trows, gblock, steps):
+    """csrc/verify.cu's B10 per-lane code in numpy integers: the gene found
+    from the two gblock bounds and ``steps`` refines, the lane's target
+    words from its row of trows at word (dc >> 3) & 7, the aligned word
+    (next:prev) >> rshift with the previous word carried, and a window
+    count of the lane's one window."""
+    nreads, nwords = rpacked.shape
+    trows, rpacked = trows.view(np.uint32), rpacked.view(np.uint32)
+    glast, nblock, n = len(gene_start) - 1, len(gblock), len(r)
+    q1 = np.broadcast_to(np.asarray(q1, np.int64), (n,))
+    clamp = lambda x, a, b: min(max(int(x), a), b)  # noqa: E731
+    out = np.zeros((4, n), np.int64)
+    for j in range(n):
+        rc, pc, q = clamp(r[j], 0, nreads - 1), clamp(p[j], 0, smax - 1), int(q1[j])
+        rlen = int(lengths[rc])
+        lo = int(gblock[clamp(pc >> 8, 0, nblock - 1)])
+        hi = int(gblock[clamp((pc >> 8) + 1, 0, nblock - 1)])
+        for _ in range(steps):
+            mid = (lo + hi + 1) >> 1
+            if gene_start[clamp(mid, 0, glast)] <= pc:
+                lo = mid
+            else:
+                hi = mid - 1
+        gs = int(gene_start[clamp(lo, 0, glast)])
+        glen = int(gene_start[clamp(lo + 1, 0, glast)]) - gs
+        pl, q2 = pc - gs, q + width
+        cap = 100 - q2 if pl == 0 and q == 0 else pl + width + max_rl - q2
+        fit = rlen - q2 <= min(glen, cap) - (pl + width)
+        dc = max(pc - q, 0)
+        t = trows[clamp(dc >> 6, 0, trows.shape[0] - 1), (dc >> 3) & 7:]
+        prev, nx, win = int(t[0]), 0, 0
+        for w in range(nwords):
+            nxt = int(t[w + 1])
+            x = ((((nxt << 32) | prev) >> ((dc & 7) * 4)) & 0xFFFFFFFF) ^ int(rpacked[rc, w])
+            prev = nxt
+            x &= _nib_mask(rlen - 8 * w)
+            nz = (x | x >> 1 | x >> 2 | x >> 3) & 0x11111111
+            nx += bin(nz).count("1")
+            win += bin(nz & _nib_mask(q2 - 8 * w) & ~_nib_mask(q - 8 * w)).count("1")
+        bud = int(budget[clamp(rlen, 0, len(budget) - 1)])
+        keep = r[j] >= 0 and p[j] >= 0 and pl - q >= 0 and fit and win == 0 and nx <= bud
+        out[:, j] = keep, nx, lo, pl - q
+    return out
+
+
+@pytest.mark.parametrize("case", ["0", "w20-scalar-q1", "w8-32win-10words", "rshift-28"])
+def test_verify_pairs_kernel_model_matches_twin(case):
+    """The twin equals a numpy model of B10's per-lane code on every lane
+    (the kernel itself runs only on the card, test_torch_verify_pairs_cuda.py)."""
+    args, _ = pair_args(case, n=600)
+    twin = tpacked.verify_pairs_packed_torch(*args)
+    model = _pairs_model(*(x.numpy() if torch.is_tensor(x) else x for x in args))
+    for name, a, b in zip(("keep", "nx", "g", "s"), twin, model):
+        np.testing.assert_array_equal(a.numpy().astype(np.int64), b, err_msg=name)
+
+
+def test_verify_pairs_wrapper_refuses_mixed_devices():
+    """A tensor off the CPU never reaches the twin: the wrapper raises, and
+    counts no launch."""
+    args, _ = pair_args("w20-4win-13words", n=300)
+    meta = [x.to("meta") if torch.is_tensor(x) and i == 2 else x for i, x in enumerate(args)]
+    before = tpacked.verify_pairs_packed.launches
+    with pytest.raises(ValueError):
+        tpacked.verify_pairs_packed(*meta)
+    assert tpacked.verify_pairs_packed.launches == before
 
 
 # ---- the streaming stage ---------------------------------------------------

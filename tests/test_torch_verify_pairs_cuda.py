@@ -1,0 +1,75 @@
+"""B10, the streaming expand's per-pair verify (``csrc/verify.cu``
+``verify_pairs_kernel``), on the card: every lane of the kernel exact
+against its plain twin ``verify_pairs_packed_torch`` on the CPU, for every
+case of tests/verify_pairs_cases.py, at a lane count that is not a
+multiple of the block, and with the window offset as a scalar, as one
+0-d tensor and as one a lane; trows narrower than the reads need are
+refused.  Every test is marked ``gpu`` and skips without a card.  The file
+imports nothing of JAX, so it runs on a card machine without it:
+``python -m pytest --noconftest -m gpu tests/test_torch_verify_pairs_cuda.py``
+(the conftest pins JAX to the CPU).
+"""
+
+import pytest
+import torch
+
+from muscato_tpu_torch.ops import packed as tpacked
+from verify_pairs_cases import CASES, pair_args
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _to(args, dev):
+    return [x.to(dev) if torch.is_tensor(x) else x for x in args]
+
+
+def _on_card(args, dev):
+    """B10 on the card, one launch, every output of every lane equal to
+    the twin's on the CPU."""
+    before = tpacked.verify_pairs_packed.launches
+    got = tpacked.verify_pairs_packed(*_to(args, dev))
+    assert tpacked.verify_pairs_packed.launches == before + 1
+    exp = tpacked.verify_pairs_packed_torch(*args)
+    for name, a, b in zip(("keep", "nx", "g", "s"), got, exp):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b), name
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(CASES))
+def test_cuda_verify_pairs_matches_twin(cuda_device, case):
+    """B10 exact against its twin on every lane of every case."""
+    args, _ = pair_args(case)
+    keep = _on_card(args, cuda_device)[0]
+    assert int(keep.sum()) > 20
+
+
+@pytest.mark.gpu
+def test_cuda_verify_pairs_ragged_lanes_and_q1_forms(cuda_device):
+    """A lane count that leaves the last block ragged; the per-lane offsets
+    given as a scalar, a 0-d tensor and one a lane give one result."""
+    args, _ = pair_args("w20-scalar-q1-10", n=3 * 256 + 77)
+    got = _on_card(args, cuda_device)
+    for q1 in (torch.tensor(10, dtype=torch.int32),
+               torch.full((args[0].shape[0],), 10, dtype=torch.int32)):
+        alt = _on_card(args[:6] + (q1,) + args[7:], cuda_device)
+        for a, b in zip(got, alt):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_cuda_verify_pairs_refuses_narrow_rows(cuda_device):
+    """trows one word narrower than nwords + 8: the launcher refuses it,
+    the wrapper raises and counts no launch."""
+    args, _ = pair_args("w20-4win-13words", n=512)
+    trows = args[10]
+    args = args[:10] + (trows[:, : args[2].shape[1] + 7].contiguous(),) + args[11:]
+    before = tpacked.verify_pairs_packed.launches
+    with pytest.raises(RuntimeError):
+        tpacked.verify_pairs_packed(*_to(args, cuda_device))
+    assert tpacked.verify_pairs_packed.launches == before
