@@ -7,7 +7,8 @@ Run from the root of a checkout.  It builds the ten CUDA kernels from
 muscato_tpu_torch/csrc with nvcc (one process per source, in parallel),
 a variant of them built with -DMUSCATO_NO_STAGE (B1 and B4 never stage a
 span, B5 stages by a copy loop, B7 reads every word from global memory, B8
-and B9 take one thread a query; B10 is the same in both) and variants of
+and B9 take one thread a query, B3 one thread an output, B10 one thread a
+lane reading its rows from global memory) and variants of
 csrc/expand.cu built with other constants (B2: tiles a warp, register
 cut; B6: ring depth, lo and qid in the ring or not, lanes a warp, register
 cut), all at once, then:
@@ -54,7 +55,11 @@ cut), all at once, then:
      expand's chunk windows (a middle chunk, and the last one, short and
      ending in padded slots), B6's variant builds too; even row widths,
      1 and 64 windows, every width class with and without the
-     dinucleotide gate, rows of random words); then times B1, B4 and B5
+     dinucleotide gate, rows of random words); B3 against its unstaged
+     variant (its first design) in turns at the postings shape and at a
+     2**20-lane gene lookup (one call, back to back and in a CUDA graph),
+     beside its sector bound, and exact with its indices and outputs 0-3
+     words off 16-byte alignment; then times B1, B4 and B5
      against their unstaged variant, and B2, B6 and their variant builds
      against one another at both densities, in turns; B2 and B6 are also
      timed at the streaming expand's launch shape (131,072 lanes over a
@@ -107,7 +112,12 @@ cut), all at once, then:
      expand_verify, the profile's device events in the stage window and
      busy share printed; then B10, the per-pair verify, exact against its
      twin on every lane of that run's first chunk (as the engine called it
-     in the profile), timed beside its bound, and exact on its last chunk;
+     in the profile), timed beside its bound and its sector bound, and in
+     turns against its unstaged variant (its first design), the run's 84
+     calls replayed through both under torch.profiler; exact on its last
+     chunk;
+     then B3's calls of the default and the streaming profile replayed
+     through both builds in turns;
      then times the probe stage of the flagship
      batch with B5 and with its plain twin, in turns, and with each probe
      against small sorted prefixes of the index; then matches the 100k
@@ -1070,6 +1080,49 @@ def verify_sector_bytes(args, smax: int) -> int:
     return 32 * n
 
 
+def pairs_sector_bytes(args) -> int:
+    """B10's bytes counted in the 32-byte sectors that the memory system
+    moves, from one call's arguments: the lane arrays (r, p, q1 where it
+    is one a lane, nx, g, s and the keep bytes) whole; the distinct
+    sectors of the lanes' target windows (nwords + 1 words of a trows row
+    from word (dc >> 3) & 7); each distinct read row's words and length;
+    the gblock and gene_start entries of the lanes' bounds and genes
+    (start and end), as call_work counts them; the budget table."""
+    import torch
+
+    from muscato_tpu_torch.ops import packed as pops
+
+    r, p, rpacked, lengths, gene_start, budget, q1 = args[:7]
+    smax, trows, gblock, gsteps = args[9:13]
+    c, (nreads, nw), (ntrows, tcols) = r.numel(), rpacked.shape, trows.shape
+    whole = lambda nbytes: -(-nbytes // 32)  # noqa: E731
+    per_lane = torch.is_tensor(q1) and q1.numel() > 1
+    pc = p.clamp(0, smax - 1)
+    dc = (pc - (q1 if torch.is_tensor(q1) else int(q1))).clamp(min=0).long()
+    first = ((dc >> 6).clamp(0, ntrows - 1) * tcols + ((dc >> 3) & 7)) * 4
+    rows = torch.unique(r.clamp(0, nreads - 1)).long()
+    g = pops.gene_of_pos_block(gene_start, gblock, pc, gsteps).long()
+    b = (pc >> pops.GENE_BLOCK_BITS).long()
+    sectors = lambda *xs, hi: torch.unique(torch.cat(xs).clamp(0, hi) >> 3).numel()  # noqa: E731
+    n = (whole(4 * c) * (5 + int(per_lane)) + whole(c)
+         + sector_count(first, 4 * (nw + 1))
+         + sector_count(rows * (4 * nw), 4 * nw) + torch.unique(rows >> 3).numel()
+         + sectors(b, b + 1, hi=gblock.numel() - 1)
+         + sectors(g, g + 1, hi=gene_start.numel() - 1) + whole(4 * budget.numel()))
+    return 32 * n
+
+
+def gather_sector_bytes(table, idx) -> int:
+    """B3's bytes counted in 32-byte sectors: the index and output streams
+    whole, and the distinct sectors of the table entries the (clamped)
+    indices touch."""
+    import torch
+
+    m = idx.numel()
+    touched = torch.unique(idx.clamp(0, table.numel() - 1).long() >> 3).numel()
+    return 32 * (2 * -(-4 * m // 32) + touched)
+
+
 def verify_bank_wavefronts(args, smax: int) -> float:
     """Shared-memory wavefronts a warp load of the staged B7 kernel's
     target-row reads takes, from one call's addresses: the tile's rows
@@ -1252,15 +1305,136 @@ def verify_phase(dev, unstaged=None) -> dict:
     return res
 
 
-def verify_pairs_phase(calls) -> dict:
+def graph_ms(fn, calls: int = 20, reps: int = 5) -> float:
+    """Device time of one call of fn in ms: ``calls`` calls captured in one
+    CUDA graph, replayed between CUDA events, over ``calls``, median of
+    ``reps`` (after a warm-up on a side stream and one replay), so the host's
+    launch work, which sets a short kernel's back-to-back time, is left
+    out."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    del graph
+    return statistics.median(times)
+
+
+def arms_in_turns(name, arms, exp) -> dict:
+    """Each arm (a label and a function of no arguments) exact against the
+    twin's result ``exp``, then all timed in turns, one call, back to back
+    and in a CUDA graph (graph_ms), three turns, the second in reverse
+    order.  Returns {arm: {"ms": [...], "back_to_back_ms": [...],
+    "graph_ms": [...]}}."""
+    for label, fn in arms.items():
+        _compare(f"{name} {label}", fn(), exp)
+    turns = {}
+    for order in (list(arms), list(arms)[::-1], list(arms)):
+        for label in order:
+            t = turns.setdefault(label, {"ms": [], "back_to_back_ms": [], "graph_ms": []})
+            t["ms"].append(time_ms(arms[label]))
+            t["back_to_back_ms"].append(time_ms(arms[label], inner=10))
+            t["graph_ms"].append(graph_ms(arms[label]))
+    return turns
+
+
+# The CUDA symbols of B3's and B10's kernels in both builds, as a profile
+# names them (the default build's, and the -DMUSCATO_NO_STAGE build's
+# first designs).
+BUILD_SYMBOLS = {"monotone_gather": r"gather(_thread)?_kernel",
+                 "verify_pairs": r"verify_pairs(_thread)?_kernel"}
+
+
+def replay_in_turns(kernel: str, arms, calls, turns: int = 3) -> dict:
+    """Device time (torch.profiler) of a kernel's recorded engine calls
+    (``calls``, their argument tuples in the engine's order) replayed
+    through each arm (a function of one call's arguments), the arms in
+    turns (a, b, b, a, a, b), after one warm-up call.  Returns {arm: [ms
+    summed over the calls, a turn]}; fails if a replay's launches, as the
+    profile counts them, are not one a call in PROFILE_TRIES tries."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from muscato_tpu_torch.bench import profile_match
+
+    pat = re.compile(r"(?<![\w])" + BUILD_SYMBOLS[kernel] + r"\b")
+    out = {arm: [] for arm in arms}
+    for t in range(turns):
+        for arm in (list(arms) if t % 2 == 0 else list(arms)[::-1]):
+            arms[arm](calls[0])
+            # The profiler can miss a launch now and then (kernel_profile):
+            # a replay whose count disagrees runs again.
+            for _ in range(PROFILE_TRIES):
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for args in calls:
+                        arms[arm](args)
+                    torch.cuda.synchronize()
+                evs = [e for e in profile_match.device_events(prof) if pat.search(e.name)]
+                if len(evs) == len(calls):
+                    break
+            check(len(evs) == len(calls), f"{kernel} {arm}: the replay's profile shows "
+                  f"{len(evs)} launches for {len(calls)} calls")
+            out[arm].append(sum(e.time_range.end - e.time_range.start for e in evs) / 1e3)
+    return out
+
+
+def launch_pairs(lib, args):
+    """B10 of the kernel library ``lib`` (None: the default library) on the
+    wrapper's arguments, launched as the wrapper launches it, counting
+    nothing."""
+    import torch
+
+    from muscato_tpu_torch.ops import _lib
+
+    r, p, rpacked, lengths, gene_start, budget, q1, width, max_rl, smax, trows, gblock, \
+        gsteps = args
+    n = r.numel()
+    keep = torch.empty(n, dtype=torch.bool, device=r.device)
+    nx, g, s = (torch.empty(n, dtype=torch.int32, device=r.device) for _ in range(3))
+    per_lane = torch.is_tensor(q1)
+    _lib.launch("verify_pairs", r, r.data_ptr(), p.data_ptr(), n,
+                q1.data_ptr() if per_lane else None, 0 if per_lane else int(q1),
+                trows.data_ptr(), *trows.shape, rpacked.data_ptr(), *rpacked.shape,
+                lengths.data_ptr(), gene_start.data_ptr(), gene_start.numel(), gblock.data_ptr(),
+                gblock.numel(), gsteps, budget.data_ptr(), budget.numel(), width, max_rl, smax,
+                keep.data_ptr(), nx.data_ptr(), g.data_ptr(), s.data_ptr(), lib=lib)
+    return keep, nx, g, s
+
+
+def verify_pairs_phase(calls, unstaged=None) -> dict:
     """B10, the streaming expand's per-pair verify, exact against its twin
     on every lane of the streaming flagship's first chunk: its STREAM_CHUNK
     pair lanes in the probe's lo order over the 100M-base stream's rows,
     with the arguments the engine gave B10 in a profiled run (``calls``,
-    that run's B10 calls in order), measured beside its bound
-    (measure_case; no PyTorch call computes the function); then exact on
-    the run's last chunk (short: dead lanes past the pair total).  Returns
-    the first chunk's numbers."""
+    that run's B10 calls in order), measured beside its bound and its
+    sector bound (pairs_sector_bytes; measure_case; no PyTorch call
+    computes the function); then the staged kernel and, given
+    ``unstaged`` (the -DMUSCATO_NO_STAGE library), the first design's
+    one-thread kernel, each exact, timed in turns (arms_in_turns), and the run's calls
+    replayed through both in turns (replay_in_turns: B10's device time a
+    streaming batch); then each exact on the run's last chunk
+    (short: dead lanes past the pair total).  Returns the first chunk's
+    numbers."""
     from muscato_tpu_torch.ops import packed as pops
 
     first, last = calls[0]["args"], calls[-1]["args"]
@@ -1272,20 +1446,92 @@ def verify_pairs_phase(calls) -> dict:
         f"the streaming flagship's first chunk: lanes ({r.numel()},) trows "
         f"{tuple(first[10].shape)} rpacked {tuple(rpacked.shape)} width {first[7]}, "
         f"one window offset a lane")
+    res["sector_bound_ms"] = pairs_sector_bytes(first) / HBM_BYTES_PER_S * 1e3
     keep = pops.verify_pairs_packed(*first)[0]
     res.update(live_lanes=int(((r >= 0) & (p >= 0)).sum()), kept=int(keep.sum()))
     check(res["kept"] > 0, "verify_pairs: no pair of the first chunk passes")
+    builds = {"staged, a warp a tile": None}
+    if unstaged is not None:
+        builds["one thread a lane (-DMUSCATO_NO_STAGE)"] = unstaged
+    res["builds_in_turns"] = arms_in_turns(
+        "verify_pairs", {label: functools.partial(launch_pairs, lib, first)
+                         for label, lib in builds.items()},
+        pops.verify_pairs_packed_torch(*first))
+    res["batch_replay_ms"] = replay_in_turns(
+        "verify_pairs", {label: functools.partial(launch_pairs, lib)
+                         for label, lib in builds.items()}, [c["args"] for c in calls])
     lr = last[0]
-    _compare("verify_pairs, the last chunk", pops.verify_pairs_packed(*last),
-             pops.verify_pairs_packed_torch(*last))
+    exp_last = pops.verify_pairs_packed_torch(*last)
+    _compare("verify_pairs, the last chunk", pops.verify_pairs_packed(*last), exp_last)
+    for label, lib in builds.items():
+        _compare(f"verify_pairs {label}, the last chunk", launch_pairs(lib, last), exp_last)
     print(f"verify_pairs (B10) at the streaming flagship's first chunk: exact vs twin, "
           f"{res['live_lanes']} live lanes, {res['kept']} kept; {res['ms']:.4f} ms a call "
           f"({res['back_to_back_ms']:.4f} back to back; host {res['host_ms']:.4f} ms a call "
           f"over 100 unsynchronised calls; plain twin {res['plain_ms']:.3f} ms) against a "
-          f"bound of {res['bound_ms']:.4f} ms by {res['bound_by']}; the last chunk of "
-          f"{len(calls)} exact vs twin ({int((lr >= 0).sum())} live lanes of {lr.numel()})",
-          flush=True)
+          f"bound of {res['bound_ms']:.4f} ms by {res['bound_by']} "
+          f"({res['sector_bound_ms']:.4f} by its 32-byte sectors); both builds, each "
+          f"exact vs twin, in turns (ms): {json.dumps(res['builds_in_turns'])}; the run's "
+          f"{len(calls)} calls replayed, device ms summed, in turns: "
+          f"{json.dumps(res['batch_replay_ms'])}; the last "
+          f"chunk of {len(calls)} exact vs twin on each ({int((lr >= 0).sum())} live lanes of "
+          f"{lr.numel()})", flush=True)
     return res
+
+
+def launch_gather(lib, table, idx, out=None, out_off: int = 0):
+    """B3 of the kernel library ``lib`` (None: the default library) into
+    ``out`` from word ``out_off`` on (default: a new tensor), counting
+    nothing."""
+    import torch
+
+    from muscato_tpu_torch.ops import _lib
+
+    if out is None:
+        out = torch.empty(idx.numel(), dtype=torch.int32, device=idx.device)
+    _lib.launch("monotone_gather", idx, table.data_ptr(), table.numel(), idx.data_ptr(),
+                idx.numel(), out.data_ptr() + 4 * out_off, lib=lib)
+    return (out,)
+
+
+def gather_phase(dev, unstaged, spos, sidx, g) -> dict:
+    """B3's design against its first (``unstaged``, the -DMUSCATO_NO_STAGE
+    build) in turns (arms_in_turns), each exact against the twin, at the postings
+    fetch (``spos[sidx]``) and at a gene lookup of the dedup verify (the
+    genes, in gene_start, of VERIFY_CHUNK sorted stream positions), each
+    beside its bounds and its sector bound (gather_sector_bytes); then B3
+    exact on the postings stream with its indices and its outputs 0-3
+    words off 16-byte alignment and m off a multiple of the run.  Returns
+    {sector_bound_ms (the postings), builds_in_turns}."""
+    import torch
+
+    from muscato_tpu_torch.ops import gather
+
+    gene_start = torch.arange(NUM_GENE + 1, dtype=torch.int32, device=dev) * GENE_LEN
+    gpos = torch.sort(torch.randint(0, NUM_GENE * GENE_LEN, (VERIFY_CHUNK,), dtype=torch.int32,
+                                    device=dev, generator=g)).values
+    turns = {}
+    for label, (tab, ix) in {"postings": (spos, sidx),
+                             "gene lookup": (gene_start, gpos // GENE_LEN)}.items():
+        turns[label] = dict(
+            shapes=f"table ({tab.numel()},) idx ({ix.numel()},), "
+                   f"{json.dumps(stream_shape(ix))}",
+            **bounds(call_work("monotone_gather", (tab, ix), {})),
+            sector_bound_ms=gather_sector_bytes(tab, ix) / HBM_BYTES_PER_S * 1e3,
+            turns=arms_in_turns(f"monotone_gather {label}", {
+                "runs of 4 a thread": lambda: gather.monotone_gather(tab, ix)[:1],
+                "a thread an output (-DMUSCATO_NO_STAGE)":
+                    lambda: launch_gather(unstaged, tab, ix),
+            }, gather.monotone_gather_torch(tab, ix)[:1]))
+    print("B3 builds in turns (ms; each exact vs twin): " + json.dumps(turns), flush=True)
+    for i0, o0, cut in ((1, 0, 5), (2, 3, 0), (3, 1, 3), (0, 2, 1)):
+        ix = sidx[i0: sidx.numel() - cut]
+        res = torch.full((ix.numel() + 4,), -1, dtype=torch.int32, device=dev)
+        exp = res.clone()
+        exp[o0: o0 + ix.numel()] = gather.monotone_gather_torch(spos, ix)[0]
+        _compare(f"monotone_gather idx {i0} and out {o0} words off 16 bytes, m {ix.numel()}",
+                 launch_gather(None, spos, ix, res, o0), (exp,))
+    return dict(sector_bound_ms=turns["postings"]["sector_bound_ms"], builds_in_turns=turns)
 
 
 def kernel_phase(dev, unstaged, variants, sub_variants) -> dict:
@@ -1293,8 +1539,9 @@ def kernel_phase(dev, unstaged, variants, sub_variants) -> dict:
     {name: {max_abs_err, ms, back_to_back_ms, host_ms, plain_ms,
     library_ms, library_back_to_back_ms, bound_ms, bound_by,
     bytes_bound_ms, ops_bound_ms, shapes}}.  ``unstaged`` is the kernel
-    library built with -DMUSCATO_NO_STAGE: B1, B4 and B5 from it are held
-    against their twins too and timed against the real ones.
+    library built with -DMUSCATO_NO_STAGE: B1, B3, B4 and B5 from it are
+    held against their twins too and timed against the real ones (B3 in
+    gather_phase).
     ``variants`` and ``sub_variants`` map a label to a library of
     csrc/expand.cu whose B2 (B2_VARIANTS), or B6 (B6_VARIANTS), was built
     with other constants."""
@@ -1509,6 +1756,7 @@ def kernel_phase(dev, unstaged, variants, sub_variants) -> dict:
          lambda: gather.monotone_gather_torch(spos, sidx)[:1],
          lambda: spos[sidx_l], call_work("monotone_gather", (spos, sidx), {}),
          f"table ({v},) idx ({sidx.numel()},), {json.dumps(stream_shape(sidx))}")
+    out["monotone_gather"].update(gather_phase(dev, unstaged, spos, sidx, g))
     del spos, sidx, sidx_l
 
     # B4: the target-row fetch of one verify chunk: (T, 22) trows, a
@@ -1788,11 +2036,13 @@ def recorded_calls():
 def stream_shape(idx) -> dict:
     """How an index stream walks its table of 4-byte entries: its lanes,
     those that step back from the lane before, and the distinct 128-byte
-    lines (32 entries) the stream touches."""
+    lines (32 entries) and 32-byte sectors (8 entries) the stream
+    touches."""
     import torch
 
     return dict(lanes=idx.numel(), step_backs=int((idx[1:] < idx[:-1]).sum()),
-                lines_128b=int(torch.unique(idx >> 5).numel()))
+                lines_128b=int(torch.unique(idx >> 5).numel()),
+                sectors_32b=int(torch.unique(idx >> 3).numel()))
 
 
 def kernel_profile(dev, cfg, rs, index, unstaged=None, keep=None) -> dict:
@@ -1889,6 +2139,11 @@ def kernel_profile(dev, cfg, rs, index, unstaged=None, keep=None) -> dict:
             if k == "verify_diagonals_swar":
                 s["sector_bound_ms"] = s.get("sector_bound_ms", 0.0) + verify_sector_bytes(
                     c["args"], c["kw"]["smax"]) / HBM_BYTES_PER_S * 1e3
+            if k in ("verify_pairs", "monotone_gather"):
+                nbytes = (pairs_sector_bytes(c["args"]) if k == "verify_pairs"
+                          else gather_sector_bytes(*c["args"]))
+                s["sector_bound_ms"] = (s.get("sector_bound_ms", 0.0)
+                                        + nbytes / HBM_BYTES_PER_S * 1e3)
             if k == "monotone_gather" and c["args"][0].data_ptr() == index.spos.data_ptr():
                 # Summed over the launches (one a chunk on the streaming path).
                 shape = stream_shape(c["args"][1].clamp(0, index.spos.numel() - 1))
@@ -1901,6 +2156,9 @@ def kernel_profile(dev, cfg, rs, index, unstaged=None, keep=None) -> dict:
                     post[key] += bound[key]
                 for key, val in shape.items():
                     post[key] += val
+                post["sector_bound_ms"] = (post.get("sector_bound_ms", 0.0)
+                                           + gather_sector_bytes(*c["args"])
+                                           / HBM_BYTES_PER_S * 1e3)
     for k in keep or ():
         keep[k] = [c for c in calls if c["kernel"] == k]
     b7 = [c for c in calls if c["kernel"] == "verify_diagonals_swar"]
@@ -1916,10 +2174,13 @@ def kernel_profile(dev, cfg, rs, index, unstaged=None, keep=None) -> dict:
         s["bound_by"] = sorted(s["bound_by"])
         s["loss_ms"] = s["ms"] - s["bound_ms"]
     out["sites"] = sorted(sites.values(), key=lambda s: -s["loss_ms"])
-    for k, key in (("monotone_gather", "b3"), ("monotone_gather_rows", "b4")):
+    for k, key in (("monotone_gather", "b3"), ("monotone_gather_rows", "b4"),
+                   ("verify_pairs", "b10")):
         mine = [s for s in out["sites"] if s["kernel"] == k]
         out[f"{key}_bound_ms"] = sum(s["bound_ms"] for s in mine)
         out[f"{key}_ms"] = sum(s["ms"] for s in mine)
+        if k != "monotone_gather_rows":
+            out[f"{key}_sector_bound_ms"] = sum(s.get("sector_bound_ms", 0.0) for s in mine)
     return out
 
 
@@ -3027,7 +3288,8 @@ def match_phases(dev, unstaged=None) -> tuple:
     pipeline.run_matching_indexed(cfg, rs, index)
     mr, flag = flagship_run(dev, cfg, rs, ts, index, DEFAULT_PATH)
     print("flagship: " + json.dumps(flag), flush=True)
-    prof = kernel_profile(dev, cfg, rs, index, unstaged)
+    b3_calls = {"monotone_gather": None}
+    prof = kernel_profile(dev, cfg, rs, index, unstaged, keep=b3_calls)
     print("profile (flagship batch, default path): " + json.dumps(prof), flush=True)
     # B7 launches once a verify chunk, as B4 does (its one engine call).
     pk = prof["kernels"]
@@ -3055,7 +3317,7 @@ def match_phases(dev, unstaged=None) -> tuple:
     print(f"profile (flagship batch, switched path, {switches}): " + json.dumps(prof_sw),
           flush=True)
 
-    b10_calls = {"verify_pairs": None}
+    b10_calls = {"verify_pairs": None, "monotone_gather": None}
     mr_nd, flag_nd, prof_nd = streaming_flagship(dev, cfg, rs, ts, index, keep=b10_calls)
     check(same_result(mr_nd, mr), "streaming (NoDedup) flagship MatchResult differs")
     check(flag_nd["launches"]["verify_pairs"] == flag_nd["streaming_chunks"],
@@ -3064,8 +3326,17 @@ def match_phases(dev, unstaged=None) -> tuple:
     check(sum(site["launches"] for site in prof_nd["sites"] if site["kernel"] == "verify_pairs")
           == prof_nd["kernels"]["expand_owners"]["launches"],
           "the streaming profile: B10 did not launch once a chunk, as B2 does")
-    b10 = verify_pairs_phase(b10_calls["verify_pairs"])
-    del b10_calls
+    b10 = verify_pairs_phase(b10_calls["verify_pairs"], unstaged)
+    # B3's calls of the two profiles replayed through both builds.
+    b3_arms = {"runs of 4 a thread": lambda a: launch_gather(None, *a)}
+    if unstaged is not None:
+        b3_arms["a thread an output (-DMUSCATO_NO_STAGE)"] = lambda a: launch_gather(unstaged, *a)
+    b3_replay = {label: replay_in_turns("monotone_gather", b3_arms,
+                                        [c["args"] for c in kept["monotone_gather"]])
+                 for label, kept in (("default", b3_calls), ("streaming", b10_calls))}
+    print("B3's calls of the default and the streaming profile replayed through both builds, "
+          "device ms summed, in turns: " + json.dumps(b3_replay), flush=True)
+    del b10_calls, b3_calls
 
     ab = probe_ab(dev, cfg, rs, index)
     print("probe stage A/B (ms, flagship batch): " + json.dumps(ab), flush=True)
@@ -3113,7 +3384,7 @@ def match_phases(dev, unstaged=None) -> tuple:
     launches_mesh = mesh_ranks_phase(dev, rs, ts, mr, got, got_nd)
     del rs, ts
     return (flag, flag_sw, flag_nd, flag_sb, flag_mb, launches_mesh, launches_search,
-            {**probe_kres, "verify_pairs": b10})
+            {**probe_kres, "verify_pairs": b10}, b3_replay)
 
 
 def report_files(results: str) -> dict:
@@ -3477,7 +3748,12 @@ def main() -> int:
     print(f"B7, -Xptxas -v: {ptxas_of(kern.log, SYMBOLS['verify_diagonals_swar'])}; "
           f"without staging: {ptxas_of(builds[0][2], 'verify_diagonals_direct_kernel')}",
           flush=True)
-    print(f"B10, -Xptxas -v: {ptxas_of(kern.log, SYMBOLS['verify_pairs'])}", flush=True)
+    print(f"B10, -Xptxas -v: {ptxas_of(kern.log, SYMBOLS['verify_pairs'])}; one thread a "
+          f"lane (-DMUSCATO_NO_STAGE): {ptxas_of(builds[0][2], 'verify_pairs_thread_kernel')}",
+          flush=True)
+    print(f"B3, -Xptxas -v: {ptxas_of(kern.log, SYMBOLS['monotone_gather'])}; a thread an "
+          f"output (-DMUSCATO_NO_STAGE): {ptxas_of(builds[0][2], 'gather_thread_kernel')}",
+          flush=True)
     print(f"B8, -Xptxas -v: {ptxas_of(kern.log, SYMBOLS['direct_probe'])}; B9: "
           f"{ptxas_of(kern.log, SYMBOLS['binary_probe'])}; one thread a query "
           f"(-DMUSCATO_NO_STAGE): B8 {ptxas_of(builds[0][2], 'direct_probe_thread_kernel')}, "
@@ -3493,8 +3769,9 @@ def main() -> int:
     kres = kernel_phase(dev, unstaged, variants, sub_variants)
     bench_tool_phases(dev)
     (flag, flag_sw, flag_nd, flag_sb, flag_mb, launches_mesh, launches_search,
-     match_kres) = match_phases(dev, unstaged)
+     match_kres, b3_replay) = match_phases(dev, unstaged)
     kres.update(match_kres)
+    kres["monotone_gather"]["batch_replay_ms"] = b3_replay
     driver_phase(dev)
     launches_scale = scale_run_phase(dev)
     tool_run_phases(dev)
@@ -3527,7 +3804,7 @@ def main() -> int:
          "back_to_back_ms": kres[name]["back_to_back_ms"],
          "library_back_to_back_ms": kres[name]["library_back_to_back_ms"],
          **{k: kres[name][k] for k in ("sector_bound_ms", "floor_ms", "floor_sectors",
-                                        "floor_bytes", "builds_in_turns")
+                                        "floor_bytes", "builds_in_turns", "batch_replay_ms")
             if k in kres[name]}}
         for name in KERNELS
     ]}

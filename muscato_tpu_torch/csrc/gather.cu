@@ -6,10 +6,33 @@
 // are clamped to the table: the engine only passes in-range indices, and
 // the clamp keeps a bad one from reading outside the allocation.
 //
-// B3 is a plain gather, one thread per output element.  Bytes bound it:
-// each index is read and each output written once, and the (piecewise)
-// nondecreasing streams the engine feeds it make neighbouring threads read
-// neighbouring table entries, so the table loads coalesce into few sectors.
+// B3 is bound by bytes: each index is read and each output written once,
+// and the (piecewise) nondecreasing streams the engine feeds it make
+// neighbouring lanes read neighbouring table entries, so the table loads
+// share sectors.  Its first design (gather_thread_kernel, built under
+// -DMUSCATO_NO_STAGE) takes one thread an output: a 4-byte index load, one
+// dependent table load and a 4-byte store, in blocks of 256, one table
+// load in flight a thread.
+//
+// The design now (gather_kernel): a thread takes a run of kRun = 4
+// consecutive outputs, loads their indices in one 16-byte load, issues
+// its four clamped table loads before it uses any, and writes the four in
+// one 16-byte store.  The run's store is aligned by a scalar head of up to
+// three outputs (out's offset from 16 bytes) and a scalar tail covers the
+// rest of m; where idx's offset from 16 bytes differs from out's, the
+// run's four indices are four 4-byte loads.  The grid is a thread a run.
+//
+// On an H100 80GB HBM3 at 700 W (chip_smoke.py; PERF.md keeps the
+// numbers) a default flagship batch's 28 calls, replayed, take 0.527-0.532
+// ms of device time against 0.693-0.717 for the first design, and the
+// streaming batch's 86 0.357-0.371 against 0.373-0.386.  A 2^20-lane gene
+// lookup takes 0.0033 ms against 0.0040-0.0043 (its bound 0.0026), while the
+// 12.6M-lane postings fetch, 7.2M distinct sectors scattered over a
+// 392 MB table, takes 0.142 ms in both designs (its sector bound 0.098):
+// the card's rate for scattered sectors sets it.  Runs of 8, a grid of 8
+// CTAs an SM striding over the runs, and a warp that loads its dense span
+// once and picks its outputs by __shfl_sync were each slower over a batch
+// (PERF.md keeps their times).
 //
 // B4 is bound by bytes too: at a flagship verify chunk it reads 1M row
 // indices (4 MB) and the ~360K table rows they touch (88 bytes each) and
@@ -35,6 +58,7 @@
 // piece) of each output unit advances by a fixed stride in 32-bit
 // arithmetic without dividing; row offsets into the table are 64-bit.
 
+#include <algorithm>
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -46,14 +70,47 @@ namespace {
 
 using muscato::RowWalk;
 
-__global__ void gather_kernel(const int32_t* __restrict__ table, long long n,
-                              const int32_t* __restrict__ idx, long long m,
-                              int32_t* __restrict__ out) {
+__device__ __forceinline__ long long clamp_index(int k, long long n) {
+  return k < 0 ? 0 : (k >= n ? n - 1 : k);
+}
+
+// The first design: a thread an output.
+__global__ void gather_thread_kernel(const int32_t* __restrict__ table, long long n,
+                                     const int32_t* __restrict__ idx, long long m,
+                                     int32_t* __restrict__ out) {
   long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= m) return;
-  long long k = __ldg(idx + j);
-  k = k < 0 ? 0 : (k >= n ? n - 1 : k);
-  out[j] = __ldg(table + k);
+  out[j] = __ldg(table + clamp_index(__ldg(idx + j), n));
+}
+
+constexpr int kRun = 4;  // outputs a thread takes at once: one 16-byte load and store of them
+constexpr int kGatherThreads = 256;
+
+// Run t of kRun outputs from out[head] on (out + head 16-byte aligned;
+// kIdxVec: idx + head is too).  The head's outputs (before out[head]) and
+// the tail's (past the last run), at most kRun - 1 each, go to the grid's
+// last threads, past the runs: a thread that did both would wait on two
+// chains of loads, and the launch with it.
+template <bool kIdxVec>
+__global__ void __launch_bounds__(kGatherThreads)
+    gather_kernel(const int32_t* __restrict__ table, long long n,
+                  const int32_t* __restrict__ idx, long long m, int32_t* __restrict__ out,
+                  int head, long long nrun) {
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long e = (long long)gridDim.x * blockDim.x - 1 - t;  // head, then tail outputs
+  const long long j1 = e < head ? e : head + nrun * kRun + (e - head);
+  if (j1 < m) out[j1] = __ldg(table + clamp_index(__ldg(idx + j1), n));
+  if (t >= nrun) return;
+  const long long j = head + t * kRun;
+  int4 k;
+  if constexpr (kIdxVec) {
+    k = __ldg(reinterpret_cast<const int4*>(idx + j));
+  } else {
+    k = make_int4(__ldg(idx + j), __ldg(idx + j + 1), __ldg(idx + j + 2), __ldg(idx + j + 3));
+  }
+  const int x0 = __ldg(table + clamp_index(k.x, n)), x1 = __ldg(table + clamp_index(k.y, n));
+  const int x2 = __ldg(table + clamp_index(k.z, n)), x3 = __ldg(table + clamp_index(k.w, n));
+  *reinterpret_cast<int4*>(out + j) = make_int4(x0, x1, x2, x3);
 }
 
 constexpr int kRowThreads = 256;
@@ -174,12 +231,25 @@ cudaError_t launch_rows(const int32_t* table, long long nrows, int ncols,
 extern "C" int muscato_monotone_gather(const void* table, long long n,
                                        const void* idx, long long m, void* out,
                                        void* stream) {
-  if (m > 0 && n > 0) {
-    const int threads = 256;
-    long long blocks = (m + threads - 1) / threads;
-    gather_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)table, n, (const int32_t*)idx, m, (int32_t*)out);
+  if (m <= 0 || n <= 0) return (int)cudaGetLastError();
+  auto* t = (const int32_t*)table;
+  auto* i = (const int32_t*)idx;
+  auto* o = (int32_t*)out;
+  auto s = (cudaStream_t)stream;
+  if constexpr (!muscato::kStage) {
+    gather_thread_kernel<<<(unsigned)((m + 255) / 256), 256, 0, s>>>(t, n, i, m, o);
+    return (int)cudaGetLastError();
   }
+  // out and idx are int32 tensors, so 4-byte aligned: the head is the
+  // outputs before out's first 16-byte boundary.
+  const int head = (int)std::min<long long>((16 - ((uintptr_t)out & 15)) / 4 % 4, m);
+  const long long nrun = (m - head) / kRun;
+  // A thread a run, a head output or a tail output.
+  const long long blocks = (nrun + (m - nrun * kRun) + kGatherThreads - 1) / kGatherThreads;
+  if (((uintptr_t)idx & 15) == ((uintptr_t)out & 15))
+    gather_kernel<true><<<(unsigned)blocks, kGatherThreads, 0, s>>>(t, n, i, m, o, head, nrun);
+  else
+    gather_kernel<false><<<(unsigned)blocks, kGatherThreads, 0, s>>>(t, n, i, m, o, head, nrun);
   return (int)cudaGetLastError();
 }
 

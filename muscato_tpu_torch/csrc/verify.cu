@@ -206,27 +206,26 @@ __device__ __forceinline__ void cp_async4(uint32_t* dst, const uint32_t* src) {
                : "memory");
 }
 
-// The warp's read rows as one flat run into s_r (32 rows, rstride words
-// apart), committed as one cp.async group: word f = row * nwords + word
-// of the run comes from row `row` of the warp's lanes, whose index rc the
-// shuffle takes from that lane.  Every thread of the warp takes nwords
-// turns (the shuffle needs them all); rows at or past `live` load nothing.
-__device__ __forceinline__ void gather_rows(uint32_t* s_r, const uint32_t* rpacked, int rc,
-                                            int nwords, int rstride, int live, int lane) {
-  const int step_rows = 32 / nwords, step_words = 32 % nwords;
-  int row = lane / nwords, word = lane % nwords;
-  for (int f = lane; f < 32 * nwords; f += 32) {
-    const int src = __shfl_sync(0xffffffffu, rc, row);
-    if (row < live)
-      cp_async4(s_r + row * rstride + word, rpacked + (long long)src * nwords + word);
+// One flat run of the warp's 32 rows of `words` words each into s (rows
+// `stride` words apart), as cp.async copies: word f of the run is word
+// f % words of row f / words, whose first source word, src + at(key), the
+// shuffle takes from that row's lane.  Every thread takes `words` turns
+// (the shuffle needs them all); rows at or past `live` load nothing.
+template <class At>
+__device__ __forceinline__ void stage_run(uint32_t* s, int stride, const uint32_t* src, int key,
+                                          At at, int words, int live, int lane) {
+  const int step_rows = 32 / words, step_words = 32 % words;
+  int row = lane / words, word = lane % words;
+  for (int f = lane; f < 32 * words; f += 32) {
+    const int k = __shfl_sync(0xffffffffu, key, row);
+    if (row < live) cp_async4(s + row * stride + word, src + at(k) + word);
     row += step_rows;
     word += step_words;
-    if (word >= nwords) {
-      word -= nwords;
+    if (word >= words) {
+      word -= words;
       ++row;
     }
   }
-  asm volatile("cp.async.commit_group;" ::: "memory");
 }
 
 // The lanes of a warp inside the chunk, of the 32 from lane j0w on.
@@ -268,7 +267,10 @@ __global__ void __launch_bounds__(kTile)
   const int ge = in ? __ldg(gend + j) : 0;
   const int rc = min(max(rj, 0), nreads - 1);
   const int dc = min(max(dj, 0), smax - 1);
-  gather_rows(s_r, rpacked, rc, nwords, rstride, live_lanes(j0 + warp * 32, n), lane);
+  // The warp's read rows, one flat run in one cp.async group.
+  stage_run(s_r, rstride, rpacked, rc, [=](int k) { return (long long)k * nwords; }, nwords,
+            live_lanes(j0 + warp * 32, n), lane);
+  asm volatile("cp.async.commit_group;" ::: "memory");
   const int rlen = __ldg(lengths + rc);
   asm volatile("cp.async.wait_group 0;" ::: "memory");
   const int bud = __ldg(budget + min(max(rlen, 0), nbudget - 1));
@@ -343,49 +345,65 @@ cudaError_t pick_tile(int nwords, int tcols, int* lanes, size_t* smem) {
 // muscato_tpu_torch/ops/packed.py:verify_pairs_packed_torch, the same steps
 // as int64 tensor passes (about 100 launches a chunk), every lane exact.
 //
-// Bound on the card: bytes, and at the streaming chunk shape far below a
-// launch.  131,072 lanes of 13-word reads read about 190 bytes a lane (r,
-// p, q1, the read row and length, 56 bytes of target words, ~10 gene-table
-// words) and write 13: ~25 MB, 0.008 ms at 3.35 TB/s (0.0056 ms with each
-// read row counted once, chip_smoke.py's call_work); its integer work is
-// ~250 operations a lane, 0.002 ms on one pipe.  So one call is bound by
-// its launch, and the kernel's worth is the ~100 launches of its twin that
-// it takes off each chunk.  On an H100 80GB HBM3 at 700 W it takes 0.033
-// ms a launch on the streaming flagship (chip_smoke.py's profile), about
-// 6x that bound: its loads are scattered, and the gene lookup's are a
-// chain of dependent ones.
+// Bound on the card: bytes.  131,072 lanes of 13-word reads read about 190
+// bytes a lane (r, p, q1, the read row and length, 56 bytes of target
+// words, ~10 gene-table words) and write 13: ~25 MB, 0.008 ms at 3.35 TB/s
+// (0.0056 ms with each read row counted once, chip_smoke.py's call_work;
+// more in the 32-byte sectors the scattered rows and windows touch, its
+// pairs_sector_bytes); its integer work is ~250 operations a lane, 0.002
+// ms on one pipe.
 //
-// The design is simple and exact: one thread a lane in blocks of kTile,
-// every load a __ldg from global memory, nothing staged (the lanes share no
-// rows a tile could stage).  The lane's nwords + 1 target words are read
-// from its row of trows (dc >> 6, clamped) at word (dc >> 3) & 7, the row
-// and column the twin's 3-level select picks; the words stream with the
-// previous target word in a register, aligned by one __funnelshift_r as in
-// verify_lane, so no word count is compiled in (reads up to the packed
-// path's 4096 bases).  Each word's nibbles fold to one bit, counted by
-// __popc for nx and, masked to the lane's one window, for its window's
-// mismatches.
-__global__ void __launch_bounds__(kTile)
-    verify_pairs_kernel(const int32_t* __restrict__ r, const int32_t* __restrict__ p,
-                        long long n, const int32_t* __restrict__ q1v, int q1s,
-                        const uint32_t* __restrict__ trows, int ntrows, int tcols,
-                        const uint32_t* __restrict__ rpacked, int nreads, int nwords,
-                        const int32_t* __restrict__ lengths,
-                        const int32_t* __restrict__ gene_start, int ngs,
-                        const int32_t* __restrict__ gblock, int nblock, int gsteps,
-                        const int32_t* __restrict__ budget, int nbudget, int width,
-                        int max_read_length, int smax, uint8_t* __restrict__ keep_out,
-                        int32_t* __restrict__ nx_out, int32_t* __restrict__ g_out,
-                        int32_t* __restrict__ s_out) {
-  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= n) return;
-  const int rj = __ldg(r + j), pj = __ldg(p + j);
-  const int q1 = q1v ? __ldg(q1v + j) : q1s;
-  const int rc = min(max(rj, 0), nreads - 1);
-  const int pc = min(max(pj, 0), smax - 1);
-  const int rlen = __ldg(lengths + rc);
+// The first design (verify_pairs_thread_kernel, built under
+// -DMUSCATO_NO_STAGE) is one thread a lane in blocks of kTile,
+// every load a __ldg: the lane's nwords + 1 target words from its row of
+// trows (dc >> 6, clamped) at word (dc >> 3) & 7, the row and column the
+// twin's 3-level select picks, and its read row.  In the probe's lo order
+// neither the read rows nor the target rows of neighbouring lanes are
+// neighbours, so each of its word loop's 27 warp loads touched 32 rows,
+// one after another in a loop of runtime length, behind a chain of 2 +
+// gsteps + 2 dependent gene-table loads.
+//
+// The staged design (verify_pairs_kernel) follows B7's read-row gather:
+//  - A CTA is one warp of 32 lanes.  It stages its lanes'
+//    rows into shared memory: the read rows (nwords words) and the target
+//    windows (nwords + 1 words from the lane's word offset in its trows
+//    row) as two flat runs, word f of a run from row f / words, whose
+//    source the shuffle takes from that lane (stage_run).  A warp load
+//    then reads a few neighbouring rows' words, a few sectors, where a
+//    thread a row touched 32.  The copies are 4-byte cp.async (rows of 13
+//    words are not 16-byte aligned), all issued before one wait, so every
+//    row of the warp is in flight at once and no register holds them.
+//  - Between the copies' issue and their wait the lane runs its gene
+//    lookup (gene_of): gblock and gene_start are 1.5 and 0.4 MB on the
+//    flagship, so that chain runs from L2 while the rows land.
+//  - After the wait and __syncwarp (a warp reads only the rows it staged),
+//    the compare (pair_lane) runs from shared memory: rows land at an
+//    odd stride (nwords | 1 and (nwords + 1) | 1 words), so a word of the
+//    32 lanes' rows falls in 32 banks.
+//  - Shared memory is 4 * 32 * ((nwords | 1) + ((nwords + 1) | 1)) bytes:
+//    3.6 KB at the flagship's 13-word reads, 131 KB at 4096-base reads (512
+//    words), the packed path's longest.  Reads past 907 words, whose tile
+//    passes the device's opt-in limit, are refused.
+//  - Lanes past n load nothing and store nothing; dead lanes (r or p < 0)
+//    run the same code, as the twin computes their nx, g and s.
+//
+// What bounds it now (chip_smoke.py on an H100 80GB HBM3 at 700 W; PERF.md
+// keeps the numbers): the streaming flagship's 84 calls, replayed, take
+// 1.65-1.67 ms of device time against 2.98-3.02 ms for the first design,
+// 0.020 ms a call.  A chunk touches 28.8 MB of distinct 32-byte sectors
+// (its sector bound, 0.0086 ms: the lane arrays, and read rows, windows and
+// lengths scattered over 218, 137 and 16 MB of tables), which it reads at
+// ~1.46 TB/s: the rate of scattered sectors, as for B7's read rows, sets
+// it.  Tiles of 64, 128 and 256 lanes (the same code, more warps a CTA)
+// took 2.14-2.25 ms, and the first design launched in CTAs of 32 lanes
+// 3.56-3.67 ms (PERF.md keeps their times): the staging and the
+// one-warp CTA each pay.
 
-  // The owning gene, as gene_of_pos_block finds it.
+// The owning gene of position pc, as gene_of_pos_block finds it: returns
+// it and sets *gstart and *glen.
+__device__ __forceinline__ int gene_of(int pc, const int32_t* __restrict__ gene_start,
+                                       int ngs, const int32_t* __restrict__ gblock,
+                                       int nblock, int gsteps, int* gstart, int* glen) {
   const int glast = ngs - 1;
   const int b = pc >> 8;
   int lo = __ldg(gblock + min(max(b, 0), nblock - 1));
@@ -396,36 +414,141 @@ __global__ void __launch_bounds__(kTile)
     lo = up ? mid : lo;
     hi = up ? hi : mid - 1;
   }
-  const int gstart = __ldg(gene_start + min(max(lo, 0), glast));
-  const int glen = __ldg(gene_start + min(max(lo + 1, 0), glast)) - gstart;
+  *gstart = __ldg(gene_start + min(max(lo, 0), glast));
+  *glen = __ldg(gene_start + min(max(lo + 1, 0), glast)) - *gstart;
+  return lo;
+}
+
+// One lane's fit, compare and stores, given its gene; t and rw in global
+// memory (kGlobal) or shared memory.  The SWAR compare streams the target
+// words t[0, nwords] (already offset by (dc >> 3) & 7) with the previous
+// word in a register, aligned by one __funnelshift_r, so no word count is
+// compiled in; each word's nibbles fold to one bit, counted by __popc for
+// nx and, masked to the lane's window [q1, q2), for its window.
+template <bool kGlobal>
+__device__ __forceinline__ void pair_lane(long long j, int rj, int pj, int pc, int q1,
+                                          int rlen, int bud, int g, int gstart, int glen,
+                                          const uint32_t* t, const uint32_t* rw, int nwords,
+                                          int width, int max_read_length,
+                                          uint8_t* __restrict__ keep_out,
+                                          int32_t* __restrict__ nx_out,
+                                          int32_t* __restrict__ g_out,
+                                          int32_t* __restrict__ s_out) {
   const int pl = pc - gstart;
   const int s = pl - q1;
   const int q2 = q1 + width;
   const int cap = (pl == 0 && q1 == 0) ? 100 - q2 : pl + width + (max_read_length - q2);
   const bool fit = rlen - q2 <= min(glen, cap) - (pl + width);
-
-  // The SWAR compare along the diagonal.
-  const int dc = max(pc - q1, 0);
-  const int row = min(max(dc >> 6, 0), ntrows - 1);
-  const uint32_t* t = trows + (long long)row * tcols + ((dc >> 3) & 7);
-  const uint32_t* rw = rpacked + (long long)rc * nwords;
-  const int rshift = (dc & 7) * 4;
-  uint32_t prev = __ldg(t);
+  const int rshift = (max(pc - q1, 0) & 7) * 4;
+  uint32_t prev = load_word<kGlobal>(t);
   int nx = 0, win = 0;
   for (int w = 0; w < nwords; ++w) {
-    const uint32_t next = __ldg(t + w + 1);
-    uint32_t x = __funnelshift_r(prev, next, rshift) ^ __ldg(rw + w);
+    const uint32_t next = load_word<kGlobal>(t + w + 1);
+    uint32_t x = __funnelshift_r(prev, next, rshift) ^ load_word<kGlobal>(rw + w);
     prev = next;
     x &= nib_mask(rlen - 8 * w);
     const uint32_t nz = (x | (x >> 1) | (x >> 2) | (x >> 3)) & 0x11111111u;
     nx += __popc(nz);
     win += __popc(nz & nib_mask(q2 - 8 * w) & ~nib_mask(q1 - 8 * w));
   }
-  const int bud = __ldg(budget + min(max(rlen, 0), nbudget - 1));
   keep_out[j] = rj >= 0 && pj >= 0 && s >= 0 && fit && win == 0 && nx <= bud;
   nx_out[j] = nx;
-  g_out[j] = lo;
+  g_out[j] = g;
   s_out[j] = s;
+}
+
+#define MUSCATO_PAIRS_PARAMS                                                             \
+  const int32_t *__restrict__ r, const int32_t *__restrict__ p, long long n,             \
+      const int32_t *__restrict__ q1v, int q1s, const uint32_t *__restrict__ trows,      \
+      int ntrows, int tcols, const uint32_t *__restrict__ rpacked, int nreads, int nwords, \
+      const int32_t *__restrict__ lengths, const int32_t *__restrict__ gene_start, int ngs, \
+      const int32_t *__restrict__ gblock, int nblock, int gsteps,                        \
+      const int32_t *__restrict__ budget, int nbudget, int width, int max_read_length,   \
+      int smax, uint8_t *__restrict__ keep_out, int32_t *__restrict__ nx_out,            \
+      int32_t *__restrict__ g_out, int32_t *__restrict__ s_out
+
+// The first design: a thread a lane, every word read from global memory.
+__global__ void __launch_bounds__(kTile) verify_pairs_thread_kernel(MUSCATO_PAIRS_PARAMS) {
+  const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= n) return;
+  const int rj = __ldg(r + j), pj = __ldg(p + j);
+  const int q1 = q1v ? __ldg(q1v + j) : q1s;
+  const int rc = min(max(rj, 0), nreads - 1);
+  const int pc = min(max(pj, 0), smax - 1);
+  const int rlen = __ldg(lengths + rc);
+  int gstart, glen;
+  const int g = gene_of(pc, gene_start, ngs, gblock, nblock, gsteps, &gstart, &glen);
+  const int dc = max(pc - q1, 0);
+  const int row = min(max(dc >> 6, 0), ntrows - 1);
+  const int bud = __ldg(budget + min(max(rlen, 0), nbudget - 1));
+  pair_lane<true>(j, rj, pj, pc, q1, rlen, bud, g, gstart, glen,
+                  trows + (long long)row * tcols + ((dc >> 3) & 7),
+                  rpacked + (long long)rc * nwords, nwords, width, max_read_length, keep_out,
+                  nx_out, g_out, s_out);
+}
+
+// The staged design (see the note above): a CTA a warp of 32 lanes,
+// staging its lanes' rows.
+__global__ void __launch_bounds__(32) verify_pairs_kernel(MUSCATO_PAIRS_PARAMS) {
+  extern __shared__ __align__(16) uint32_t s_pairs[];
+  const int rstride = nwords | 1, tstride = (nwords + 1) | 1;
+  const int lane = threadIdx.x;
+  uint32_t* s_r = s_pairs;              // the read rows
+  uint32_t* s_t = s_r + 32 * rstride;  // and the target windows
+  const long long j0w = (long long)blockIdx.x * 32;
+  const long long j = j0w + lane;
+  const bool in = j < n;
+  const int rj = in ? __ldg(r + j) : -1;
+  const int pj = in ? __ldg(p + j) : -1;
+  const int q1 = (q1v && in) ? __ldg(q1v + j) : q1s;
+  const int rc = min(max(rj, 0), nreads - 1);
+  const int pc = min(max(pj, 0), smax - 1);
+  const int dc = max(pc - q1, 0);
+  const int row = min(max(dc >> 6, 0), ntrows - 1);  // < 2^25, so row << 3 fits
+  const int live = live_lanes(j0w, n);
+  stage_run(s_r, rstride, rpacked, rc, [=](int k) { return (long long)k * nwords; }, nwords,
+            live, lane);
+  stage_run(s_t, tstride, trows, (row << 3) | ((dc >> 3) & 7),
+            [=](int k) { return (long long)(k >> 3) * tcols + (k & 7); }, nwords + 1, live,
+            lane);
+  asm volatile("cp.async.commit_group;" ::: "memory");
+  // The loads that need no row, while the rows land.
+  const int rlen = __ldg(lengths + rc);
+  int gstart, glen;
+  const int g = gene_of(pc, gene_start, ngs, gblock, nblock, gsteps, &gstart, &glen);
+  const int bud = __ldg(budget + min(max(rlen, 0), nbudget - 1));
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+  __syncwarp();
+  if (!in) return;
+  pair_lane<false>(j, rj, pj, pc, q1, rlen, bud, g, gstart, glen, s_t + lane * tstride,
+                   s_r + lane * rstride, nwords, width, max_read_length, keep_out, nx_out,
+                   g_out, s_out);
+}
+
+// Shared memory a B10 tile of `lanes` lanes takes: its read rows and
+// target windows at odd strides.
+size_t pairs_smem(int lanes, int nwords) {
+  return 4 * (size_t)lanes * ((size_t)(nwords | 1) + (size_t)((nwords + 1) | 1));
+}
+
+// The tile B10 takes for reads of nwords words: a warp of 32 lanes when
+// their rows fit the device's opt-in shared memory a block (*lanes 0 when
+// they do not: the shape is refused).  The thread kernel
+// (-DMUSCATO_NO_STAGE) takes any shape in blocks of kTile lanes and no
+// shared memory.
+cudaError_t pick_pairs_tile(int nwords, int* lanes, size_t* smem) {
+  if constexpr (!muscato::kStage) {
+    *lanes = kTile;
+    *smem = 0;
+    return cudaSuccess;
+  }
+  int dev, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  *smem = pairs_smem(32, nwords);
+  *lanes = *smem <= (size_t)optin ? 32 : 0;
+  return e;
 }
 
 }  // namespace
@@ -482,7 +605,8 @@ extern "C" int muscato_verify_diagonals(
 // q1.  trows holds ntrows rows of tcols >= nwords + 8 words.  Refused
 // (cudaErrorInvalidValue, nothing launched): narrower rows, empty tables
 // (trows, reads, gene_start of fewer than 2 entries, gblock, budget), a
-// negative gsteps, smax < 1.
+// negative gsteps, smax < 1, and reads whose tile passes the device's
+// opt-in shared memory a block (past ~900 words).
 extern "C" int muscato_verify_pairs(
     const void* r, const void* p, long long n, const void* q1v, int q1, const void* trows,
     int ntrows, int tcols, const void* rpacked, int nreads, int nwords, const void* lengths,
@@ -493,7 +617,18 @@ extern "C" int muscato_verify_pairs(
       nblock < 1 || gsteps < 0 || nbudget < 1 || smax < 1)
     return (int)cudaErrorInvalidValue;
   if (n <= 0) return (int)cudaGetLastError();
-  verify_pairs_kernel<<<(unsigned)((n + kTile - 1) / kTile), kTile, 0, (cudaStream_t)stream>>>(
+  int tile;
+  size_t smem;
+  cudaError_t e = pick_pairs_tile(nwords, &tile, &smem);
+  if (e == cudaSuccess && tile == 0) return (int)cudaErrorInvalidValue;
+  auto kernel = muscato::kStage ? verify_pairs_kernel : verify_pairs_thread_kernel;
+  if (e == cudaSuccess && smem > 48 * 1024)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) {
+    cudaGetLastError();  // clear it, so a later launch does not report it
+    return (int)e;
+  }
+  kernel<<<(unsigned)((n + tile - 1) / tile), tile, smem, (cudaStream_t)stream>>>(
       (const int32_t*)r, (const int32_t*)p, n, (const int32_t*)q1v, q1,
       (const uint32_t*)trows, ntrows, tcols, (const uint32_t*)rpacked, nreads, nwords,
       (const int32_t*)lengths, (const int32_t*)gene_start, ngs, (const int32_t*)gblock,

@@ -28,8 +28,10 @@ def monotone_gather_rows_torch(table, ridx):
 
 def monotone_gather(table, idx):
     """out[j] = table[idx[j]] for an int32 ``table`` and int32 ``idx`` in
-    [0, len(table)).  Returns ``(out, overflow)`` like the Pallas kernel;
-    the GPU kernel has no window, so overflow is always 0."""
+    [0, len(table)).  Returns ``(out, overflow)`` like the Pallas kernel; the GPU
+    kernel has no window, so overflow is always 0.  On the card a thread
+    takes four consecutive outputs at once (``csrc/gather.cu``); ``idx``
+    may start at any 4-byte offset."""
     if _lib.on_cpu("monotone_gather", table, idx):
         return monotone_gather_torch(table, idx)
     n, m = table.shape[0], idx.shape[0]

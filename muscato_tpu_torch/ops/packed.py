@@ -429,7 +429,8 @@ def verify_pairs_packed(
 ):
     """Verify one (read, window position) pair a lane, each with its own
     window offset q1: launches B10, the CUDA kernel in ``csrc/verify.cu``
-    (the body of ``muscato_tpu/ops/packed.py:verify_pairs_packed``, which
+    (each warp's read rows and target windows staged in shared memory; the
+    body of ``muscato_tpu/ops/packed.py:verify_pairs_packed``, which
     XLA fuses; it has no Pallas kernel); on CPU tensors its plain twin
     ``verify_pairs_packed_torch``.  Returns (keep, nx, g, s): keep (bool)
     says the pair passes (window region exact, left and right-tail fit
@@ -446,8 +447,9 @@ def verify_pairs_packed(
     keep = torch.empty(n, dtype=torch.bool, device=r.device)
     nx, g, s = (torch.empty(n, dtype=torch.int32, device=r.device) for _ in range(3))
     if n:
-        # The launcher refuses trows narrower than nwords + 8 words and
-        # empty tables; the launch then raises.
+        # The launcher refuses trows narrower than nwords + 8 words, empty
+        # tables and reads too long for a tile of 32 lanes in shared
+        # memory; the launch then raises.
         _lib.launch(
             "verify_pairs", r, r.data_ptr(), p.data_ptr(), n,
             None if q1v is None else q1v.data_ptr(), int(q1) if q1v is None else 0,

@@ -126,6 +126,8 @@ def test_verify_pairs_packed_matches_jax(case):
     for name, a, b in zip(("keep", "nx", "g", "s"), got, exp):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=name)
     keep, n = got[0].numpy(), r.shape[0]
+    if n < 1024:  # a case of a few lanes (the tile edges): its lanes are all checked above
+        return
     assert keep[: n - 64].sum() > 20
     if not (isinstance(q1, int) and q1):  # the last 24 lanes: q1 == 0 at gene starts
         assert keep[n - 24:].any()
@@ -138,55 +140,99 @@ def _nib_mask(k: int) -> int:
     return (1 << (4 * k)) - 1
 
 
+def _stage_run_model(src, keys, at, words, stride, live):
+    """csrc/verify.cu's stage_run for one warp: each of its 32 threads
+    takes ``words`` turns of the flat run (word f of the run is word f %
+    words of row f / words, whose source src[at(keys[row]) + word] the
+    shuffle gives), copying into rows ``stride`` words apart only rows
+    below ``live``.  Returns the staged words and how often each slot was
+    written."""
+    staged = np.zeros(32 * stride, np.int64)
+    wrote = np.zeros(32 * stride, np.int64)
+    step_rows, step_words = 32 // words, 32 % words
+    for lane in range(32):
+        row, word = lane // words, lane % words
+        for _ in range(lane, 32 * words, 32):
+            if row < live:
+                staged[row * stride + word] = src[at(int(keys[row])) + word]
+                wrote[row * stride + word] += 1
+            row += step_rows
+            word += step_words
+            if word >= words:
+                word -= words
+                row += 1
+    return staged, wrote
+
+
 def _pairs_model(r, p, rpacked, lengths, gene_start, budget, q1, width, max_rl, smax,
                  trows, gblock, steps):
-    """csrc/verify.cu's B10 per-lane code in numpy integers: the gene found
-    from the two gblock bounds and ``steps`` refines, the lane's target
-    words from its row of trows at word (dc >> 3) & 7, the aligned word
-    (next:prev) >> rshift with the previous word carried, and a window
-    count of the lane's one window."""
+    """csrc/verify.cu's staged B10 in numpy integers, a warp of 32 lanes at
+    a time: each warp's read rows and target windows (the lane's nwords +
+    1 words of its trows row from word (dc >> 3) & 7) staged by the flat
+    runs of stage_run at strides nwords | 1 and (nwords + 1) | 1, every
+    word of a live lane's rows written once and nothing past the live
+    lanes; then per lane the gene found from the two gblock bounds and
+    ``steps`` refines, the aligned word (next:prev) >> rshift from the
+    staged window with the previous word carried, and a window count of
+    the lane's one window over the staged read row."""
     nreads, nwords = rpacked.shape
-    trows, rpacked = trows.view(np.uint32), rpacked.view(np.uint32)
+    ntrows, tcols = trows.shape
+    tflat, rflat = trows.view(np.uint32).ravel(), rpacked.view(np.uint32).ravel()
     glast, nblock, n = len(gene_start) - 1, len(gblock), len(r)
     q1 = np.broadcast_to(np.asarray(q1, np.int64), (n,))
     clamp = lambda x, a, b: min(max(int(x), a), b)  # noqa: E731
+    rstride, tstride = nwords | 1, (nwords + 1) | 1
     out = np.zeros((4, n), np.int64)
-    for j in range(n):
-        rc, pc, q = clamp(r[j], 0, nreads - 1), clamp(p[j], 0, smax - 1), int(q1[j])
-        rlen = int(lengths[rc])
-        lo = int(gblock[clamp(pc >> 8, 0, nblock - 1)])
-        hi = int(gblock[clamp((pc >> 8) + 1, 0, nblock - 1)])
-        for _ in range(steps):
-            mid = (lo + hi + 1) >> 1
-            if gene_start[clamp(mid, 0, glast)] <= pc:
-                lo = mid
-            else:
-                hi = mid - 1
-        gs = int(gene_start[clamp(lo, 0, glast)])
-        glen = int(gene_start[clamp(lo + 1, 0, glast)]) - gs
-        pl, q2 = pc - gs, q + width
-        cap = 100 - q2 if pl == 0 and q == 0 else pl + width + max_rl - q2
-        fit = rlen - q2 <= min(glen, cap) - (pl + width)
-        dc = max(pc - q, 0)
-        t = trows[clamp(dc >> 6, 0, trows.shape[0] - 1), (dc >> 3) & 7:]
-        prev, nx, win = int(t[0]), 0, 0
-        for w in range(nwords):
-            nxt = int(t[w + 1])
-            x = ((((nxt << 32) | prev) >> ((dc & 7) * 4)) & 0xFFFFFFFF) ^ int(rpacked[rc, w])
-            prev = nxt
-            x &= _nib_mask(rlen - 8 * w)
-            nz = (x | x >> 1 | x >> 2 | x >> 3) & 0x11111111
-            nx += bin(nz).count("1")
-            win += bin(nz & _nib_mask(q2 - 8 * w) & ~_nib_mask(q - 8 * w)).count("1")
-        bud = int(budget[clamp(rlen, 0, len(budget) - 1)])
-        keep = r[j] >= 0 and p[j] >= 0 and pl - q >= 0 and fit and win == 0 and nx <= bud
-        out[:, j] = keep, nx, lo, pl - q
+    for j0 in range(0, n, 32):
+        live = min(32, n - j0)
+        lanes = range(j0, j0 + live)
+        rc = [clamp(r[j], 0, nreads - 1) for j in lanes] + [0] * (32 - live)
+        dc = [max(clamp(p[j], 0, smax - 1) - int(q1[j]), 0) for j in lanes] + [0] * (32 - live)
+        tkey = [(clamp(d >> 6, 0, ntrows - 1) << 3) | ((d >> 3) & 7) for d in dc]
+        s_r, wr = _stage_run_model(rflat, rc, lambda k: k * nwords, nwords, rstride, live)
+        s_t, wt = _stage_run_model(tflat, tkey, lambda k: (k >> 3) * tcols + (k & 7),
+                                   nwords + 1, tstride, live)
+        for wrote, words, stride in ((wr, nwords, rstride), (wt, nwords + 1, tstride)):
+            rows = wrote.reshape(32, stride)
+            assert (rows[:live, :words] == 1).all() and not rows[:live, words:].any()
+            assert not rows[live:].any()
+        for i, j in enumerate(lanes):
+            pc, q = clamp(p[j], 0, smax - 1), int(q1[j])
+            rlen = int(lengths[rc[i]])
+            lo = int(gblock[clamp(pc >> 8, 0, nblock - 1)])
+            hi = int(gblock[clamp((pc >> 8) + 1, 0, nblock - 1)])
+            for _ in range(steps):
+                mid = (lo + hi + 1) >> 1
+                if gene_start[clamp(mid, 0, glast)] <= pc:
+                    lo = mid
+                else:
+                    hi = mid - 1
+            gs = int(gene_start[clamp(lo, 0, glast)])
+            glen = int(gene_start[clamp(lo + 1, 0, glast)]) - gs
+            pl, q2 = pc - gs, q + width
+            cap = 100 - q2 if pl == 0 and q == 0 else pl + width + max_rl - q2
+            fit = rlen - q2 <= min(glen, cap) - (pl + width)
+            t, rw = s_t[i * tstride:], s_r[i * rstride:]
+            prev, nx, win = int(t[0]), 0, 0
+            for w in range(nwords):
+                nxt = int(t[w + 1])
+                x = ((((nxt << 32) | prev) >> ((dc[i] & 7) * 4)) & 0xFFFFFFFF) ^ int(rw[w])
+                prev = nxt
+                x &= _nib_mask(rlen - 8 * w)
+                nz = (x | x >> 1 | x >> 2 | x >> 3) & 0x11111111
+                nx += bin(nz).count("1")
+                win += bin(nz & _nib_mask(q2 - 8 * w) & ~_nib_mask(q - 8 * w)).count("1")
+            bud = int(budget[clamp(rlen, 0, len(budget) - 1)])
+            keep = r[j] >= 0 and p[j] >= 0 and pl - q >= 0 and fit and win == 0 and nx <= bud
+            out[:, j] = keep, nx, lo, pl - q
     return out
 
 
-@pytest.mark.parametrize("case", ["0", "w20-scalar-q1", "w8-32win-10words", "rshift-28"])
+@pytest.mark.parametrize("case", ["0", "w20-scalar-q1", "w8-32win-10words", "rshift-28",
+                                  "w20-19-lanes", "w20-dead-warps", "w20-shared-rows",
+                                  "w20-512words-tile-edges"])
 def test_verify_pairs_kernel_model_matches_twin(case):
-    """The twin equals a numpy model of B10's per-lane code on every lane
+    """The twin equals a numpy model of B10's staged kernel on every lane
     (the kernel itself runs only on the card, test_torch_verify_pairs_cuda.py)."""
     args, _ = pair_args(case, n=600)
     twin = tpacked.verify_pairs_packed_torch(*args)

@@ -1,10 +1,14 @@
 """B10, the streaming expand's per-pair verify (``csrc/verify.cu``
 ``verify_pairs_kernel``), on the card: every lane of the kernel exact
 against its plain twin ``verify_pairs_packed_torch`` on the CPU, for every
-case of tests/verify_pairs_cases.py, at a lane count that is not a
-multiple of the block, and with the window offset as a scalar, as one
-0-d tensor and as one a lane; trows narrower than the reads need are
-refused.  Every test is marked ``gpu`` and skips without a card.  The file
+case of tests/verify_pairs_cases.py (among them the edges of its warp
+tiles: lane counts that are no multiple of a warp or below one, dead
+warps, lanes that share a read row, 512-word reads), at a lane count that
+is not a multiple of the block, with the window offset as a scalar, as
+one 0-d tensor and as one a lane, and at the longest reads whose tile
+fits shared memory; trows narrower than the reads need, and reads one
+word longer, are refused.  Every test is marked ``gpu`` and skips
+without a card.  The file
 imports nothing of JAX, so it runs on a card machine without it:
 ``python -m pytest --noconftest -m gpu tests/test_torch_verify_pairs_cuda.py``
 (the conftest pins JAX to the CPU).
@@ -46,7 +50,7 @@ def test_cuda_verify_pairs_matches_twin(cuda_device, case):
     """B10 exact against its twin on every lane of every case."""
     args, _ = pair_args(case)
     keep = _on_card(args, cuda_device)[0]
-    assert int(keep.sum()) > 20
+    assert int(keep.sum()) > (20 if keep.numel() >= 1024 else 0)
 
 
 @pytest.mark.gpu
@@ -73,3 +77,26 @@ def test_cuda_verify_pairs_refuses_narrow_rows(cuda_device):
     with pytest.raises(RuntimeError):
         tpacked.verify_pairs_packed(*_to(args, cuda_device))
     assert tpacked.verify_pairs_packed.launches == before
+
+
+@pytest.mark.gpu
+def test_cuda_verify_pairs_longest_reads_and_refusal(cuda_device):
+    """Read rows of 907 words, the longest whose warp tile (its rows and
+    target windows at odd strides) fits 232,448 bytes of shared memory,
+    run exact against the twin; at 908 words the launcher refuses, the
+    wrapper raises and counts no launch."""
+    args, _ = pair_args("w20-4win-13words", n=256)
+    g = torch.Generator().manual_seed(16)
+    for nwords, fits in ((907, True), (908, False)):
+        rpacked = torch.randint(-2**31, 2**31, (args[2].shape[0], nwords), dtype=torch.int64,
+                                generator=g).to(torch.int32)
+        trows = torch.randint(-2**31, 2**31, (args[10].shape[0], nwords + 8),
+                              dtype=torch.int64, generator=g).to(torch.int32)
+        wide = args[:2] + (rpacked,) + args[3:10] + (trows,) + args[11:]
+        if fits:
+            _on_card(wide, cuda_device)
+            continue
+        before = tpacked.verify_pairs_packed.launches
+        with pytest.raises(RuntimeError):
+            tpacked.verify_pairs_packed(*_to(wide, cuda_device))
+        assert tpacked.verify_pairs_packed.launches == before

@@ -14,8 +14,13 @@ from muscato_tpu_torch.ops import verify as tverify
 # name: (seed, width, window offsets, read words, read lengths, X rate,
 # options).  Options: "scalar" gives every lane the first offset as one
 # int; "rshift" fixes the in-word shift 4 * ((p - q1) & 7) of every lane
-# that pair_inputs does not place at an edge.  "0" and "1" are two seeds
-# of one shape: width 12, reads up to 160 bases, no X codes.
+# that pair_inputs does not place at an edge; the rest place lanes at the
+# edges of the kernel's tiles and warps: "lanes" keeps the last that many
+# lanes (a lane count that is no multiple of a tile, or less than a warp),
+# "dead_warps" makes whole warps dead (r = -1, p = -1, or half of each),
+# "shared_rows" gives runs of lanes, whole warps among them, one read row.
+# "0" and "1" are two seeds of one shape: width 12, reads up to 160 bases,
+# no X codes.
 CASES = {
     "0": (40, 12, (0, 10, 33, 60), 20, (22, 160), 0.0, {}),
     "1": (41, 12, (0, 10, 33, 60), 20, (22, 160), 0.0, {}),
@@ -28,6 +33,12 @@ CASES = {
     "rshift-0": (8, 20, (0, 10, 30, 50), 13, (20, 104), 0.02, {"rshift": 0}),
     "rshift-28": (9, 20, (0, 10, 30, 50), 13, (20, 104), 0.02, {"rshift": 28}),
     "w20-2win-512words": (10, 20, (0, 100), 512, (20, 4096), 0.02, {}),
+    "w20-1971-lanes": (11, 20, (0, 10, 30, 50), 13, (20, 104), 0.02, {"lanes": 1971}),
+    "w20-19-lanes": (12, 20, (0, 10, 30, 50), 13, (20, 104), 0.02, {"lanes": 19}),
+    "w20-dead-warps": (13, 20, (0, 10, 30, 50), 13, (20, 104), 0.02, {"dead_warps": True}),
+    "w20-shared-rows": (14, 20, (0, 10, 30, 50), 13, (20, 104), 0.02, {"shared_rows": True}),
+    "w20-512words-tile-edges": (15, 20, (0, 100), 512, (20, 600), 0.02,
+                                {"lanes": 2003, "dead_warps": True}),
 }
 
 
@@ -46,8 +57,9 @@ def pair_inputs(name, n=2048, nreads=160, s=7000, ngenes=12):
     under its diagonal, with 0-3 substitutions); reads longer than 100 and
     reads within the pos-0 cap, each at gene starts with q1 = 0 (the
     reference's pos-0 quirk); lanes in the last gene, at the last stream
-    position and past it (clamped).  Reads hold random codes past their
-    length.  Returns a dict of numpy arrays and ints."""
+    position and past it (clamped); then the case's tile-edge options.
+    Reads hold random codes past their length.  Returns a dict of numpy
+    arrays and ints."""
     seed, width, q1s, nwords, (lo, hi), x_rate, opts = CASES[name]
     rng = np.random.default_rng(seed)
     max_rl = 8 * nwords
@@ -97,6 +109,19 @@ def pair_inputs(name, n=2048, nreads=160, s=7000, ngenes=12):
     p[n - 40: n - 24] = rng.integers(gene_start[-2], s, 16)  # the last gene
     p[n - 44: n - 40] = s - 1  # the last stream position
     p[n - 46: n - 44] = s + 3  # past it: clamped to the last
+    if "lanes" in opts:
+        keep = slice(max(n - opts["lanes"], 0), n)
+        r, p, q1 = r[keep], p[keep], q1[keep]
+    if opts.get("dead_warps"):
+        r[96:128] = -1
+        p[160:192] = -1
+        r[224:240] = -1
+        p[240:256] = -1
+    if opts.get("shared_rows"):
+        # Runs of 32 (whole warps, then one across two warps) and of 5.
+        for a, b, run in ((256, 352, 32), (368, 400, 32), (512, 640, 5)):
+            for j in range(a, min(b, len(r)), run):
+                r[j: min(j + run, b)] = r[j]
     if scalar:
         q1 = int(q1s[0])
     budget = tverify.mismatch_budget_table(0.9, max_rl)
