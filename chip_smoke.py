@@ -47,7 +47,7 @@ cut), all at once, then:
      tail, a read a tile, an odd row width, reads of 880, 2000 and 4096
      bases (tiles of 128, 64 and 32 lanes), the widest rows and the
      longest reads whose tile fits shared memory, and one column past
-     them, which must be refused; dead-tail
+     them, which must take the direct route (no shared memory); dead-tail
      tiles, empty-slot runs longer than B2's stage and B6's ring, warp
      ranges that start inside such runs, a dead tail that starts inside
      a range, slots that own several tiles or ranges, one slot, fewer
@@ -177,6 +177,20 @@ cut), all at once, then:
      IndexFile that it saves, with the
      same IndexFile that it loads, and with ResumeDir set to the saving
      run's kept TempDir: each run's four files must equal the first's;
+     then the config matrix (config_matrix_phase): the settings of
+     muscato_tpu_torch/bench/config_matrix.py beyond the flagship's, each
+     run whole on the card and held to the CPU run of the same inputs
+     (the reference's test setting, windows 0,5 at width 4 with PMatch 1
+     and MMTol 1, also through the muscato_torch CLI on -rev targets with
+     reads from both strands, its report files byte-equal to the CPU
+     run's; the documented flags, windows 0,20,40,60,80 at width 15 on
+     300-base reads; first mode with MaxMatches 2 in 4 batches on the
+     search probe; widths 13, 32 and 40; 66 windows, B5 in two groups and
+     the streaming expand; reads of 2,000 bases, B7 on 64-lane tiles; reads
+     of 8,000 bases, B7 and B10 on their direct route), with each run's
+     matches, probe, launches and card and CPU seconds; then B7 and B10 on
+     reads of 2,000, 7,000 and 8,000 bases, staged against direct in
+     turns where both exist, each exact (long_read_routes);
   5. runs the reference-scale job (scale_run_phase): the twin of
      scripts/gen_parallel.py writes 9,437,184 reads (one ReadBatch of
      2**23 and a partial second batch) against the 100,000 x 1,000-base
@@ -193,10 +207,13 @@ cut), all at once, then:
   6. runs the bench tool bigtest (100k reads x 100k genes through the
      muscato_torch driver) through its entry point.
 
-Every phase checks its results and any failure exits non-zero.  The line
-before the last is a JSON object with each kernel's numbers (its
-launches_mesh: rank 0's launches on the 2x2 flagship, B6's from its
-switched run; launches_scale_run: the second scale run's); the last line
+Every phase checks its results and any failure exits non-zero; each
+phase's seconds are printed as it ends, and all of them with the whole
+run's before the result.  The line before the last is a JSON object with
+each kernel's numbers (its launches_mesh: rank 0's launches on the 2x2
+flagship, B6's from its switched run; launches_scale_run: the second scale
+run's; launches_config_matrix: summed over the config matrix's runs;
+long_read_routes_ms for B7 and B10); the last line
 is {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero
 and prints no result.
 """
@@ -1168,7 +1185,7 @@ def verify_phase(dev, unstaged=None) -> dict:
     sector-aware bound (verify_sector_bytes) and the bank wavefronts of
     its target-row reads, then its branch cases, exact only (tiles of
     every width the launcher picks among them), and a shape too large for
-    shared memory, which must raise.  ``unstaged`` is the
+    shared memory, which must take the direct route.  ``unstaged`` is the
     library built with -DMUSCATO_NO_STAGE, whose B7 is the first design
     (every word read from global memory): at the flagship chunk it is held
     against the twin and timed against the staged kernel in turns, each
@@ -1225,10 +1242,11 @@ def verify_phase(dev, unstaged=None) -> dict:
           f"lengths: {res['row_gather_ms']:.4f} ms back to back", flush=True)
     del args, ok
     # The launcher's own answer (swar_tile) places the edges: t_rows as
-    # wide, and reads as long, as a tile of 32 lanes still fits.
+    # wide, and reads as long, as a staged tile of 32 lanes still fits.
     tile = lambda nwords, tcols: pops.swar_tile(nwords, tcols)[0]
-    widest = last_true(lambda t: tile(nw, t) > 0, nw + pops.TROWS_GUARD)
-    longest = last_true(lambda w: tile(w, w + pops.TROWS_GUARD) > 0, nw)
+    staged = lambda nwords, tcols: pops.swar_tile(nwords, tcols)[1] > 0
+    widest = last_true(lambda t: staged(nw, t), nw + pops.TROWS_GUARD)
+    longest = last_true(lambda w: staged(w, w + pops.TROWS_GUARD), nw)
     n, nr = VERIFY_BRANCH_LANES, VERIFY_BRANCH_READS
     cases = {
         "19-word reads (150 bases)": dict(nwords=19, q1s=WINDOWS, width=WIDTH),
@@ -1285,23 +1303,22 @@ def verify_phase(dev, unstaged=None) -> dict:
     print("verify_diagonals_swar branch cases exact vs twin: " + "; ".join(labels), flush=True)
     check(tiles >= {256, 128, 64, 32},
           f"verify_diagonals_swar branch cases ran tiles of {sorted(tiles)} lanes only")
-    # One column wider than the widest tile that fits: the launch is refused.
+    # One column wider than the widest staged tile: the launcher takes the
+    # direct route (no shared memory), exact, its launch counted there.
     args, kw = verify_inputs(dev, g, st, lanes=1 << 12, reads=1 << 10, nwords=nw,
                              q1s=WINDOWS, width=WIDTH, widen=widest + 1 - nw - pops.TROWS_GUARD)
-    before = pops.verify_diagonals_swar.launches
-    try:
-        pops.verify_diagonals_swar(*args, **kw)
-    except RuntimeError as e:
-        refused = str(e)
-    else:
-        refused = None
-    check(refused and pops.verify_diagonals_swar.launches == before,
-          f"verify_diagonals_swar: t_rows of {widest + 1} words were not refused")
+    fn = pops.verify_diagonals_swar
+    before = fn.launches, fn.direct_launches
+    _compare(f"verify_diagonals_swar with t_rows of {widest + 1} words", fn(*args, **kw),
+             pops.verify_diagonals_swar_torch(*args, **kw))
+    check(not staged(nw, widest + 1)
+          and (fn.launches, fn.direct_launches) == (before[0] + 1, before[1] + 1),
+          f"verify_diagonals_swar: t_rows of {widest + 1} words did not take the direct route")
     optin = getattr(torch.cuda.get_device_properties(dev), "shared_memory_per_block_optin",
                     "not reported")
-    print(f"verify_diagonals_swar with t_rows of {widest + 1} words "
-          f"({pops.swar_tile(nw, widest + 1)[1]} bytes for 32 lanes, the device's limit "
-          f"{optin}): refused ({refused})", flush=True)
+    print(f"verify_diagonals_swar with t_rows of {widest + 1} words (one past the widest "
+          f"staged tile under the device's {optin} bytes): the direct route, exact vs twin",
+          flush=True)
     return res
 
 
@@ -1367,8 +1384,10 @@ def replay_in_turns(kernel: str, arms, calls, turns: int = 3) -> dict:
     (``calls``, their argument tuples in the engine's order) replayed
     through each arm (a function of one call's arguments), the arms in
     turns (a, b, b, a, a, b), after one warm-up call.  Returns {arm: [ms
-    summed over the calls, a turn]}; fails if a replay's launches, as the
-    profile counts them, are not one a call in PROFILE_TRIES tries."""
+    summed over the calls, a turn]}.  A replay whose launches, as the
+    profile counts them, are not one a call in PROFILE_TRIES tries (the
+    profiler drops events now and then) is timed with CUDA events around
+    each call instead, and says so."""
     import re
 
     import torch
@@ -1392,9 +1411,19 @@ def replay_in_turns(kernel: str, arms, calls, turns: int = 3) -> dict:
                 evs = [e for e in profile_match.device_events(prof) if pat.search(e.name)]
                 if len(evs) == len(calls):
                     break
-            check(len(evs) == len(calls), f"{kernel} {arm}: the replay's profile shows "
-                  f"{len(evs)} launches for {len(calls)} calls")
-            out[arm].append(sum(e.time_range.end - e.time_range.start for e in evs) / 1e3)
+            if len(evs) == len(calls):
+                out[arm].append(sum(e.time_range.end - e.time_range.start for e in evs) / 1e3)
+                continue
+            marks = [torch.cuda.Event(enable_timing=True) for _ in range(2 * len(calls))]
+            for i, args in enumerate(calls):
+                marks[2 * i].record()
+                arms[arm](args)
+                marks[2 * i + 1].record()
+            torch.cuda.synchronize()
+            out[arm].append(sum(a.elapsed_time(b) for a, b in zip(marks[::2], marks[1::2])))
+            print(f"{kernel} {arm}: the profile showed {len(evs)} launches for {len(calls)} "
+                  f"calls in {PROFILE_TRIES} tries; this turn timed with CUDA events around "
+                  f"each call ({out[arm][-1]:.4f} ms)", flush=True)
     return out
 
 
@@ -3473,6 +3502,234 @@ def driver_phase(dev) -> None:
         shutil.rmtree(work, ignore_errors=True)
 
 
+# The config matrix (muscato_tpu_torch/bench/config_matrix.py): the kernels
+# that its runs together must launch, and those whose direct route
+# (one thread a lane, no shared memory) reads past the staged tile take.
+MATRIX_PATH = ("sorted_join", "expand_owners", "monotone_gather", "monotone_gather_rows",
+               "window_queries", "verify_diagonals_swar", "direct_probe", "verify_pairs")
+DIRECT_ROUTES = ("verify_diagonals_swar", "verify_pairs")
+
+
+def matrix_cli_case(dev, cfg, rs, ts) -> dict:
+    """A case through the muscato_torch entry point: its arrays written as
+    gendat's files (every second read reverse-complemented), the targets
+    prepared with -rev, then a run on the card and one on the CPU, whose
+    four report files must be byte-identical.  Returns the card run's
+    numbers as check_paths gives a path's."""
+    import dataclasses
+
+    from muscato_tpu_torch import cli
+    from muscato_tpu_torch.bench import config_matrix
+    from muscato_tpu_torch.engine import pipeline
+    from muscato_tpu_torch.io import targets
+
+    work = tempfile.mkdtemp(prefix="muscato_chip_smoke_matrix_")
+    try:
+        reads, genes = config_matrix.write_files(rs, ts, work)
+        seq, ids = targets.prep_targets(genes, rev=True)
+        outs, walls = {}, {}
+        for run, d in (("card", dev), ("cpu", "cpu")):
+            c = dataclasses.replace(
+                cfg, ReadFileName=reads, GeneFileName=seq, GeneIdFileName=ids,
+                ResultsFileName=os.path.join(work, f"{run}.txt"),
+                TempDir=os.path.join(work, f"tmp_{run}"), LogDir=os.path.join(work, f"logs_{run}"))
+            cfg_path = os.path.join(work, f"{run}.json")
+            c.save(cfg_path)
+            for fn in pipeline.KERNELS.values():
+                fn.launches = 0
+            for k in DIRECT_ROUTES:
+                pipeline.KERNELS[k].direct_launches = 0
+            t0 = time.perf_counter()
+            rc = cli.main_muscato([f"-ConfigFileName={cfg_path}", f"-device={d}"])
+            walls[run] = time.perf_counter() - t0
+            check(rc == 0, f"muscato_torch -device={d} exited {rc}")
+            if run == "card":
+                launches = {k: fn.launches for k, fn in pipeline.KERNELS.items()}
+                direct = {k: pipeline.KERNELS[k].direct_launches for k in DIRECT_ROUTES}
+            outs[run] = {}
+            for k, path in report_files(c.ResultsFileName).items():
+                with open(path, "rb") as f:
+                    outs[run][k] = f.read()
+        (run_id,) = os.listdir(os.path.join(work, "logs_card"))
+        probe = [m for _, m in _log_entries(os.path.join(
+            work, "logs_card", run_id, "muscato_screen.log")) if m.startswith("probe: ")]
+        rows = outs["card"]["results"].splitlines()
+        return dict(equal=outs["card"] == outs["cpu"], error=None, matches=len(rows),
+                    rev_matches=sum(b"_r\t" in ln for ln in rows),
+                    probe=probe[0].split()[1] if probe else None, batches=None,
+                    launches=launches, direct=direct, card_s=walls["card"],
+                    cpu_s=walls["cpu"])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def config_matrix_phase(dev) -> dict:
+    """Whole runs on the card beyond the flagship's setting: each case of
+    muscato_tpu_torch/bench/config_matrix.py (the flagship's config() with
+    the case's fields; the reference's test setting at width 4, also
+    through the muscato_torch CLI on -rev targets, its documented flags at
+    width 15, first mode with a MaxMatches cap binding within and across
+    batches, widths 13, 32 and 40, 66 windows, reads of 2,000 and 8,000
+    bases) on gendat.generate_arrays_realistic(*case.data, seed=SEED),
+    its index built on the CPU and on the card (device_build), its paths
+    run by engine_device_check.check_paths on the card, each MatchResult
+    held to the CPU run of the same inputs (the case's cpu_fields: a
+    verify chunk for long reads).  Prints each run's matches, probe,
+    launches (and B7's and B10's on the direct route), card and CPU
+    seconds and equality; fails on any inequality, a run with no match or
+    a fault, unless B1, B2, B3, B4, B5, B7, B8 and B10 each launched, unless
+    long-8k took B7's and B10's direct route only and long-2k B7's staged
+    tile, unless windows-66 launched B5 in two groups a batch, and unless
+    first-w10-capped took the search probe in 4 batches.  Returns each
+    kernel's launches summed over the matrix's runs."""
+    import torch
+
+    from muscato_tpu_torch.bench import config_matrix, engine_device_check, gendat
+    from muscato_tpu_torch.engine import pipeline
+    from muscato_tpu_torch.ops import packed as pops
+
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(KERNELS, 0)
+    runs = {}
+    for name, case in config_matrix.CASES.items():
+        t0 = time.perf_counter()
+        cfg = config_matrix.config(name, config())
+        rs, ts = gendat.generate_arrays_realistic(*case.data, seed=SEED)
+        data_s = time.perf_counter() - t0
+        if case.rev:
+            runs[name, "cli"] = matrix_cli_case(dev, cfg, rs, ts)
+        else:
+            t0 = time.perf_counter()
+            cpu_index = pipeline.build_target_index(ts, cfg.WindowWidth, "cpu")
+            index = pipeline.build_target_index(ts, cfg.WindowWidth, dev, device_build=True)
+            index_s = time.perf_counter() - t0
+            out = engine_device_check.check_paths(
+                cfg, rs, index, cpu_index, paths=case.paths,
+                ref_cfg=config_matrix.config(name, config(), cpu=True))
+            for path, run in out["runs"].items():
+                mr, tm = run["result"], run["timings"] or {}
+                runs[name, path] = dict(
+                    equal=run["ok"], error=run["error"],
+                    matches=0 if mr is None else len(mr.read_row),
+                    probe=tm.get("probe_kind"), batches=tm.get("batches"),
+                    launches=run["launches"], direct=run["direct"], card_s=run["seconds"],
+                    cpu_s=out["reference_s"])
+            print(f"config matrix {name}: data {data_s:.1f}s, both indexes {index_s:.1f}s",
+                  flush=True)
+            del index, cpu_index, out
+            torch.cuda.empty_cache()
+        for (n, path), r in runs.items():
+            if n != name:
+                continue
+            for k, v in (r["launches"] or {}).items():
+                total[k] += v
+            print(f"config matrix {name} [{path}]: " + json.dumps(dict(
+                {k: v for k, v in r.items() if k != "launches"},
+                launches={k: v for k, v in (r["launches"] or {}).items() if v})), flush=True)
+    for (name, path), r in runs.items():
+        check(r["equal"] and r["matches"] > 0,
+              f"config matrix {name} [{path}]: {r['error'] or 'not equal, or no match'} "
+              f"({r['matches']} matches)")
+    check(all(total[k] > 0 for k in MATRIX_PATH),
+          f"config matrix: a kernel never launched: {total}")
+    b7, b10 = DIRECT_ROUTES
+    auto8, nd8 = runs["long-8k", "auto"], runs["long-8k", "NoDedup"]
+    check(auto8["launches"][b7] > 0 and auto8["direct"][b7] == auto8["launches"][b7],
+          f"long-8k: B7 off its direct route: {auto8['launches'][b7]} launches, "
+          f"{auto8['direct'][b7]} direct")
+    check(nd8["launches"][b10] > 0 and nd8["direct"][b10] == nd8["launches"][b10],
+          f"long-8k NoDedup: B10 off its direct route: {nd8['launches'][b10]} launches, "
+          f"{nd8['direct'][b10]} direct")
+    l2 = runs["long-2k", "auto"]
+    nw2 = -(-config_matrix.CASES["long-2k"].data[1] // 8)
+    tile2 = pops.swar_tile(nw2, nw2 + pops.TROWS_GUARD)
+    check(l2["launches"][b7] > 0 and l2["direct"][b7] == 0 and tile2[1] > 0,
+          f"long-2k: B7 not on its staged tile: {l2}, tile {tile2}")
+    w66 = runs["windows-66", "auto"]
+    check(w66["launches"]["window_queries"] == 2 * w66["batches"]
+          and w66["launches"][b10] > 0,
+          f"windows-66: B5 not in two groups a batch, or no B10: {w66}")
+    first = runs["first-w10-capped", "auto"]
+    check(first["probe"] in ("direct", "binary") and first["batches"] == 4,
+          f"first-w10-capped: probe {first['probe']} in {first['batches']} batches")
+    print(f"config matrix: long-2k's B7 tile {tile2[0]} lanes ({tile2[1]} bytes); "
+          f"launches summed over the matrix: " + json.dumps(total), flush=True)
+    print(f"config matrix phase: {time.perf_counter() - t_phase:.1f}s", flush=True)
+    return total
+
+
+def long_read_routes(dev, unstaged) -> dict:
+    """B7 and B10 on long reads, on both routes: the staged kernels of the
+    default library and the direct ones (one thread a lane, no shared
+    memory) of ``unstaged``, the -DMUSCATO_NO_STAGE library, each exact
+    against its twin and timed in turns (arms_in_turns), at 2,000 bases
+    (long-2k's reads: B7's 64-lane tile) and 7,000 bases (875 words: both
+    staged tiles of 32 lanes); at 8,000 bases (1,000 words) the default
+    library takes the direct route itself.  Then each wrapper once at each
+    length, counted on its route.  B7 on VERIFY_BRANCH_LANES d-sorted
+    lanes of 2,048 reads over a 20M-base stream, B10 on the same lanes in
+    random order (as the probe's lo order leaves them), one window offset
+    a lane.  Returns {kernel: {bases: {route: [ms a call, a turn]}}}."""
+    import torch
+
+    from muscato_tpu_torch.ops import packed as pops
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 17)
+    st = verify_stream(dev, g, 20_000_000)
+    out = {"verify_diagonals_swar": {}, "verify_pairs": {}}
+    for bases, wins in ((2000, (0, 500, 1000, 1500)), (7000, (0, 2000, 4000, 6000)),
+                        (8000, (0, 2000, 4000, 6000))):
+        nw = bases // 8
+        args, kw = verify_inputs(dev, g, st, lanes=VERIFY_BRANCH_LANES, reads=1 << 11,
+                                 nwords=nw, q1s=wins, width=WIDTH, lengths=(bases, bases))
+        r, d, t_rows, rp, ln, _, _, budget, _ = args
+        lanes, smem = pops.swar_tile(nw, t_rows.shape[1])
+        staged, pstaged = smem > 0, pops.pairs_tile(nw)[1] > 0
+        check(staged == pstaged == (bases < 8000),
+              f"at {bases} bases B7 staged {staged}, B10 staged {pstaged}")
+        # B10 on the same lanes in the probe's order: shuffled, each with
+        # one of the windows and its position d + q1.
+        perm = torch.randperm(r.numel(), device=dev, generator=g)
+        q1 = torch.tensor(wins, dtype=torch.int32, device=dev)[
+            torch.randint(0, len(wins), (r.numel(),), device=dev, generator=g)]
+        rr, dd = r[perm], d[perm]
+        pp = torch.where((rr >= 0) & (dd >= 0), dd + q1, -1).to(torch.int32)
+        pargs = (rr, pp, rp, ln, st["gene_start"], budget, q1, WIDTH, 8 * nw, st["smax"],
+                 st["trows"](nw), st["gblock"], st["gsteps"])
+        libs = {"staged": None, "direct": unstaged} if staged else {"direct": None}
+        exp = pops.verify_diagonals_swar_torch(*args, **kw)
+        pexp = pops.verify_pairs_packed_torch(*pargs)
+        for kernel, arms, want in (
+                ("verify_diagonals_swar",
+                 {k: functools.partial(launch_verify, lib, *args, **kw) for k, lib in libs.items()},
+                 exp),
+                ("verify_pairs",
+                 {k: functools.partial(launch_pairs, lib, pargs) for k, lib in libs.items()},
+                 pexp)):
+            turns = arms_in_turns(f"{kernel} at {bases} bases", arms, want)
+            out[kernel][bases] = {k: t["ms"] for k, t in turns.items()}
+        # Through the wrappers: one launch each, counted on its route.
+        for kernel, fn, call, want in (
+                ("verify_diagonals_swar", pops.verify_diagonals_swar,
+                 lambda: pops.verify_diagonals_swar(*args, **kw), exp),
+                ("verify_pairs", pops.verify_pairs_packed,
+                 lambda: pops.verify_pairs_packed(*pargs), pexp)):
+            before = fn.launches, fn.direct_launches
+            _compare(f"{kernel} wrapper at {bases} bases", call(), want)
+            check((fn.launches, fn.direct_launches) == (before[0] + 1, before[1] + (not staged)),
+                  f"{kernel} at {bases} bases: its launch was not counted on its route")
+        live = int(((r >= 0) & (d >= 0)).sum())
+        print(f"long reads, {bases} bases ({nw} words), {r.numel()} lanes ({live} live), "
+              f"windows {wins}: the wrappers take "
+              f"{f'staged tiles (B7 {lanes} lanes, B10 32)' if staged else 'the direct route'}; "
+              f"exact vs twin on each route; ms a call in turns: B7 "
+              f"{json.dumps(out['verify_diagonals_swar'][bases])}, B10 "
+              f"{json.dumps(out['verify_pairs'][bases])}", flush=True)
+        del args, pargs, exp, pexp, t_rows
+        st["trows"].cache_clear()
+    return out
+
+
 def run_child(argv, label: str, env=None) -> str:
     """Run ``python argv`` in a session of its own and return its output
     (stdout and stderr); fails when it exits non-zero or outlasts
@@ -3703,6 +3960,7 @@ def tool_run_phases(dev) -> None:
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
@@ -3766,15 +4024,28 @@ def main() -> int:
           f"{INT_LANES_PER_SM} lanes x the max SM clock); measured on chains of "
           f"dependent instructions: {json.dumps(measured_int_rates(dev))}", flush=True)
 
-    kres = kernel_phase(dev, unstaged, variants, sub_variants)
-    bench_tool_phases(dev)
+    phase_s = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = round(time.perf_counter() - t0, 1)
+        print(f"phase {name}: {phase_s[name]}s", flush=True)
+        return out
+
+    kres = timed("kernel_phase", kernel_phase, dev, unstaged, variants, sub_variants)
+    timed("bench_tool_phases", bench_tool_phases, dev)
     (flag, flag_sw, flag_nd, flag_sb, flag_mb, launches_mesh, launches_search,
-     match_kres, b3_replay) = match_phases(dev, unstaged)
+     match_kres, b3_replay) = timed("match_phases", match_phases, dev, unstaged)
     kres.update(match_kres)
     kres["monotone_gather"]["batch_replay_ms"] = b3_replay
-    driver_phase(dev)
-    launches_scale = scale_run_phase(dev)
-    tool_run_phases(dev)
+    timed("driver_phase", driver_phase, dev)
+    launches_matrix = timed("config_matrix_phase", config_matrix_phase, dev)
+    routes = timed("long_read_routes", long_read_routes, dev, unstaged)
+    launches_scale = timed("scale_run_phase", scale_run_phase, dev)
+    timed("tool_run_phases", tool_run_phases, dev)
+    print(f"phase seconds: {json.dumps(phase_s)}; whole run {time.perf_counter() - t_start:.1f}s",
+          flush=True)
 
     # Each kernel's "launches": the counted run of the path it is on (the
     # default flagship; B6 the switched one; B8 the 16-batch flagship, whose
@@ -3796,6 +4067,7 @@ def main() -> int:
          "launches_scale_run": launches_scale[name],
          "launches_search_direct": launches_search["search_direct"][name],
          "launches_search_binary": launches_search["search_binary"][name],
+         "launches_config_matrix": launches_matrix[name],
          "max_abs_err": kres[name]["max_abs_err"], "ms": kres[name]["ms"],
          "plain_ms": kres[name]["plain_ms"], "bound_ms": kres[name]["bound_ms"],
          "bound_by": kres[name]["bound_by"], "library_ms": kres[name]["library_ms"],
@@ -3805,7 +4077,8 @@ def main() -> int:
          "library_back_to_back_ms": kres[name]["library_back_to_back_ms"],
          **{k: kres[name][k] for k in ("sector_bound_ms", "floor_ms", "floor_sectors",
                                         "floor_bytes", "builds_in_turns", "batch_replay_ms")
-            if k in kres[name]}}
+            if k in kres[name]},
+         **({"long_read_routes_ms": routes[name]} if name in routes else {})}
         for name in KERNELS
     ]}
     print(smi.stdout.strip(), flush=True)  # again, beside the numbers it qualifies

@@ -13,7 +13,8 @@ plain PyTorch twin (the stand-in for the JAX check's XLA-only run).
         [--ReadLen N] [--NumGene N] [--GeneLen N] [--ReadBatch N]
         [--device cuda|cpu]
 
-The paths (``PATHS``): the default (B5, B1, B2, B3, B4); MUSCATO_PJOIN=0
+The paths (``PATHS``): the engine's own probe choice (auto); the
+default, the sorted join (B5, B1, B2, B3, B4); MUSCATO_PJOIN=0
 (the sort-merge probe); MUSCATO_PEXPAND_SUB=1 (B6); both switches;
 NoDedup (the streaming expand); probe="search" in direct and in binary
 mode.  A kernel fault fails its path loudly: nothing falls back.  Prints
@@ -37,8 +38,10 @@ import numpy as np
 
 # path -> (environment switches, Config fields, probe, search aux mode).
 # The sorted-join paths ask for the sorted join, since a small batch
-# against a large index would auto-select the search probe.
+# against a large index would auto-select the search probe; "auto" leaves
+# the choice to the engine, as a user's run does.
 PATHS = {
+    "auto": ({}, {}, None, None),
     "default": ({}, {}, "sort", None),
     "MUSCATO_PJOIN=0": ({"MUSCATO_PJOIN": "0"}, {}, "sort", None),
     "MUSCATO_PEXPAND_SUB=1": ({"MUSCATO_PEXPAND_SUB": "1"}, {}, "sort", None),
@@ -86,31 +89,37 @@ def _build_aux(index, mode: str):
         index_mod.MAX_DIRECT_BITS = saved
 
 
-def check_paths(cfg, rs, index, ref_index, paths=tuple(PATHS), log=print) -> dict:
+def check_paths(cfg, rs, index, ref_index, paths=tuple(PATHS), log=print,
+                ref_cfg=None) -> dict:
     """Run each of ``paths`` on ``index`` and hold its MatchResult to the
-    default path's run on ``ref_index`` (the same targets on the CPU).
+    default path's run on ``ref_index`` (the same targets on the CPU) with
+    ``ref_cfg`` (default ``cfg``; a MaxPairChunk there changes only how
+    the reference chunks its verify).
 
-    Returns {"reference": MatchResult, "runs": {path: {"ok", "result",
-    "timings", "seconds", "aux", "launches", "error"}}}: "result" and
-    "timings" are the path's run on ``index`` (None after a fault), "aux"
-    the search aux a search path built on ``index``, "launches" each
-    kernel's launches in that run alone (every count of
-    ``pipeline.KERNELS`` is set to 0 just before it).  The index keeps the
+    Returns {"reference": MatchResult, "reference_s": its seconds,
+    "runs": {path: {"ok", "result", "timings", "seconds", "aux",
+    "launches", "direct", "error"}}}: "result" and "timings" are the
+    path's run on ``index`` (None after a fault), "aux" the search aux a
+    search path built on ``index``, "launches" each kernel's launches in
+    that run alone (every count of ``pipeline.KERNELS`` is set to 0 just
+    before it) and "direct" those of B7 and B10 on their direct route (the
+    wrappers' ``direct_launches``, also set to 0).  The index keeps the
     search aux it had before the call."""
     from ..engine import pipeline
 
     t0 = time.perf_counter()
-    ref_mr = pipeline.run_matching_indexed(cfg, rs, ref_index, probe="sort")
+    ref_mr = pipeline.run_matching_indexed(ref_cfg or cfg, rs, ref_index, probe="sort")
     ref = canon(ref_mr)
-    log(f"CPU reference: {len(ref)} retained matches ({time.perf_counter() - t0:.2f}s)",
-        flush=True)
+    ref_s = time.perf_counter() - t0
+    log(f"CPU reference: {len(ref)} retained matches ({ref_s:.2f}s)", flush=True)
+    direct = {k: fn for k, fn in pipeline.KERNELS.items() if hasattr(fn, "direct_launches")}
     runs = {}
     saved_aux = index._aux
     try:
         for name in paths:
             env, fields, probe, mode = PATHS[name]
             run = dict(ok=False, result=None, timings=None, aux=None, launches=None,
-                       error=None)
+                       direct=None, error=None)
             t0 = time.perf_counter()
             try:
                 if mode is not None:
@@ -118,12 +127,15 @@ def check_paths(cfg, rs, index, ref_index, paths=tuple(PATHS), log=print) -> dic
                 tm = {}
                 for fn in pipeline.KERNELS.values():
                     fn.launches = 0
+                for fn in direct.values():
+                    fn.direct_launches = 0
                 with _switched(env):
                     mr = pipeline.run_matching_indexed(
                         dataclasses.replace(cfg, **fields), rs, index, probe=probe,
                         timings=tm)
                 run.update(result=mr, timings=tm,
-                           launches={k: fn.launches for k, fn in pipeline.KERNELS.items()})
+                           launches={k: fn.launches for k, fn in pipeline.KERNELS.items()},
+                           direct={k: fn.direct_launches for k, fn in direct.items()})
                 got = canon(mr)
                 run["ok"] = (got.shape == ref.shape and bool(np.array_equal(got, ref))
                              and (mode is None or tm["probe_kind"] == mode))
@@ -139,7 +151,7 @@ def check_paths(cfg, rs, index, ref_index, paths=tuple(PATHS), log=print) -> dic
                 f"({run['seconds']:.2f}s)", flush=True)
     finally:
         index._aux = saved_aux
-    return {"reference": ref_mr, "runs": runs}
+    return {"reference": ref_mr, "reference_s": ref_s, "runs": runs}
 
 
 def main(argv=None) -> int:

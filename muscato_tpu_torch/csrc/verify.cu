@@ -53,8 +53,8 @@
 // before any is used, with all its loads in flight at once:
 //  - A tile is one CTA of 256 lanes, or of 128, 64 or 32 when the rows of
 //    256 do not fit (pick_tile: reads past 864 bases at B4's row width;
-//    the port's packed path takes reads up to 4096 bases, which fit in
-//    tiles of 32 lanes).  Its target rows t_rows[j0, j0 + tile) are one
+//    reads of 4096 bases fit in tiles of 32 lanes, and reads past 903
+//    words take the direct kernel).  Its target rows t_rows[j0, j0 + tile) are one
 //    contiguous span of tile * tcols words, copied by one bulk async copy
 //    on an mbarrier (bulk.cuh's stage_words: whole 16-byte groups in bulk,
 //    a ragged end and an unaligned t_rows by plain loads).
@@ -77,9 +77,11 @@
 //  - Shared memory is 16 bytes (the barrier) + 4 * tile * (tcols +
 //    (nwords | 1)) bytes, sized at launch: 36 KB at the flagship's 13-word
 //    reads and 22-word rows (six CTAs an SM), 61 KB at 25-word reads, 132
-//    KB for 32 lanes of 4096-base reads.  The launcher refuses a shape
-//    whose 32-lane tile passes the device's opt-in limit (the wrapper then
-//    raises); there is no fallback.
+//    KB for 32 lanes of 4096-base reads.  A shape whose 32-lane tile passes
+//    the device's opt-in limit (reads past 903 words, ~7,200 bases, at
+//    B4's rows: 232,448 bytes on an H100) takes the direct kernel, which
+//    needs no shared memory and takes any shape (pick_tile; the wrapper
+//    counts those launches apart).
 // Independent CTAs, several to an SM, overlap one tile's copies with
 // another's arithmetic.
 //
@@ -175,6 +177,8 @@ __device__ __forceinline__ void verify_lane(long long j, int rj, int dj, int dc,
 }
 
 // The first design: a thread a lane, every word read from global memory.
+// Built into every library: the route of a shape whose staged tile does
+// not fit in shared memory, and the only kernel under -DMUSCATO_NO_STAGE.
 __global__ void __launch_bounds__(kTile)
     verify_diagonals_direct_kernel(const int32_t* __restrict__ r,
                                    const int32_t* __restrict__ d, long long n,
@@ -292,27 +296,23 @@ size_t tile_smem(int lanes, int nwords, int tcols) {
 
 // The tile the launcher takes for reads of nwords words and rows of tcols
 // words on the current device: the widest of 256, 128, 64 and 32 lanes
-// whose shared memory fits the device's opt-in limit a block (*lanes 0
-// when none does; *smem is then the 32-lane tile's bytes).  A narrower
+// whose shared memory fits the device's opt-in limit a block.  A narrower
 // tile only lets long reads (past ~860 bases with B4's rows) fit; it keeps
-// the design and, on an H100, about the same time a lane.  The direct
-// kernel (-DMUSCATO_NO_STAGE) takes any shape in blocks of kTile lanes and
-// no shared memory.
+// the design and, on an H100, about the same time a lane.  When not even
+// 32 lanes fit, and always under -DMUSCATO_NO_STAGE, it is the direct
+// kernel's: kTile lanes and no shared memory (*smem 0).
 cudaError_t pick_tile(int nwords, int tcols, int* lanes, size_t* smem) {
-  if constexpr (!muscato::kStage) {
-    *lanes = kTile;
-    *smem = 0;
-    return cudaSuccess;
-  }
+  *lanes = kTile;
+  *smem = 0;
+  if constexpr (!muscato::kStage) return cudaSuccess;
   int dev, optin = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  *lanes = 0;
   for (int l = kTile; l >= 32; l /= 2) {
-    *smem = tile_smem(l, nwords, tcols);
-    if (*smem <= (size_t)optin) {
+    if (tile_smem(l, nwords, tcols) <= (size_t)optin) {
       *lanes = l;
+      *smem = tile_smem(l, nwords, tcols);
       break;
     }
   }
@@ -382,8 +382,9 @@ cudaError_t pick_tile(int nwords, int tcols, int* lanes, size_t* smem) {
 //    32 lanes' rows falls in 32 banks.
 //  - Shared memory is 4 * 32 * ((nwords | 1) + ((nwords + 1) | 1)) bytes:
 //    3.6 KB at the flagship's 13-word reads, 131 KB at 4096-base reads (512
-//    words), the packed path's longest.  Reads past 907 words, whose tile
-//    passes the device's opt-in limit, are refused.
+//    words).  Reads past 907 words, whose tile passes the device's opt-in
+//    limit, take the thread kernel, which needs no shared memory
+//    (pick_pairs_tile; the wrapper counts those launches apart).
 //  - Lanes past n load nothing and store nothing; dead lanes (r or p < 0)
 //    run the same code, as the twin computes their nx, g and s.
 //
@@ -468,6 +469,8 @@ __device__ __forceinline__ void pair_lane(long long j, int rj, int pj, int pc, i
       int32_t *__restrict__ g_out, int32_t *__restrict__ s_out
 
 // The first design: a thread a lane, every word read from global memory.
+// Built into every library: the route of reads whose staged tile does not
+// fit in shared memory, and the only kernel under -DMUSCATO_NO_STAGE.
 __global__ void __launch_bounds__(kTile) verify_pairs_thread_kernel(MUSCATO_PAIRS_PARAMS) {
   const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= n) return;
@@ -532,30 +535,47 @@ size_t pairs_smem(int lanes, int nwords) {
 }
 
 // The tile B10 takes for reads of nwords words: a warp of 32 lanes when
-// their rows fit the device's opt-in shared memory a block (*lanes 0 when
-// they do not: the shape is refused).  The thread kernel
-// (-DMUSCATO_NO_STAGE) takes any shape in blocks of kTile lanes and no
-// shared memory.
+// their rows fit the device's opt-in shared memory a block; else, and
+// always under -DMUSCATO_NO_STAGE, the thread kernel's blocks of kTile
+// lanes and no shared memory (*smem 0).
 cudaError_t pick_pairs_tile(int nwords, int* lanes, size_t* smem) {
-  if constexpr (!muscato::kStage) {
-    *lanes = kTile;
-    *smem = 0;
-    return cudaSuccess;
-  }
+  *lanes = kTile;
+  *smem = 0;
+  if constexpr (!muscato::kStage) return cudaSuccess;
   int dev, optin = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  *smem = pairs_smem(32, nwords);
-  *lanes = *smem <= (size_t)optin ? 32 : 0;
+  if (pairs_smem(32, nwords) <= (size_t)optin) {
+    *lanes = 32;
+    *smem = pairs_smem(32, nwords);
+  }
   return e;
+}
+
+// Launch `kernel` with `smem` bytes of dynamic shared memory, opting in
+// past 48 KB; returns the launch's error (a failed opt-in is cleared, so
+// a later launch does not report it).
+template <class Kernel, class... Args>
+cudaError_t launch_tile(Kernel kernel, long long n, int lanes, size_t smem,
+                        cudaStream_t stream, Args... args) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) {
+      cudaGetLastError();
+      return e;
+    }
+  }
+  kernel<<<(unsigned)((n + lanes - 1) / lanes), lanes, smem, stream>>>(args...);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // The tile that muscato_verify_diagonals takes for reads of nwords words
-// and t_rows of tcols words on the current device: its lanes (0: the shape
-// is refused) and its shared memory in bytes.
+// and t_rows of tcols words on the current device: its lanes and its
+// shared memory in bytes (0: the direct kernel).
 extern "C" int muscato_verify_tile(int nwords, int tcols, int* lanes, long long* smem) {
   size_t bytes = 0;
   const cudaError_t e = pick_tile(nwords, tcols, lanes, &bytes);
@@ -564,11 +584,20 @@ extern "C" int muscato_verify_tile(int nwords, int tcols, int* lanes, long long*
   return (int)e;
 }
 
+// The same for muscato_verify_pairs (0 bytes: the thread kernel).
+extern "C" int muscato_verify_pairs_tile(int nwords, int* lanes, long long* smem) {
+  size_t bytes = 0;
+  const cudaError_t e = pick_pairs_tile(nwords, lanes, &bytes);
+  *smem = (long long)bytes;
+  if (e != cudaSuccess) cudaGetLastError();
+  return (int)e;
+}
+
 // q1s: host array of nwin window offsets.  t_rows holds tcols >= nwords + 8
 // words a lane.  Refused (cudaErrorInvalidValue, nothing launched): more
-// than kMaxWindows windows, narrower rows, empty tables, and a shape whose
-// 32-lane tile exceeds the device's opt-in shared memory a block
-// (muscato_verify_tile).
+// than kMaxWindows windows, narrower rows and empty tables.  A shape whose
+// 32-lane tile exceeds the device's opt-in shared memory a block takes the
+// direct kernel (muscato_verify_tile reports the route).
 extern "C" int muscato_verify_diagonals(
     const void* r, const void* d, long long n, const void* t_rows, int tcols,
     const void* rpacked, int nreads, int nwords, const void* lengths,
@@ -585,28 +614,26 @@ extern "C" int muscato_verify_diagonals(
   int lanes;
   size_t smem;
   cudaError_t e = pick_tile(nwords, tcols, &lanes, &smem);
-  if (e == cudaSuccess && lanes == 0) return (int)cudaErrorInvalidValue;
-  auto kernel = muscato::kStage ? verify_diagonals_kernel : verify_diagonals_direct_kernel;
-  if (e == cudaSuccess && smem > 48 * 1024)
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) {
     cudaGetLastError();  // clear it, so a later launch does not report it
     return (int)e;
   }
-  kernel<<<(unsigned)((n + lanes - 1) / lanes), lanes, smem, (cudaStream_t)stream>>>(
-      (const int32_t*)r, (const int32_t*)d, n, (const uint32_t*)t_rows, tcols,
-      (const uint32_t*)rpacked, nreads, nwords, (const int32_t*)lengths,
-      (const int32_t*)gstart, (const int32_t*)gend, (const int32_t*)budget, nbudget, win,
-      width, smax, (int32_t*)nx, (int32_t*)s, (int32_t*)okbits);
-  return (int)cudaGetLastError();
+  return (int)launch_tile(
+      smem ? verify_diagonals_kernel : verify_diagonals_direct_kernel, n, lanes, smem,
+      (cudaStream_t)stream, (const int32_t*)r, (const int32_t*)d, n,
+      (const uint32_t*)t_rows, tcols, (const uint32_t*)rpacked, nreads, nwords,
+      (const int32_t*)lengths, (const int32_t*)gstart, (const int32_t*)gend,
+      (const int32_t*)budget, nbudget, win, width, smax, (int32_t*)nx, (int32_t*)s,
+      (int32_t*)okbits);
 }
 
 // B10.  q1v: a device array of n window offsets, or null for the scalar
 // q1.  trows holds ntrows rows of tcols >= nwords + 8 words.  Refused
 // (cudaErrorInvalidValue, nothing launched): narrower rows, empty tables
 // (trows, reads, gene_start of fewer than 2 entries, gblock, budget), a
-// negative gsteps, smax < 1, and reads whose tile passes the device's
-// opt-in shared memory a block (past ~900 words).
+// negative gsteps and smax < 1.  Reads whose tile passes the device's
+// opt-in shared memory a block (past 907 words) take the thread kernel
+// (muscato_verify_pairs_tile reports the route).
 extern "C" int muscato_verify_pairs(
     const void* r, const void* p, long long n, const void* q1v, int q1, const void* trows,
     int ntrows, int tcols, const void* rpacked, int nreads, int nwords, const void* lengths,
@@ -620,19 +647,15 @@ extern "C" int muscato_verify_pairs(
   int tile;
   size_t smem;
   cudaError_t e = pick_pairs_tile(nwords, &tile, &smem);
-  if (e == cudaSuccess && tile == 0) return (int)cudaErrorInvalidValue;
-  auto kernel = muscato::kStage ? verify_pairs_kernel : verify_pairs_thread_kernel;
-  if (e == cudaSuccess && smem > 48 * 1024)
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) {
     cudaGetLastError();  // clear it, so a later launch does not report it
     return (int)e;
   }
-  kernel<<<(unsigned)((n + tile - 1) / tile), tile, smem, (cudaStream_t)stream>>>(
-      (const int32_t*)r, (const int32_t*)p, n, (const int32_t*)q1v, q1,
-      (const uint32_t*)trows, ntrows, tcols, (const uint32_t*)rpacked, nreads, nwords,
+  return (int)launch_tile(
+      smem ? verify_pairs_kernel : verify_pairs_thread_kernel, n, tile, smem,
+      (cudaStream_t)stream, (const int32_t*)r, (const int32_t*)p, n, (const int32_t*)q1v,
+      q1, (const uint32_t*)trows, ntrows, tcols, (const uint32_t*)rpacked, nreads, nwords,
       (const int32_t*)lengths, (const int32_t*)gene_start, ngs, (const int32_t*)gblock,
       nblock, gsteps, (const int32_t*)budget, nbudget, width, max_read_length, smax,
       (uint8_t*)keep, (int32_t*)nx, (int32_t*)g, (int32_t*)s);
-  return (int)cudaGetLastError();
 }

@@ -193,7 +193,10 @@ cudaError_t launch_windows(const int32_t* rpacked, const int32_t* lengths,
 
 }  // namespace
 
-// params: host array of 3*nwin ints (w0, sh, gate per window).
+// params: host array of 3*nwin ints (w0, sh, gate per window), at most
+// kMaxWindows windows a launch: ops/window_queries.py launches more in
+// groups, each writing from its first window's row of key1, key2 and
+// valid (offset pointers).
 extern "C" int muscato_window_queries(const void* rpacked, const void* lengths,
                                       long long nreads, int nw,
                                       const void* params, int nwin, int width,

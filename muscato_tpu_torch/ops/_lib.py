@@ -56,6 +56,7 @@ _SIGNATURES = {
         _P, _P, _P, _P,
     ),
     "muscato_verify_tile": (_I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I64)),
+    "muscato_verify_pairs_tile": (_I, ctypes.POINTER(_I), ctypes.POINTER(_I64)),
     "muscato_verify_pairs": (
         _P, _P, _I64, _P, _I, _P, _I, _I, _P, _I, _I, _P, _P, _I, _P, _I, _I, _P, _I, _I,
         _I, _I, _P, _P, _P, _P, _P,

@@ -22,6 +22,7 @@ fetches by plain indexing).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -283,18 +284,44 @@ def verify_diagonals_swar_torch(r, d, t_rows, rpacked, lengths, gstart, gend, bu
     return nx, s_local.to(torch.int32), okbits
 
 
+def _tile(query: str, *shape, lib=None) -> tuple[int, int]:
+    """Launcher ``muscato_<query>``'s answer for ``shape`` on the current
+    CUDA device: (lanes, shared memory bytes)."""
+    lanes, smem = ctypes.c_int(), ctypes.c_longlong()
+    rc = getattr(lib or _lib.kernels().lib, "muscato_" + query)(
+        *shape, ctypes.byref(lanes), ctypes.byref(smem))
+    if rc != 0:
+        raise RuntimeError(f"{query}: CUDA error {rc}")
+    return lanes.value, smem.value
+
+
 def swar_tile(nwords: int, tcols: int, lib=None) -> tuple[int, int]:
     """The tile the B7 kernel of ``lib`` (default: the kernel library)
     takes on the current CUDA device for reads of ``nwords`` words and
-    t_rows of ``tcols`` words: (lanes, shared memory bytes), lanes 0 when
-    the launcher refuses the shape.  Asked of the library, which alone
-    knows the tile's layout."""
-    lanes, smem = ctypes.c_int(), ctypes.c_longlong()
-    rc = (lib or _lib.kernels().lib).muscato_verify_tile(nwords, tcols, ctypes.byref(lanes),
-                                                         ctypes.byref(smem))
-    if rc != 0:
-        raise RuntimeError(f"swar_tile: CUDA error {rc}")
-    return lanes.value, smem.value
+    t_rows of ``tcols`` words: (lanes, shared memory bytes); 0 bytes is
+    the direct route, one thread a lane with no shared memory, which a
+    shape takes when not even 32 lanes of it fit in shared memory.  Asked
+    of the library, which alone knows the tile's layout."""
+    return _tile("verify_tile", nwords, tcols, lib=lib)
+
+
+def pairs_tile(nwords: int, lib=None) -> tuple[int, int]:
+    """B10's tile for reads of ``nwords`` words, as ``swar_tile`` gives
+    B7's: a warp of 32 lanes staged in shared memory, or 0 bytes for the
+    direct route (reads past ~907 words on an H100)."""
+    return _tile("verify_pairs_tile", nwords, lib=lib)
+
+
+@functools.lru_cache(maxsize=None)
+def direct_route(kernel: str, device: int, nwords: int, tcols: int = 0) -> bool:
+    """True when the kernel library's B7 (``verify_diagonals``) or B10
+    (``verify_pairs``) launches its direct kernel for this shape on CUDA
+    device ``device``: the wrappers count those launches apart, in
+    ``direct_launches``."""
+    with torch.cuda.device(device):
+        smem = (swar_tile(nwords, tcols) if kernel == "verify_diagonals"
+                else pairs_tile(nwords))[1]
+    return smem == 0
 
 
 def verify_diagonals_swar(r, d, t_rows, rpacked, lengths, gstart, gend, budget, q1s, *,
@@ -316,9 +343,7 @@ def verify_diagonals_swar(r, d, t_rows, rpacked, lengths, gstart, gend, budget, 
     nx, s, okbits = (torch.empty(n, dtype=torch.int32, device=r.device) for _ in range(3))
     if n:
         # The launcher refuses more than 32 windows, t_rows narrower than
-        # nwords + 8 words, empty tables, and a shape whose tile of 32
-        # lanes exceeds the device's shared memory a block (swar_tile);
-        # the launch then raises.
+        # nwords + 8 words and empty tables; the launch then raises.
         _lib.launch(
             "verify_diagonals", r, r.data_ptr(), d.data_ptr(), n, t_rows.data_ptr(),
             t_rows.shape[1], rpacked.data_ptr(), *rpacked.shape, lengths.data_ptr(),
@@ -327,10 +352,13 @@ def verify_diagonals_swar(r, d, t_rows, rpacked, lengths, gstart, gend, budget, 
             nx.data_ptr(), s.data_ptr(), okbits.data_ptr(),
         )
         verify_diagonals_swar.launches += 1
+        if direct_route("verify_diagonals", r.device.index, rpacked.shape[1], t_rows.shape[1]):
+            verify_diagonals_swar.direct_launches += 1
     return nx, s, okbits
 
 
 verify_diagonals_swar.launches = 0
+verify_diagonals_swar.direct_launches = 0  # of those, on the direct route
 
 
 def verify_diagonals_packed(
@@ -429,7 +457,8 @@ def verify_pairs_packed(
 ):
     """Verify one (read, window position) pair a lane, each with its own
     window offset q1: launches B10, the CUDA kernel in ``csrc/verify.cu``
-    (each warp's read rows and target windows staged in shared memory; the
+    (each warp's read rows and target windows staged in shared memory, or
+    for reads too long for that a thread a lane reading global memory; the
     body of ``muscato_tpu/ops/packed.py:verify_pairs_packed``, which
     XLA fuses; it has no Pallas kernel); on CPU tensors its plain twin
     ``verify_pairs_packed_torch``.  Returns (keep, nx, g, s): keep (bool)
@@ -447,9 +476,8 @@ def verify_pairs_packed(
     keep = torch.empty(n, dtype=torch.bool, device=r.device)
     nx, g, s = (torch.empty(n, dtype=torch.int32, device=r.device) for _ in range(3))
     if n:
-        # The launcher refuses trows narrower than nwords + 8 words, empty
-        # tables and reads too long for a tile of 32 lanes in shared
-        # memory; the launch then raises.
+        # The launcher refuses trows narrower than nwords + 8 words and
+        # empty tables; the launch then raises.
         _lib.launch(
             "verify_pairs", r, r.data_ptr(), p.data_ptr(), n,
             None if q1v is None else q1v.data_ptr(), int(q1) if q1v is None else 0,
@@ -459,7 +487,10 @@ def verify_pairs_packed(
             max_read_length, smax, keep.data_ptr(), nx.data_ptr(), g.data_ptr(), s.data_ptr(),
         )
         verify_pairs_packed.launches += 1
+        if direct_route("verify_pairs", r.device.index, rpacked.shape[1]):
+            verify_pairs_packed.direct_launches += 1
     return keep, nx, g, s
 
 
 verify_pairs_packed.launches = 0
+verify_pairs_packed.direct_launches = 0  # of those, on the direct route

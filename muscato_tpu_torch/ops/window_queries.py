@@ -9,7 +9,9 @@ base) is of the order of its bytes, so the kernel is built to spend little
 else: a CTA stages a tile of rows with one bulk async copy (a padded copy
 loop at even row widths), a thread folds one read window by window, and
 the step is compiled for each of the four (second key, dinucleotide gate)
-combinations with its base loop unrolled.
+combinations with its base loop unrolled.  The kernel's window table holds
+``MAX_WINDOWS`` windows; the wrapper launches it once a group of at most
+that many, each group writing its own window-major rows.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from . import _lib
 from . import windows as winops
 from .packed import M32, mulmod32, popcount32, to_i32, u64
 
-MAX_WINDOWS = 64  # the kernel's per-launch window table
+MAX_WINDOWS = 64  # the kernel's window table: the windows of one launch
 
 
 def window_queries_torch(rpacked, lengths, q1s, *, width, min_dinuc):
@@ -89,6 +91,27 @@ def _window_table(nw: int, q1s, width: int) -> list[int]:
     return out
 
 
+def _launch_groups(rpacked, lengths, q1s, width, min_dinuc, key1, key2, valid) -> None:
+    """Launch B5 once a group of at most MAX_WINDOWS consecutive windows:
+    group k0 writes its window-major rows from row k0 * R of each output
+    (the launcher takes the offset pointers), so the outputs are those of
+    one launch over every window."""
+    nreads, nw = rpacked.shape
+    for k0 in range(0, len(q1s), MAX_WINDOWS):
+        group = q1s[k0:k0 + MAX_WINDOWS]
+        table = _window_table(nw, group, width)
+        params = (ctypes.c_longlong * len(table))(*table)
+        at = k0 * nreads
+        _lib.launch(
+            "window_queries", rpacked, rpacked.data_ptr(), lengths.data_ptr(),
+            nreads, nw, ctypes.addressof(params), len(group), width, min_dinuc,
+            int(winops.key_multiplier(width)), int(winops.HASH_MULT2),
+            int(winops.uses_second_key(width)), key1.data_ptr() + 4 * at,
+            key2.data_ptr() + 4 * at, valid.data_ptr() + at,
+        )
+        window_queries.launches += 1
+
+
 def window_queries(rpacked, lengths, q1s, *, width, min_dinuc):
     """Window keys + validity for every (window, read), flattened to (K*R,)
     window-major (``k*R + r``), from the nibble-packed read matrix
@@ -98,7 +121,8 @@ def window_queries(rpacked, lengths, q1s, *, width, min_dinuc):
     keys (mod 2**32; key2 is 0 unless width > 13) and a bool mask, the
     length gate AND, when min_dinuc > 0, at least min_dinuc distinct
     dinucleotides.  Windows past the packed width read a clipped slice,
-    exactly as ``muscato_tpu.ops.fused._window_queries`` does."""
+    exactly as ``muscato_tpu.ops.fused._window_queries`` does.  On the
+    card B5 launches once a group of MAX_WINDOWS windows."""
     q1s = tuple(int(q) for q in q1s)
     if _lib.on_cpu("window_queries", rpacked, lengths):
         return window_queries_torch(
@@ -106,8 +130,8 @@ def window_queries(rpacked, lengths, q1s, *, width, min_dinuc):
         )
     nreads, nw = rpacked.shape
     nwin = len(q1s)
-    if not 1 <= nwin <= MAX_WINDOWS:
-        raise ValueError(f"window_queries: takes 1..{MAX_WINDOWS} windows, got {nwin}")
+    if nwin < 1:
+        raise ValueError("window_queries: needs at least one window")
     if width < 1 or nw < 1 or lengths.shape != (nreads,):
         raise ValueError("window_queries: bad width or shapes")
     dev = rpacked.device
@@ -115,16 +139,7 @@ def window_queries(rpacked, lengths, q1s, *, width, min_dinuc):
     key2 = torch.empty(nwin * nreads, dtype=torch.int32, device=dev)
     valid = torch.empty(nwin * nreads, dtype=torch.bool, device=dev)
     if nreads:
-        table = _window_table(nw, q1s, width)
-        params = (ctypes.c_longlong * len(table))(*table)
-        _lib.launch(
-            "window_queries", rpacked, rpacked.data_ptr(), lengths.data_ptr(),
-            nreads, nw, ctypes.addressof(params), nwin, width, min_dinuc,
-            int(winops.key_multiplier(width)), int(winops.HASH_MULT2),
-            int(winops.uses_second_key(width)), key1.data_ptr(),
-            key2.data_ptr(), valid.data_ptr(),
-        )
-        window_queries.launches += 1
+        _launch_groups(rpacked, lengths, q1s, width, min_dinuc, key1, key2, valid)
     return key1, key2, valid
 
 

@@ -75,10 +75,10 @@ def _assert_builds_agree(ts, width):
     return dev
 
 
-@pytest.mark.parametrize("width", [8, 13, 20])
+@pytest.mark.parametrize("width", [4, 8, 13, 20, 40])
 def test_device_build_matches_host_and_jax(width):
-    """Both key paths: exact base-5 keys (8, 13), hashed with a second key
-    word (20); realistic genes, with duplicate windows."""
+    """Both key paths: exact base-5 keys (4, 8, 13), hashed with a second
+    key word (20, 40); realistic genes, with duplicate windows."""
     _, ts = tgendat.generate_arrays_realistic(200, 100, 60, 400, seed=width)
     dev = _assert_builds_agree(ts, width)
     assert dev.num_valid > 0

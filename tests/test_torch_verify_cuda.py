@@ -4,8 +4,10 @@ every lane of the kernel exact against its plain twin
 test_torch_verify_kernel.py and at the staged kernel's edges (a ragged
 last tile, wholly dead tiles, one read a tile, odd and even read-row
 strides, an odd t_rows width, reads long enough for each narrower tile,
-the widest rows and the longest reads the launcher takes), and a shape
-past shared memory refused.  Every test is marked ``gpu`` and skips
+the widest rows and the longest reads the launcher stages), and shapes
+past shared memory (a t_rows column past the widest staged tile, reads of
+1,000 words) on the direct route, one thread a lane with no shared
+memory, counted apart.  Every test is marked ``gpu`` and skips
 without a card.  The file imports nothing of JAX, so it runs on a card
 machine without it: ``python -m pytest --noconftest -m gpu
 tests/test_torch_verify_cuda.py`` (the conftest pins JAX to the CPU).
@@ -25,20 +27,26 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _on_card(args, dev, **kw):
-    """B7 on the card, one launch, every lane equal to its twin's on the
-    CPU."""
-    before = tpacked.verify_diagonals_swar.launches
-    got = tpacked.verify_diagonals_swar(*(x.to(dev) if torch.is_tensor(x) else x
-                                          for x in args), **kw)
-    assert tpacked.verify_diagonals_swar.launches == before + 1
+def _on_card(args, dev, direct=False, **kw):
+    """B7 on the card, one launch (on the direct route when ``direct``),
+    every lane equal to its twin's on the CPU."""
+    fn = tpacked.verify_diagonals_swar
+    before = fn.launches, fn.direct_launches
+    got = fn(*(x.to(dev) if torch.is_tensor(x) else x for x in args), **kw)
+    assert (fn.launches, fn.direct_launches) == (before[0] + 1, before[1] + direct)
     for a, b in zip(got, tpacked.verify_diagonals_swar_torch(*args, **kw)):
         assert torch.equal(a.cpu(), b)
 
 
 def _tile(nwords, tcols):
-    """Lanes of the tile the launcher takes for this shape (0: refused)."""
+    """Lanes of the tile the launcher takes for this shape."""
     return tpacked.swar_tile(nwords, tcols)[0]
+
+
+def _staged(nwords, tcols):
+    """True when the launcher stages this shape in shared memory (its
+    tile's bytes are not 0: the direct route's)."""
+    return tpacked.swar_tile(nwords, tcols)[1] > 0
 
 
 def _last_true(pred, lo):
@@ -93,13 +101,13 @@ def test_cuda_verify_kernel_edges(cuda_device, edge):
     the last width that fits; the longest reads whose natural rows fit)."""
     nwords, n, ndead, tile_read, widen = EDGES[edge]
     if nwords == "longest":
-        nwords = _last_true(lambda w: _tile(w, w + tpacked.TROWS_GUARD) > 0, 13)
+        nwords = _last_true(lambda w: _staged(w, w + tpacked.TROWS_GUARD), 13)
     if widen == "widest":
-        widen = _last_true(lambda t: _tile(nwords, t) > 0, nwords + tpacked.TROWS_GUARD) - (
+        widen = _last_true(lambda t: _staged(nwords, t), nwords + tpacked.TROWS_GUARD) - (
             nwords + tpacked.TROWS_GUARD)
     args, s = swar_args(len(edge), nwords, (20, 8 * nwords), 0.02, (0, 10, 30, 50), n=n,
                         ndead=ndead, tile_read=tile_read, widen=widen)
-    assert _tile(nwords, args[2].shape[1]) > 0
+    assert _staged(nwords, args[2].shape[1])
     _on_card(args, cuda_device, width=20, smax=s)
 
 
@@ -112,18 +120,23 @@ def test_cuda_verify_tile_narrows_with_the_rows(cuda_device):
     assert tiles[12] == 256 and tiles[-1] >= 32
     assert all(a >= b for a, b in zip(tiles, tiles[1:]))
     assert set(tiles) <= {256, 128, 64, 32}
+    assert all(_staged(w, w + tpacked.TROWS_GUARD) for w in range(1, 513))
 
 
 @pytest.mark.gpu
 def test_cuda_verify_kernel_refuses_a_tile_past_shared_memory(cuda_device):
-    """One t_rows column past the widest shape the launcher takes: it
-    refuses it and the wrapper raises, with no launch counted."""
+    """Shapes whose 32-lane tile does not fit in shared memory: one t_rows
+    column past the widest staged tile at 13-word reads, and reads of
+    1,000 words (8,000 bases) at B4's rows.  The launcher refuses neither:
+    it takes the direct kernel (a tile of 0 bytes), one launch each,
+    counted in ``direct_launches``, exact against the twin on every
+    lane."""
     nwords = 13
-    widest = _last_true(lambda t: _tile(nwords, t) > 0, nwords + tpacked.TROWS_GUARD)
+    widest = _last_true(lambda t: _staged(nwords, t), nwords + tpacked.TROWS_GUARD)
+    assert not _staged(nwords, widest + 1)
     args, s = swar_args(3, nwords, (20, 104), 0.02, (10, 30), n=512,
                         widen=widest + 1 - nwords - tpacked.TROWS_GUARD)
-    before = tpacked.verify_diagonals_swar.launches
-    with pytest.raises(RuntimeError):
-        tpacked.verify_diagonals_swar(*(x.to(cuda_device) if torch.is_tensor(x) else x
-                                        for x in args), width=20, smax=s)
-    assert tpacked.verify_diagonals_swar.launches == before
+    _on_card(args, cuda_device, direct=True, width=20, smax=s)
+    assert not _staged(1000, 1000 + tpacked.TROWS_GUARD)
+    args, s = swar_args(4, 1000, (20, 8000), 0.02, (0, 2000, 4000, 6000), n=600)
+    _on_card(args, cuda_device, direct=True, width=20, smax=s)

@@ -6,8 +6,10 @@ tiles: lane counts that are no multiple of a warp or below one, dead
 warps, lanes that share a read row, 512-word reads), at a lane count that
 is not a multiple of the block, with the window offset as a scalar, as
 one 0-d tensor and as one a lane, and at the longest reads whose tile
-fits shared memory; trows narrower than the reads need, and reads one
-word longer, are refused.  Every test is marked ``gpu`` and skips
+fits shared memory, and past it (908 and 1,000 words) on the direct
+route, one thread a lane with no shared memory, counted apart; trows
+narrower than the reads need are refused.  Every test is marked ``gpu``
+and skips
 without a card.  The file
 imports nothing of JAX, so it runs on a card machine without it:
 ``python -m pytest --noconftest -m gpu tests/test_torch_verify_pairs_cuda.py``
@@ -32,12 +34,13 @@ def _to(args, dev):
     return [x.to(dev) if torch.is_tensor(x) else x for x in args]
 
 
-def _on_card(args, dev):
-    """B10 on the card, one launch, every output of every lane equal to
-    the twin's on the CPU."""
-    before = tpacked.verify_pairs_packed.launches
-    got = tpacked.verify_pairs_packed(*_to(args, dev))
-    assert tpacked.verify_pairs_packed.launches == before + 1
+def _on_card(args, dev, direct=False):
+    """B10 on the card, one launch (on the direct route when ``direct``),
+    every output of every lane equal to the twin's on the CPU."""
+    fn = tpacked.verify_pairs_packed
+    before = fn.launches, fn.direct_launches
+    got = fn(*_to(args, dev))
+    assert (fn.launches, fn.direct_launches) == (before[0] + 1, before[1] + direct)
     exp = tpacked.verify_pairs_packed_torch(*args)
     for name, a, b in zip(("keep", "nx", "g", "s"), got, exp):
         assert a.dtype == b.dtype and torch.equal(a.cpu(), b), name
@@ -83,20 +86,16 @@ def test_cuda_verify_pairs_refuses_narrow_rows(cuda_device):
 def test_cuda_verify_pairs_longest_reads_and_refusal(cuda_device):
     """Read rows of 907 words, the longest whose warp tile (its rows and
     target windows at odd strides) fits 232,448 bytes of shared memory,
-    run exact against the twin; at 908 words the launcher refuses, the
-    wrapper raises and counts no launch."""
+    run staged; at 908 and 1,000 words the launcher refuses nothing: it
+    takes the thread kernel (a tile of 0 bytes), counted in
+    ``direct_launches``.  Each exact against the twin on every lane."""
     args, _ = pair_args("w20-4win-13words", n=256)
     g = torch.Generator().manual_seed(16)
-    for nwords, fits in ((907, True), (908, False)):
+    for nwords, staged in ((907, True), (908, False), (1000, False)):
+        assert (tpacked.pairs_tile(nwords)[1] > 0) == staged
         rpacked = torch.randint(-2**31, 2**31, (args[2].shape[0], nwords), dtype=torch.int64,
                                 generator=g).to(torch.int32)
         trows = torch.randint(-2**31, 2**31, (args[10].shape[0], nwords + 8),
                               dtype=torch.int64, generator=g).to(torch.int32)
         wide = args[:2] + (rpacked,) + args[3:10] + (trows,) + args[11:]
-        if fits:
-            _on_card(wide, cuda_device)
-            continue
-        before = tpacked.verify_pairs_packed.launches
-        with pytest.raises(RuntimeError):
-            tpacked.verify_pairs_packed(*_to(wide, cuda_device))
-        assert tpacked.verify_pairs_packed.launches == before
+        _on_card(wide, cuda_device, direct=not staged)
