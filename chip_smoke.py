@@ -69,14 +69,30 @@ cut), all at once, then:
      dedup verify's ns a lane in each mode at 2**20 lanes on 100M-base,
      4M-read tables, and in its tuned modes the SWAR body alone: B7
      beside its plain twin);
-  3. builds the flagship index on the card (device_build=True, twice),
+  3. builds a shard of 1.5e9 random bases, the largest the driver's auto
+     mesh gives, on the card by mesh.shard_targets, with its seconds and
+     peak memory, its window count, key order, positions and sampled keys
+     checked; then the same targets as one card's index (device_build),
+     its search aux's peak, and B9 on that aux (binary on its own: hashed
+     keys, 22 bucket bits) beside the one-thread build in turns; then
+     matches 524,288 reads against that index through
+     run_matching_indexed in two batches, in best mode and in first mode
+     with MaxMatches 2 (big_index_run_phase), and 524,288 reads through
+     pipeline.run_matching against 2,415,919,104 random bases, past
+     2**31-1, which it runs as two gene-range shards, each built on the
+     card (gene_sharded_run_phase): three quarters of the reads are
+     planted in about 1,024 genes (bench/gene_subset.py: the first and
+     the last gene, genes past position 2**30 or 2**31, the longest ones,
+     the genes at the shard bound, and copies of one read in 2-4 genes,
+     also across the bound, with different substitution counts), and
+     each MatchResult must equal the port's CPU run over the genes it
+     reports and the planted ones, with B9 launched once a batch (once a
+     shard), matches past 2**30 (2**31) and in both shards; each run's
+     wall, stages, launches, peak memory and each shard's build and match
+     seconds are printed;
+  4. builds the flagship index on the card (device_build=True, twice),
      each equal to the host build array for array, with both builds'
-     times and the device build's peak memory; then a shard of 1.5e9
-     bases, the largest the driver's auto mesh gives, built on the card
-     by mesh.shard_targets, with its seconds and peak memory, its window
-     count, key order, positions and sampled keys checked, its search
-     aux's peak, and B9 on that aux (binary on its own: hashed keys, 22
-     bucket bits) beside the one-thread build in turns; then B9 so on a
+     times and the device build's peak memory; then B9 on a
      1e8-base AT-rich genome's index at width 13 (exact base-5 keys, a
      skewed aux, binary on its own); then matches
      100k reads of
@@ -89,7 +105,7 @@ cut), all at once, then:
      _MAX_PAIR_CAP set below the batch's pair total, the last also equal
      to the default run (these runs ask for the sorted join: at 100k
      reads the engine would pick the search probe);
-  4. runs the flagship (4M reads x 100 bp against 100,000 genes x 1,000 bp,
+  5. runs the flagship (4M reads x 100 bp against 100,000 genes x 1,000 bp,
      windows 10,30,50,70 at width 20) through run_matching_indexed with
      every launch counter set to 0 first, prints reads/s, matches, the
      pair total, per-stage CUDA-event times and peak device memory, and
@@ -191,7 +207,7 @@ cut), all at once, then:
      matches, probe, launches and card and CPU seconds; then B7 and B10 on
      reads of 2,000, 7,000 and 8,000 bases, staged against direct in
      turns where both exist, each exact (long_read_routes);
-  5. runs the reference-scale job (scale_run_phase): the twin of
+  6. runs the reference-scale job (scale_run_phase): the twin of
      scripts/gen_parallel.py writes 9,437,184 reads (one ReadBatch of
      2**23 and a partial second batch) against the 100,000 x 1,000-base
      gene set, and the twin of scripts/run_100m.py runs the muscato_torch
@@ -204,7 +220,7 @@ cut), all at once, then:
      same read sequences; it prints each run's stage walls (the driver's
      logs), peak anonymous RSS, reads/s end to end and the host union's
      seconds;
-  6. runs the bench tool bigtest (100k reads x 100k genes through the
+  7. runs the bench tool bigtest (100k reads x 100k genes through the
      muscato_torch driver) through its entry point.
 
 Every phase checks its results and any failure exits non-zero; each
@@ -213,6 +229,8 @@ run's before the result.  The line before the last is a JSON object with
 each kernel's numbers (its launches_mesh: rank 0's launches on the 2x2
 flagship, B6's from its switched run; launches_scale_run: the second scale
 run's; launches_config_matrix: summed over the config matrix's runs;
+launches_big_index: summed over the two runs against the 1.5e9-base
+index; launches_gene_sharded: the run over two gene-range shards;
 long_read_routes_ms for B7 and B10); the last line
 is {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero
 and prints no result.
@@ -225,6 +243,7 @@ import contextlib
 import functools
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -315,6 +334,9 @@ SHARDS = 3
 SEARCH_PATH = ("window_queries", "direct_probe", "expand_owners", "monotone_gather",
                "monotone_gather_rows", "verify_diagonals_swar")
 SMALL_BATCH, MULTI_BATCH = 1 << 18, 1 << 20
+# The path of a batch against the 1.5e9-base index: the binary search probe.
+BIG_PATH = ("window_queries", "binary_probe", "expand_owners", "monotone_gather",
+            "monotone_gather_rows", "verify_diagonals_swar")
 CROSSOVER_BATCHES = (1 << 14, 1 << 16, 1 << 18, 1 << 20)
 CROSSOVER_DEPTH = 4
 SPLIT_BATCHES = (1 << 18, 1 << 20)  # the probe stage cut into its parts
@@ -330,6 +352,22 @@ RUNNER_SMALL = ["--Workload", "small", "--NumRead", "1000000", "--Repeats", "2"]
 # _choose_mesh keeps every shard under 1.5e9 bases), built on the card as a
 # mesh rank builds it, in genes of 1,000-19,999 bases.
 BIG_SHARD_BASES = 1_500_000_000
+# Whole runs past the flagship's gene set, each held to the port's CPU run
+# over the genes its reads were planted in (bench/gene_subset.py): BIG_READS
+# reads against that index, in batches of BIG_BATCH, in best mode and in
+# first mode with a binding cap (big_index_run_phase); then BIG_READS reads
+# through pipeline.run_matching against SHARDED_BASES bases, past 2**31-1,
+# which it runs as gene-range shards (gene_sharded_run_phase).  The reads
+# are planted in PLANTED_GENES genes, GROUPS of them copies of one read in
+# 2-4 genes.
+BIG_READS, BIG_BATCH = 1 << 19, 1 << 18
+SHARDED_BASES = (1 << 31) + (1 << 28)
+SHARD_BASES = 3 << 29  # the bases a shard of pipeline.run_matching's sharding
+BIG_PAST, SHARDED_PAST = 1 << 30, 1 << 31  # positions that matches must pass in A and B
+PLANTED_GENES = 1024
+PAST_GENES, LONGEST_GENES = 128, 16  # planted genes past 2**30 (2**31 in B), longest ones
+GROUPS = (2, 3, 4) * 16  # the sizes of the groups planted anywhere
+CROSS_PAIRS, CROSS_FOURS = 32, 16  # groups across the shard bound (two of four each side)
 # B9 where the binary mode is the fallback for skewed keys: an AT-rich
 # genome (codes A, C, G, T drawn 4:1:1:4, as in AT-rich genomes such as
 # Plasmodium's) indexed at the widest width whose keys are the windows'
@@ -1695,10 +1733,14 @@ def kernel_phase(dev, unstaged, variants, sub_variants) -> dict:
         kw = dict(pair_cap=pair_cap)
         shapes = f"slots ({m},) pair_cap {pair_cap} (total {total})"
         twin = lambda: expand.expand_owners_torch(oexcl, lo, qid, **kw)
+        # The library call: the owner search alone, one searchsorted of
+        # every pair lane into the owners' exclusive offsets.
+        pid = torch.arange(pair_cap, dtype=oexcl.dtype, device=dev)
+        owners = lambda: torch.searchsorted(oexcl, pid, side="right", out_int32=True)
         for name, sub in (("expand_owners", False), ("expand_owners_sub", True)):
             case(name + density,
                  lambda: expand.expand_owners(oexcl, lo, qid, subchunk=sub, **kw),
-                 twin, None, call_work(name, (oexcl, lo, qid), kw), shapes)
+                 twin, owners, call_work(name, (oexcl, lo, qid), kw), shapes)
         b2 = lambda: expand.expand_owners(oexcl, lo, qid, **kw)
         arms = {"B2": b2, "B6": lambda: expand.expand_owners_sub(oexcl, lo, qid, **kw)}
         for launcher, key, libs in ((launch_expand, "B2", variants),
@@ -1717,14 +1759,17 @@ def kernel_phase(dev, unstaged, variants, sub_variants) -> dict:
             win = fused._chunk_window(*padded[:3], padded[3][ci], ci * STREAM_CHUNK,
                                       STREAM_CHUNK + 1)
             ckw = dict(pair_cap=STREAM_CHUNK)
+            cpid = torch.arange(STREAM_CHUNK, dtype=win[0].dtype, device=dev)
             for name, sub in (("expand_owners", False), ("expand_owners_sub", True)):
                 case(f"{name} chunk window",
                      lambda: expand.expand_owners(*win, subchunk=sub, **ckw),
-                     lambda: expand.expand_owners_torch(*win, **ckw), None,
+                     lambda: expand.expand_owners_torch(*win, **ckw),
+                     lambda: torch.searchsorted(win[0], cpid, side="right", out_int32=True),
                      call_work(name, win, ckw),
                      f"chunk {ci} of {len(padded[3])}: {STREAM_CHUNK + 1} slots, "
                      f"pair_cap {STREAM_CHUNK}")
-            del padded, win
+            del padded, win, cpid
+        del pid
     print("B2 against B6, same run (ms a call / back to back): " + "; ".join(
         f"{label}: " + " vs ".join(
             f"{n} {out[n + d]['ms']:.3f} / {out[n + d]['back_to_back_ms']:.3f}"
@@ -2728,7 +2773,7 @@ def batched_flagships(dev, cfg, rs, ts, index, mr) -> tuple:
           + json.dumps(runs["prefetch"][-1]), flush=True)
     # The host's share after the fetch: the cross-batch cap and rank over
     # the union of the batches' rows, each timed on its own.
-    rows = pipeline.run_matching_indexed(cfg_mb, rs, index, _defer_rank=True)
+    rows, _ = pipeline.run_matching_indexed(cfg_mb, rs, index, _defer_rank=True)
     t0 = time.perf_counter()
     capped = pipeline._apply_max_matches(cfg_mb, *(rows[:, i] for i in range(rows.shape[1])))
     t1 = time.perf_counter()
@@ -3008,7 +3053,8 @@ def mesh_ranks_phase(dev, rs, ts, mr, got, got_nd) -> dict:
 def index_build_phase(dev, ts, index, host_s: float) -> None:
     """The flagship index built on the card (device_build=True), twice:
     each must equal the host build ``index`` (built in ``host_s``) array
-    for array (skeys, the second key word, spos, num_valid); prints both
+    for array (skeys, the second key word, spos, num_valid, and tpacked,
+    the stream packed on the card); prints both
     builds' seconds and the device build's peak memory above what was
     allocated before it."""
     import numpy as np
@@ -3028,18 +3074,84 @@ def index_build_phase(dev, ts, index, host_s: float) -> None:
                          peak_gib=(torch.cuda.max_memory_allocated(dev) - base) / 2**30))
         check(dindex.num_valid == index.num_valid and torch.equal(dindex.skeys, index.skeys)
               and torch.equal(dindex.spos, index.spos)
+              and torch.equal(dindex.tpacked, index.tpacked)
               and np.array_equal(dindex.skeys2.cpu().numpy().view(np.uint32),
                                  index.host_arrays[1]),
               "the device-built index differs from the host build")
         del dindex
     torch.cuda.empty_cache()
-    print(f"index built on the card: {index.num_valid} window keys, skeys, key2 and spos "
-          f"identical to the host build (host build {host_s:.2f}s "
+    print(f"index built on the card: {index.num_valid} window keys, skeys, key2, spos and "
+          f"tpacked identical to the host build (host build {host_s:.2f}s "
           f"{json.dumps(index.build_timings)}); device builds " + json.dumps(runs),
           flush=True)
 
 
-def big_shard_phase(dev, unstaged=None) -> None:
+def random_targets(nbases: int, seed: int, dev, exact: bool = False):
+    """A TargetSet of random genes of 1,000-19,999 bases, about ``nbases``
+    in all (with ``exact``, exactly: the last gene takes the rest, or the
+    gene before it when the rest is under 1,000 bases), the codes drawn on
+    ``dev`` in pieces of 2**30 and copied to the host."""
+    import numpy as np
+    import torch
+
+    from muscato_tpu_torch.io.targets import TargetSet
+
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(1_000, 20_000, nbases // 1_000)
+    lengths = lengths[: int(np.searchsorted(np.cumsum(lengths), nbases, 'right'))]
+    rest = nbases - int(lengths.sum())
+    if exact and rest >= 1_000:
+        lengths = np.append(lengths, rest)
+    elif exact and rest:
+        lengths[-1] += rest
+    gs = np.concatenate([[0], np.cumsum(lengths)])
+    tcat = np.empty(int(gs[-1]), np.uint8)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for c0 in range(0, tcat.size, 1 << 30):
+        n = min(1 << 30, tcat.size - c0)
+        torch.from_numpy(tcat[c0:c0 + n]).copy_(
+            torch.randint(0, 4, (n,), dtype=torch.uint8, device=dev, generator=g))
+    return TargetSet(tcat=tcat, gene_start=gs, names=[b""] * len(lengths), lengths=lengths)
+
+
+def plant_big(ts, must, seed: int, bound=None):
+    """gene_subset.plant_reads of BIG_READS reads over ``ts``: GROUPS
+    groups of genes anywhere and, given a shard ``bound`` (the first gene
+    of shard 1), CROSS_PAIRS pairs and CROSS_FOURS groups of four across
+    it, no gene in two groups and none in ``must``; the other reads from
+    ``must`` and random genes, PLANTED_GENES planted genes in all."""
+    import numpy as np
+
+    from muscato_tpu_torch.bench import gene_subset
+
+    rng = np.random.default_rng(seed)
+    used = set(int(g) for g in must)
+
+    def take(pool, n):
+        """The next n genes of the iterator ``pool`` that no one took."""
+        out = []
+        while len(out) < n:
+            g = int(next(pool))
+            if g not in used:
+                out.append(g)
+                used.add(g)
+        return out
+
+    anywhere = iter(rng.permutation(ts.num_genes))
+    groups = [tuple(take(anywhere, n)) for n in GROUPS]
+    if bound is not None:
+        lo = iter(rng.permutation(bound))
+        hi = iter(bound + rng.permutation(ts.num_genes - bound))
+        groups += [(take(lo, 1)[0], take(hi, 1)[0]) for _ in range(CROSS_PAIRS)]
+        groups += [tuple(x for pair in zip(take(lo, 2), take(hi, 2)) for x in pair)
+                   for _ in range(CROSS_FOURS)]
+    ngroup = sum(len(grp) for grp in groups)
+    genes = np.concatenate([np.asarray(sorted(set(int(g) for g in must)), np.int64),
+                            take(anywhere, PLANTED_GENES - ngroup - len(set(must)))])
+    return gene_subset.plant_reads(ts, genes, BIG_READS, groups, seed=seed)
+
+
+def big_shard_phase(dev, unstaged=None) -> dict:
     """A shard of BIG_SHARD_BASES random bases built on the card by
     ``mesh.shard_targets``, as a mesh rank builds its shard: prints its
     seconds and its peak memory above what was allocated before it.  The
@@ -3049,21 +3161,26 @@ def big_shard_phase(dev, unstaged=None) -> None:
     the same targets as one card's index with its second key word, and its
     search aux built on the card: its seconds and peak memory above the
     index, its counts summing to the window count; then B9 on that aux,
-    which takes the binary mode on its own (native_binary_b9)."""
+    which takes the binary mode on its own (native_binary_b9).  The reads
+    of big_index_run_phase are planted in the genes first (plant_big: the
+    first and the last gene, the gene holding position 2**30 and more past
+    it, the longest genes).  Returns {index, ts, rs, plants} for that
+    phase."""
     import numpy as np
     import torch
 
     from muscato_tpu_torch.engine.index import DIRECT_BUCKET_WIDTH, build_target_index
-    from muscato_tpu_torch.io.targets import TargetSet
     from muscato_tpu_torch.parallel import mesh as pmesh
 
     t0 = time.perf_counter()
+    ts = random_targets(BIG_SHARD_BASES, SEED, dev)
     rng = np.random.default_rng(SEED)
-    lengths = rng.integers(1_000, 20_000, BIG_SHARD_BASES // 1_000)
-    lengths = lengths[: int(np.searchsorted(np.cumsum(lengths), BIG_SHARD_BASES, 'right'))]
-    gs = np.concatenate([[0], np.cumsum(lengths)])
-    ts = TargetSet(tcat=rng.integers(0, 4, int(gs[-1]), dtype=np.uint8), gene_start=gs,
-                   names=[b""] * len(lengths), lengths=lengths)
+    gs, lengths = ts.gene_start, ts.lengths
+    at30 = int(np.searchsorted(gs, BIG_PAST, "right")) - 1
+    must = [0, ts.num_genes - 1, at30,
+            *(at30 + 1 + rng.choice(ts.num_genes - at30 - 2, PAST_GENES - 1, replace=False)),
+            *np.argsort(lengths, kind="stable")[-LONGEST_GENES:]]
+    rs, plants = plant_big(ts, must, SEED)
     make_s = time.perf_counter() - t0
     torch.cuda.synchronize(dev)
     base = torch.cuda.memory_allocated(dev)
@@ -3089,7 +3206,8 @@ def big_shard_phase(dev, unstaged=None) -> None:
     for i in range(WIDTH):
         exp = (exp * np.uint64(0x9E3779B1) + win[:, i]) & np.uint64(0xFFFFFFFF)
     check(np.array_equal(keys, exp.astype(np.uint32)), "big shard: keys at sampled entries")
-    print(f"big shard: {int(gs[-1])} bases in {len(lengths)} genes (made in {make_s:.1f}s), "
+    print(f"big shard: {int(gs[-1])} bases in {len(lengths)} genes, {rs.num_unique} reads "
+          f"planted in {len(plants.genes)} of them (made in {make_s:.1f}s), "
           f"{index.num_valid} windows, built on the card by shard_targets in {build_s:.2f}s "
           f"{json.dumps(index.build_timings)}; peak {peak / 2**30:.2f} GiB above the "
           f"{base / 2**30:.2f} GiB allocated before, {peak / index.num_valid:.1f} bytes a "
@@ -3098,8 +3216,10 @@ def big_shard_phase(dev, unstaged=None) -> None:
     torch.cuda.empty_cache()
     # The same targets as one card's index with its second key word (a
     # single-device run's), and its search aux built on the card.
+    t0 = time.perf_counter()
     index = build_target_index(ts, WIDTH, dev, device_build=True)
     torch.cuda.synchronize(dev)
+    build_s = time.perf_counter() - t0
     base = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     aux = index.search_aux()
@@ -3113,7 +3233,8 @@ def big_shard_phase(dev, unstaged=None) -> None:
           "big index: search aux counts or bucket table")
     # At most what separate key, start and count arrays took (24 bytes a key).
     check(peak <= 33.46 * 2**30, f"big index: the aux's peak {peak / 2**30:.2f} GiB")
-    print(f"big index, search aux built on the card: {aux.mode} mode ({aux.bucket_bits} "
+    print(f"big index, built on the card in {build_s:.2f}s {json.dumps(index.build_timings)}; "
+          f"search aux built on the card: {aux.mode} mode ({aux.bucket_bits} "
           f"bucket bits), {nuniq} unique keys of {index.num_valid} windows in "
           f"{aux.build_s:.2f}s; peak {peak / 2**30:.2f} GiB above the index's "
           f"{base / 2**30:.2f} GiB, {peak / max(nuniq, 1):.1f} bytes a unique key; "
@@ -3129,8 +3250,252 @@ def big_shard_phase(dev, unstaged=None) -> None:
     del pick, rand
     native_binary_b9(f"the {int(gs[-1])}-base index, half its keys, half random pairs", aux,
                      *queries, True, unstaged)
-    del aux, index, ts, queries
+    del aux, queries
+    return dict(index=index, ts=ts, rs=rs, plants=plants)
+
+
+def counted_run(dev, fn) -> tuple:
+    """fn() with every launch counter set to 0 just before it and read
+    just after: (its result, {wall_s, launches, peak_gib: the card's peak
+    memory above what was allocated before})."""
+    import torch
+
+    for f in wrappers().values():
+        f.launches = 0
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    return out, dict(wall_s=wall, launches={k: f.launches for k, f in wrappers().items()},
+                     peak_gib=(torch.cuda.max_memory_allocated(dev) - base) / 2**30,
+                     base_gib=base / 2**30)
+
+
+def check_plants(label, mr, ts, plants, cfg, bound=None) -> dict:
+    """Each group's read reports the genes plants.best_genes gives (in
+    best mode); with a shard ``bound``, some group's genes kept span both
+    shards and some group's copy within the budget fell to best+MMTol
+    in the other shard from its best.  Returns the counts."""
+    from muscato_tpu_torch.ops.verify import mismatch_budget_table
+
+    budget = int(mismatch_budget_table(cfg.PMatch, cfg.MaxReadLength)[READ_LEN])
+    expect = plants.best_genes(budget, cfg.MMTol)
+    for row, genes in expect.items():
+        got = set(mr.gene[mr.read_row == row].tolist())
+        check(got == genes, f"{label}: read {row} reported genes {sorted(got)}, "
+              f"planted {sorted(genes)}")
+    out = dict(groups=len(expect), genes_kept=sum(len(g) for g in expect.values()))
+    if bound is not None:
+        both = dropped = 0
+        for genes, subs, row in plants.groups:
+            side = genes >= bound
+            if side.all() or not side.any():
+                continue
+            both += len({bool(g >= bound) for g in expect[row]}) == 2
+            best = side[subs.argmin()]
+            dropped += any(s <= budget and int(g) not in expect[row] and side[i] != best
+                           for i, (g, s) in enumerate(zip(genes, subs)))
+        check(both and dropped, f"{label}: cross-shard groups kept in both shards {both}, "
+              f"a copy dropped by best+MMTol across the shards {dropped}")
+        out.update(kept_in_both_shards=both, dropped_across_shards=dropped)
+    return out
+
+
+def big_index_run_phase(dev, big: dict) -> dict:
+    """Run A: BIG_READS reads planted in big_shard_phase's targets through
+    run_matching_indexed against its 1.5e9-base index (binary aux), in
+    batches of BIG_BATCH, in best mode and in first mode with MaxMatches 2
+    (a binding cap), each counted (counted_run): the probe must be the
+    binary search probe, B9 launched once a batch and every kernel of the
+    path at least once, and the MatchResult must equal gene_subset.oracle
+    (the port's CPU run over the genes reported and planted), have matches
+    in the last gene and in genes past position 2**30, and in best mode
+    report each group's genes as planted.  The capped run must differ from
+    an uncapped first-mode run on the card, which it equals unless the cap
+    cut some group's rows.  Prints each run's wall, stages, probe kind,
+    launches, matches, peak memory and the oracle's seconds (and the rows
+    the cap cut); frees the index.  Returns each kernel's launches summed
+    over the two counted runs."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from muscato_tpu_torch.bench import gene_subset
+    from muscato_tpu_torch.engine import pipeline
+
+    index, ts, rs, plants = (big.pop(k) for k in ("index", "ts", "rs", "plants"))
+    base = dataclasses.replace(config(), ReadBatch=BIG_BATCH)
+    gs = np.asarray(ts.gene_start)
+    total = dict.fromkeys(KERNELS, 0)
+    nbatch = -(-rs.num_unique // BIG_BATCH)
+    for label, cfg in (("best", base),
+                       ("first, MaxMatches 2", dataclasses.replace(
+                           base, MatchMode="first", MaxMatches=2))):
+        tm = {}
+        mr, run = counted_run(dev, lambda: pipeline.run_matching_indexed(cfg, rs, index,
+                                                                        timings=tm))
+        name = f"big index, {label}"
+        launches = run["launches"]
+        check(tm["probe_kind"] == "binary", f"{name}: probe {tm['probe_kind']}")
+        check(launches["binary_probe"] == tm["batches"] == nbatch,
+              f"{name}: B9 launched {launches['binary_probe']} times in {tm['batches']} batches")
+        check(all(launches[k] for k in BIG_PATH), f"{name}: launches {launches}")
+        check_result(mr, rs, ts, cfg)
+        t0 = time.perf_counter()
+        exp = gene_subset.oracle(cfg, rs, ts, mr.gene, plants.genes)
+        oracle_s = time.perf_counter() - t0
+        check(same_result(mr, exp), f"{name}: the MatchResult differs from the gene-subset "
+              f"oracle's ({len(mr.read_row)} against {len(exp.read_row)} matches)")
+        check(bool((mr.gene == ts.num_genes - 1).any()), f"{name}: no match in the last gene")
+        past = int((gs[mr.gene] >= BIG_PAST).sum())
+        check(past > 0, f"{name}: no match past position 2**30")
+        groups = check_plants(name, mr, ts, plants, cfg) if cfg.MatchMode == "best" else {}
+        cap = {}
+        if cfg.MaxMatches < base.MaxMatches:
+            free = pipeline.run_matching_indexed(
+                dataclasses.replace(cfg, MaxMatches=base.MaxMatches), rs, index)
+            free_rows, rows = (set(zip(*(getattr(m, f).tolist() for f in (
+                "read_row", "gene", "start", "nmiss")))) for m in (free, mr))
+            cap = dict(uncapped_matches=len(free.read_row), cap_cut_rows=len(free_rows - rows))
+            check(not same_result(mr, free), f"{name}: the cap bound no group (equal to the "
+                  f"uncapped first run's {len(free.read_row)} matches)")
+        for k in total:
+            total[k] += launches[k]
+        print(f"{name}: {len(mr.read_row)} matches of {rs.num_unique} reads against "
+              f"{int(gs[-1])} bases in {ts.num_genes} genes ({index.num_valid} windows), "
+              f"identical to the gene-subset oracle (the CPU run over "
+              f"{len(np.union1d(mr.gene, plants.genes))} genes, {oracle_s:.1f}s); "
+              f"{past} past position 2**30, in the last gene too; " + json.dumps(dict(
+                  wall_s=run["wall_s"], stages=tm["stages"], probe_kind=tm["probe_kind"],
+                  batches=tm["batches"], pairs=tm["pairs"], read_prep_s=tm["read_prep_s"],
+                  fetch_s=tm["fetch_s"], launches=launches, peak_gib=run["peak_gib"],
+                  base_gib=run["base_gib"], planted_groups=groups, **cap)), flush=True)
+    del index, ts, rs, plants
     torch.cuda.empty_cache()
+    return total
+
+
+SHARD_LINE = re.compile(r"gene shard (\d+)/(\d+) \(genes \[(\d+),(\d+)\)\): (\d+) survivors; "
+                        r"(\w+) build ([\d.]+)s, match ([\d.]+)s, probe (\w+)")
+
+
+def gene_sharded_run_phase(dev) -> dict:
+    """Run B: BIG_READS reads through pipeline.run_matching, the public
+    entry point, against SHARDED_BASES random bases (past 2**31-1, so
+    gene-range shards, 2 of them), planted (plant_big) in the first and
+    the last gene, the gene holding global position 2**31 and more past
+    it, the last gene of shard 0 and the first of shard 1, the longest
+    genes, and in groups across the shard bound.  Each shard must take the
+    device build (seen by wrapping pipeline.build_target_index, which also
+    reads each build's peak memory); each shard's build and match seconds
+    and probe kind come from its ``gene shard i/n`` log line.  The
+    MatchResult must equal gene_subset.oracle, have matches in both shards
+    and past global position 2**31, report each group's genes as planted,
+    and show groups across the bound kept in both shards and decided
+    between them by best+MMTol.  Prints those, the union's seconds (the
+    wall less the shards'), the launches (B9 once a binary shard) and the
+    run's peak memory.  Returns the launches."""
+    import logging
+
+    import numpy as np
+    import torch
+
+    from muscato_tpu_torch.bench import gene_subset
+    from muscato_tpu_torch.engine import pipeline
+
+    t0 = time.perf_counter()
+    ts = random_targets(SHARDED_BASES, SEED + 2, dev, exact=True)
+    gs = np.asarray(ts.gene_start)
+    nsh = -(-int(gs[-1]) // SHARD_BASES)
+    bounds = np.searchsorted(gs, np.linspace(0, int(gs[-1]), nsh + 1)).astype(np.int64)
+    bounds[0], bounds[-1] = 0, ts.num_genes
+    check(int(gs[-1]) == SHARDED_BASES and nsh == 2, f"sharded targets: {int(gs[-1])} bases, "
+          f"{nsh} shards")
+    b1 = int(bounds[1])
+    at31 = int(np.searchsorted(gs, SHARDED_PAST, "right")) - 1
+    rng = np.random.default_rng(SEED + 2)
+    must = [0, ts.num_genes - 1, at31, b1 - 1, b1,
+            *(at31 + 1 + rng.choice(ts.num_genes - at31 - 2, PAST_GENES - 1, replace=False)),
+            *np.argsort(ts.lengths, kind="stable")[-LONGEST_GENES:]]
+    rs, plants = plant_big(ts, must, SEED + 2, bound=b1)
+    make_s = time.perf_counter() - t0
+    cfg = config()
+
+    builds, peaks = [], []
+    real = pipeline.build_target_index
+
+    def build(sub, width, device, **kw):
+        torch.cuda.synchronize(dev)
+        peaks.append(torch.cuda.max_memory_allocated(dev))
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        index = real(sub, width, device, **kw)
+        torch.cuda.synchronize(dev)
+        peak = torch.cuda.max_memory_allocated(dev)
+        peaks.append(peak)
+        builds.append(dict(kw, bases=int(sub.gene_start[-1]), windows=index.num_valid,
+                           peak_gib=(peak - base) / 2**30, base_gib=base / 2**30,
+                           timings=index.build_timings))
+        return index
+
+    lines = []
+    handler = logging.Handler()
+    handler.emit = lambda rec: lines.append(rec.getMessage())
+    logger = logging.getLogger("muscato.pipeline")
+    level = logger.level
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    pipeline.build_target_index = build
+    try:
+        mr, run = counted_run(dev, lambda: pipeline.run_matching(cfg, rs, ts, device=dev))
+    finally:
+        pipeline.build_target_index = real
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+    peak = (max([torch.cuda.max_memory_allocated(dev), *peaks]) / 2**30
+            - run["base_gib"])
+    shards = [dict(shard=int(m[1]), of=int(m[2]), genes=[int(m[3]), int(m[4])],
+                   survivors=int(m[5]), build=m[6], build_s=float(m[7]),
+                   match_s=float(m[8]), probe_kind=m[9])
+              for m in (SHARD_LINE.match(x) for x in lines) if m]
+    check(len(shards) == nsh == len(builds)
+          and [s["genes"] for s in shards] == [[int(a), int(b)] for a, b in
+                                               zip(bounds[:-1], bounds[1:])],
+          f"sharded run: shards {shards}, builds {len(builds)}")
+    check(all(b.get("device_build") for b in builds) and all(s["build"] == "device"
+                                                             for s in shards),
+          f"sharded run: a shard took the host build {builds}")
+    launches = run["launches"]
+    kinds = [s["probe_kind"] for s in shards]
+    check(launches["binary_probe"] == kinds.count("binary")
+          and launches["direct_probe"] == kinds.count("direct") and set(kinds) <= {
+              "binary", "direct"}, f"sharded run: probes {kinds}, launches {launches}")
+    check_result(mr, rs, ts, cfg)
+    t0 = time.perf_counter()
+    exp = gene_subset.oracle(cfg, rs, ts, mr.gene, plants.genes)
+    oracle_s = time.perf_counter() - t0
+    check(same_result(mr, exp), f"sharded run: the MatchResult differs from the gene-subset "
+          f"oracle's ({len(mr.read_row)} against {len(exp.read_row)} matches)")
+    in_shard = [int((mr.gene < b1).sum()), int((mr.gene >= b1).sum())]
+    past = int((gs[mr.gene] >= SHARDED_PAST).sum())
+    check(all(in_shard) and past > 0, f"sharded run: matches a shard {in_shard}, past 2**31 "
+          f"{past}")
+    groups = check_plants("sharded run", mr, ts, plants, cfg, bound=b1)
+    union_s = run["wall_s"] - sum(s["build_s"] + s["match_s"] for s in shards)
+    print(f"gene-sharded run (pipeline.run_matching): {len(mr.read_row)} matches of "
+          f"{rs.num_unique} reads against {int(gs[-1])} bases in {ts.num_genes} genes "
+          f"(made and planted in {make_s:.1f}s), identical to the gene-subset oracle (the CPU "
+          f"run over {len(np.union1d(mr.gene, plants.genes))} genes, {oracle_s:.1f}s); "
+          + json.dumps(dict(wall_s=run["wall_s"], shards=shards, builds=builds,
+                            union_s=union_s, matches_a_shard=in_shard, past_2_31=past,
+                            launches=launches, peak_gib=peak, base_gib=run["base_gib"],
+                            planted_groups=groups)), flush=True)
+    del ts, rs, plants
+    return launches
 
 
 def skewed_index_phase(dev, unstaged) -> None:
@@ -3251,7 +3616,6 @@ def match_phases(dev, unstaged=None) -> tuple:
     print(f"index: {index.num_valid} window keys in "
           f"{host_s:.1f}s {index.build_timings}", flush=True)
     index_build_phase(dev, ts, index, host_s)
-    big_shard_phase(dev, unstaged)
     skewed_index_phase(dev, unstaged)
 
     # Parity against the full index: cuda kernels vs cpu plain twins, then
@@ -4035,6 +4399,10 @@ def main() -> int:
 
     kres = timed("kernel_phase", kernel_phase, dev, unstaged, variants, sub_variants)
     timed("bench_tool_phases", bench_tool_phases, dev)
+    big = timed("big_shard_phase", big_shard_phase, dev, unstaged)
+    launches_big = timed("big_index_run_phase", big_index_run_phase, dev, big)
+    del big
+    launches_sharded = timed("gene_sharded_run_phase", gene_sharded_run_phase, dev)
     (flag, flag_sw, flag_nd, flag_sb, flag_mb, launches_mesh, launches_search,
      match_kres, b3_replay) = timed("match_phases", match_phases, dev, unstaged)
     kres.update(match_kres)
@@ -4068,6 +4436,8 @@ def main() -> int:
          "launches_search_direct": launches_search["search_direct"][name],
          "launches_search_binary": launches_search["search_binary"][name],
          "launches_config_matrix": launches_matrix[name],
+         "launches_big_index": launches_big[name],
+         "launches_gene_sharded": launches_sharded[name],
          "max_abs_err": kres[name]["max_abs_err"], "ms": kres[name]["ms"],
          "plain_ms": kres[name]["plain_ms"], "bound_ms": kres[name]["bound_ms"],
          "bound_by": kres[name]["bound_by"], "library_ms": kres[name]["library_ms"],

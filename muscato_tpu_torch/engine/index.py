@@ -20,7 +20,7 @@ joins on key1 alone, and key1 collisions between distinct wide k-mers die
 in the byte-true verify.  ``device_build=True`` uploads the gene stream
 and computes the keys, the validity and the sort on the device
 (``_sorted_windows``, in bounded chunks and sort groups), as the JAX
-mesh builds every shard; it keeps no host copy, so ``save`` and
+mesh builds every shard, and packs the stream there too; it keeps no host copy, so ``save`` and
 ``search_aux`` read the arrays back.
 
 ``TargetIndex.save`` writes the JAX package's index file, which
@@ -573,8 +573,10 @@ def build_target_index(ts: TargetSet, width: int, device, device_build: bool = F
 
     The default host build runs the window keys and the (k1, k2, pos) sort
     on the host and uploads the sorted arrays; ``device_build=True``
-    uploads the gene stream and computes and sorts on the device
-    (``_sorted_windows``).  Both give the same skeys and spos.  A device
+    uploads the gene stream, computes and sorts on the device
+    (``_sorted_windows``) and packs the stream there
+    (``pops.pack_stream_device``).  Both give the same skeys, spos and
+    tpacked.  A device
     build with ``keep_k2=False`` (a mesh shard's) keeps no second key
     word, and then has no index file and no search aux."""
     device = torch.device(device)
@@ -594,13 +596,18 @@ def build_target_index(ts: TargetSet, width: int, device, device_build: bool = F
         _sync(device)
         t_tcat = time.perf_counter()
         skeys, skeys2, spos, nvalid = _sorted_windows(tcat, gene_start, s, width, keep_k2)
-        del tcat
         if nvalid == 0:
             skeys, spos = (torch.tensor([-1], dtype=torch.int32, device=device)
                            for _ in range(2))
             skeys2 = skeys.clone() if keep_k2 else None
         _sync(device)
         t_keys = time.perf_counter()
+        tpacked = pops.pack_stream_device(tcat, BUILD_CHUNK)
+        del tcat
+        _sync(device)
+        t_pack = time.perf_counter()
+        timings = {"device_keys_sort_s": t_keys - t_tcat, "pack_s": t_pack - t_keys,
+                   "upload_s": t_tcat - t0}
     else:
         k1, k2, sp, nvalid = _host_index_arrays(np.asarray(ts.tcat), gene_start_np, width)
         if nvalid == 0:
@@ -609,18 +616,13 @@ def build_target_index(ts: TargetSet, width: int, device, device_build: bool = F
             sp = np.array([-1], np.int32)
         host_arrays = (k1, k2, sp)
         t_keys = time.perf_counter()
-    tpacked_np = pops.pack_stream(np.asarray(ts.tcat))
-    t_pack = time.perf_counter()
-    if not device_build:
+        tpacked_np = pops.pack_stream(np.asarray(ts.tcat))
+        t_pack = time.perf_counter()
         skeys = _upload(k1, device)
         spos = _upload(sp, device)
-    tpacked = _upload(tpacked_np, device)
-    _sync(device)
-    t_up = time.perf_counter()
-    if device_build:
-        timings = {"device_keys_sort_s": t_keys - t_tcat, "pack_s": t_pack - t_keys,
-                   "upload_s": (t_tcat - t0) + (t_up - t_pack)}
-    else:
+        tpacked = _upload(tpacked_np, device)
+        _sync(device)
+        t_up = time.perf_counter()
         timings = {"host_keys_sort_s": t_keys - t0, "pack_s": t_pack - t_keys,
                    "upload_s": t_up - t_pack}
     return TargetIndex(

@@ -154,9 +154,16 @@ def run_matching_gene_sharded(cfg: Config, rs: ReadSet, ts: TargetSet,
     """Sequential gene-range sharding on one device: build and probe one
     contiguous gene-range index at a time, then run the cap, dedup and
     rank over the union.  Candidate sets are disjoint across gene ranges,
-    so the result is the single-index run's.  ``timings``, when given,
-    receives 'shards': per shard its gene range, the index build seconds
-    and the matching seconds (host clock, ending in a synchronise)."""
+    so the result is the single-index run's.  On a CUDA device each shard
+    takes the device build (``device_build=True``, as a mesh shard does,
+    with the second key word for the search aux): the host build sorts a
+    shard's 1.2e9-1.6e9 windows on the host, which takes minutes.  Each shard's index,
+    its search aux with it, is freed before the next shard's build.
+    ``timings``, when given, receives 'shards': per shard its gene range,
+    the index build seconds and the matching seconds (host clock, ending
+    in a synchronise) and its probe kind; the log's ``gene shard i/n``
+    line gives the same."""
+    device_build = torch.device(device).type == "cuda"
     bounds = np.searchsorted(
         np.asarray(ts.gene_start),
         np.linspace(0, int(ts.gene_start[-1]), nshards + 1),
@@ -169,17 +176,21 @@ def run_matching_gene_sharded(cfg: Config, rs: ReadSet, ts: TargetSet,
         if hi <= lo:
             continue
         t0 = time.perf_counter()
-        index = build_target_index(gene_range(ts, lo, hi), cfg.WindowWidth, device)
+        index = build_target_index(gene_range(ts, lo, hi), cfg.WindowWidth, device,
+                                   device_build=device_build)
         t1 = time.perf_counter()
-        rows = run_matching_indexed(cfg, rs, index, _defer_rank=True)
+        rows, kind = run_matching_indexed(cfg, rs, index, _defer_rank=True)
         del index
+        t2 = time.perf_counter()
         rows[:, 1] += lo  # shard-local gene -> global gene
         parts.append(rows)
-        shard_times.append(dict(genes=[lo, hi], build_s=t1 - t0,
-                                match_s=time.perf_counter() - t1))
+        shard_times.append(dict(genes=[lo, hi], build_s=t1 - t0, match_s=t2 - t1,
+                                probe_kind=kind))
         logger.info(
-            "gene shard %d/%d (genes [%d,%d)): %d survivors",
-            si + 1, nshards, lo, hi, len(rows),
+            "gene shard %d/%d (genes [%d,%d)): %d survivors; %s build %.2fs, "
+            "match %.2fs, probe %s",
+            si + 1, nshards, lo, hi, len(rows), "device" if device_build else "host",
+            t1 - t0, t2 - t1, kind,
         )
     if timings is not None:
         timings["shards"] = shard_times
@@ -435,8 +446,8 @@ def run_matching_indexed(cfg: Config, rs: ReadSet, index: TargetIndex,
     none on the CPU, where the plain twins run).  It logs them all after
     the loop, so that the clock waits for the device once and adds no
     sync to the loop.  _defer_rank returns the raw (N, NCOL) rows, ranked
-    per batch with every column, instead of the MatchResult (gene-range
-    sharding ranks the union of its shards).
+    per batch with every column, and the probe kind instead of the
+    MatchResult (gene-range sharding ranks the union of its shards).
 
     timings, when given, receives per-stage seconds under 'stages' (probe,
     expand_verify, rank; CUDA-event device time on a GPU), the host
@@ -604,8 +615,8 @@ def run_matching_indexed(cfg: Config, rs: ReadSet, index: TargetIndex,
 
     if _defer_rank:
         if not fetched:
-            return np.zeros((0, fused.NCOL), dtype=np.int32)
-        return np.concatenate(fetched)
+            return np.zeros((0, fused.NCOL), dtype=np.int32), kind
+        return np.concatenate(fetched), kind
     if not fetched:
         z = np.zeros(0, dtype=np.int32)
         return MatchResult(z, z, z, z)

@@ -103,6 +103,21 @@ def pack_stream(tcat: np.ndarray) -> np.ndarray:
     return np.sum(arr << shifts[None, :], axis=1, dtype=np.uint32)
 
 
+def pack_stream_device(tcat: torch.Tensor, chunk: int) -> torch.Tensor:
+    """``pack_stream`` of the (S,) uint8 codes ``tcat`` (values < 16) as
+    int32 bit patterns, computed on tcat's device ``chunk`` bases (rounded
+    down to whole words) at a time."""
+    s = tcat.shape[0]
+    out = torch.zeros(packed_width(max(s, 1)) + STREAM_PAD_WORDS, dtype=torch.int32,
+                      device=tcat.device)
+    step = max(BASES_PER_WORD, chunk // BASES_PER_WORD * BASES_PER_WORD)
+    for c0 in range(0, s, step):
+        words = pack_rows(tcat[c0 : c0 + step][None])[0]
+        w0 = c0 // BASES_PER_WORD
+        out[w0 : w0 + words.shape[0]] = words
+    return out
+
+
 # ---- Row-gather target view -------------------------------------------
 #
 # trows[i] = tpacked[8*i : 8*i + nwords + 9]: one row per 64 stream

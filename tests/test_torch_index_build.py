@@ -19,6 +19,7 @@ from muscato_tpu_torch.bench import gendat as tgendat
 from muscato_tpu_torch.engine import index as tindex
 from muscato_tpu_torch.engine import pipeline as tpipeline
 from muscato_tpu_torch.io.targets import TargetSet
+from muscato_tpu_torch.ops import packed as tpacked
 from muscato_tpu_torch.ops import windows as twindows
 
 
@@ -193,3 +194,15 @@ def test_window_functions_match_jax(width, mult):
         assert got.dtype == torch.int32
         np.testing.assert_array_equal(got.numpy(), exp)
 
+
+
+@pytest.mark.parametrize("nbases", [0, 1, 7, 8, 9, 1000, 4099])
+@pytest.mark.parametrize("chunk", [8, 24, 97, 1 << 25])
+def test_pack_stream_device_matches_host(nbases, chunk):
+    """The device build's stream packing, in chunks of whole words (a
+    chunk of 97 bases packs 96 at a time) and a partial last word, gives
+    the host pack_stream's words and tail padding, codes 0-15 included."""
+    codes = np.random.default_rng(nbases).integers(0, 16, nbases).astype(np.uint8)
+    got = tpacked.pack_stream_device(torch.from_numpy(codes), chunk)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), tpacked.pack_stream(codes))
