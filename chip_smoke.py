@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (muscato_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --stream-cell  # the streaming flagship alone
 
 Run from the root of a checkout.  It builds the ten CUDA kernels from
 muscato_tpu_torch/csrc with nvcc (one process per source, in parallel),
@@ -89,7 +90,18 @@ cut), all at once, then:
      reports and the planted ones, with B9 launched once a batch (once a
      shard), matches past 2**30 (2**31) and in both shards; each run's
      wall, stages, launches, peak memory and each shard's build and match
-     seconds are printed;
+     seconds are printed; then W2 (world_w2_phase): run B's gene set,
+     named and written as prepared gene files, and 524,288 reads planted
+     in it (across the mesh's shard bound too) written as fastq, through
+     two muscato_torch processes on the card (gloo, Coordinator,
+     ProcessCount, ProcessIndex; run_world), Mesh auto: the driver must
+     take two index shards (dp=1 mp=2) of more than 2**30 bases, one
+     built on the card by each rank, and rank 0's results rows must equal
+     the port's CPU run over the genes reported and planted, with matches
+     in both shards and past position 2**31; each rank's read prep must
+     parse its own byte range, its default path's kernels must launch,
+     and its build seconds, peak reserved memory, the card's used memory
+     after both builds and its mesh timings are printed;
   4. builds the flagship index on the card (device_build=True, twice),
      each equal to the host build array for array, with both builds'
      times and the device build's peak memory; then B9 on a
@@ -135,7 +147,10 @@ cut), all at once, then:
      then B3's calls of the default and the streaming profile replayed
      through both builds in turns;
      then times the probe stage of the flagship
-     batch with B5 and with its plain twin, in turns, and with each probe
+     batch with B5 and with its plain twin, in turns, both probes (the
+     sorted join and the sort-merge probe) with their int32 (inactive, lo)
+     key and with the int64 key they take from fused.PACKED_LO_LIMIT index
+     windows on, in turns, and each probe
      against small sorted prefixes of the index; then matches the 100k
      reads of step 3 through probe="search" in direct mode and in binary
      mode (forced by lowering engine.index.MAX_DIRECT_BITS while the aux
@@ -193,7 +208,11 @@ cut), all at once, then:
      IndexFile that it saves, with the
      same IndexFile that it loads, and with ResumeDir set to the saving
      run's kept TempDir: each run's four files must equal the first's;
-     then the config matrix (config_matrix_phase): the settings of
+     then W1 (world_w1_phase): the same files through two muscato_torch
+     processes on the card under Mesh auto (read parallelism, dp=2 mp=1)
+     and Mesh=1x2 (two shards), rank 0's four report files byte-identical
+     to the plain run's, rank 1 writing none, each world's wall printed
+     beside the plain run's; then the config matrix (config_matrix_phase): the settings of
      muscato_tpu_torch/bench/config_matrix.py beyond the flagship's, each
      run whole on the card and held to the CPU run of the same inputs
      (the reference's test setting, windows 0,5 at width 4 with PMatch 1
@@ -231,7 +250,8 @@ flagship, B6's from its switched run; launches_scale_run: the second scale
 run's; launches_config_matrix: summed over the config matrix's runs;
 launches_big_index: summed over the two runs against the 1.5e9-base
 index; launches_gene_sharded: the run over two gene-range shards;
-long_read_routes_ms for B7 and B10); the last line
+launches_world: summed over every rank of W1's and W2's worlds, from
+each rank's log; long_read_routes_ms for B7 and B10); the last line
 is {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero
 and prints no result.
 """
@@ -368,6 +388,23 @@ PLANTED_GENES = 1024
 PAST_GENES, LONGEST_GENES = 128, 16  # planted genes past 2**30 (2**31 in B), longest ones
 GROUPS = (2, 3, 4) * 16  # the sizes of the groups planted anywhere
 CROSS_PAIRS, CROSS_FOURS = 32, 16  # groups across the shard bound (two of four each side)
+# Worlds of WORLD_RANKS processes of the muscato_torch entry point, each rank
+# started as a user starts one (the driver's flags plus -Coordinator,
+# -ProcessCount, -ProcessIndex and -device=cuda), on the one card with gloo
+# (NCCL refuses two ranks on one device): W1 on driver_phase's files under
+# Mesh auto (read parallelism) and Mesh=1x2, W2 on SHARDED_BASES bases under
+# Mesh auto (two index shards).  Each rank has WORLD_TIMEOUT seconds.
+WORLD_RANKS = 2
+WORLD_TIMEOUT = 600
+WORLD_CHILD = "import sys; from muscato_tpu_torch import cli; sys.exit(cli.main_muscato(sys.argv[1:]))"
+LAUNCH_LINE = re.compile(r"kernel launches over (\d+) batches: (.*)")
+SHARD_BUILT = re.compile(
+    r"mesh shard (\d+) of (\d+) \(genes \[(\d+),(\d+)\)\): (\d+) bases -> (\d+) window keys "
+    r"built on (\S+) in ([\d.]+)s; peak reserved ([\d.]+) GiB, card used ([\d.]+) of ([\d.]+) GiB")
+# The driver's host stages, by the head of the log line that ends "in <s>s".
+HOST_STAGES = {"prep": "prepared reads: ", "targets": "loaded ", "report": "wrote "}
+PREP_RANGE = re.compile(r"range-sharded read prep: rank (\d+) of (\d+) parsed bytes \[(\d+),(\d+)\) "
+                        r"of (\d+): (\d+) reads, (\d+) unique")
 # B9 where the binary mode is the fallback for skewed keys: an AT-rich
 # genome (codes A, C, G, T drawn 4:1:1:4, as in AT-rich genomes such as
 # Plasmodium's) indexed at the widest width whose keys are the windows'
@@ -544,7 +581,13 @@ def call_work(kernel: str, args, kw) -> tuple:
     count once however often they are fetched, and only those this call's
     data touches.  Operations: what the function does, whatever the
     kernel:
-      sorted_join       two binary searches a query: 2 ceil(log2 V) compares;
+      sorted_join       B1's searches replayed on this call's data
+                        (join_replay): a subtract, a shift, an add, a
+                        compare and two selects a read of the index.  Its
+                        bytes: the distinct 32-byte sectors of the index
+                        those searches read (at most the whole index,
+                        which dense queries touch; sparse ones touch far
+                        less), the queries and the two outputs;
       expand_owners     a compare a slot that owns lanes; a compare and two
                         adds a lane;
       monotone_gather   the clamp's two compares a lane (B4: a row);
@@ -637,8 +680,8 @@ def call_work(kernel: str, args, kw) -> tuple:
                 bases * (1 + int(winops.uses_second_key(width)) + dinuc),
                 bases * (1 + 2 * dinuc) + 3 * k * r)
     if kernel == "sorted_join":
-        v, q = args[0].numel(), args[1].numel()
-        return 4 * (v + 3 * q), 0, 2 * q * max(v - 1, 1).bit_length()
+        sectors, reads = join_replay(*args)
+        return 32 * sectors + 12 * args[1].numel(), 0, 6 * reads
     if kernel.startswith("expand_owners"):
         # The slots that own lanes have distinct oexcl values.
         owners, cap = torch.unique(args[0]).numel(), kw["pair_cap"]
@@ -677,6 +720,88 @@ def binary_replay(args, kw) -> tuple:
     at = lo.clamp(max=n - 1)
     hit = validf & (lo < n) & (ent(at) == key)
     return torch.cat(read + [at]), at[hit], rounds
+
+
+JOIN_TILE = 512  # B1's queries a CTA (kJoinTile, csrc/join.cu)
+
+
+def join_replay(skeys, qkeys) -> tuple:
+    """B1's searches replayed on one call's data, as csrc/join.cu makes
+    them: each tile of JOIN_TILE queries finds L = lower_bound(its min)
+    and H = upper_bound(its max) by a warp's 32-ary search of the whole
+    index (search.cuh), then each query its lower bound by bisection of
+    [L, H) and its upper bound by galloping from there, then bisection.
+    Checks the bounds it finds against the plain twin's.  Returns (the
+    distinct 32-byte sectors of the index those searches read, whether a
+    tile then stages its span or not, and the reads they make)."""
+    import torch
+
+    from muscato_tpu_torch.ops import join
+
+    k, q = join.flip(skeys), join.flip(qkeys)  # signed order: the keys' unsigned order
+    v, m, dev = k.numel(), q.numel(), k.device
+    head = skeys.data_ptr() % 32 // 4  # the index's first word in its sector
+    touched = torch.zeros((head + v + 7) // 8, dtype=torch.bool, device=dev)
+    reads = 0
+
+    def read(at):
+        nonlocal reads
+        touched[(at + head) >> 3] = True
+        reads += at.numel()
+        return k[at]
+
+    # Each tile's L (its min, not strict) and H (its max, strict).
+    t = -(-m // JOIN_TILE)
+    tiles = lambda fill: torch.cat([q, q.new_full((t * JOIN_TILE - m,), fill)]).view(t, -1)  # noqa: E731
+    x = torch.cat([tiles(2**31 - 1).amin(1), tiles(-2**31).amax(1)])[:, None]
+    strict = (torch.arange(2 * t, device=dev) >= t)[:, None]
+    above = lambda kv, x, strict: torch.where(strict, kv > x, kv >= x)  # noqa: E731
+    lo = torch.zeros(2 * t, dtype=torch.int64, device=dev)
+    hi = torch.full_like(lo, v)
+    lanes = torch.arange(1, 32, device=dev)
+    while bool(((hi - lo) > 32).any()):
+        act = (hi - lo) > 32
+        a, b = lo[act], hi[act]
+        piv = torch.cat([a[:, None] + (b - a)[:, None] * lanes // 32, b[:, None]], 1)
+        hit = torch.ones(piv.shape, dtype=torch.bool, device=dev)  # lane 31: hi
+        hit[:, :31] = above(read(piv[:, :31].flatten()).view(-1, 31), x[act], strict[act])
+        first = hit.to(torch.int32).argmax(1)[:, None]
+        lo[act] = torch.where(first[:, 0] > 0, piv.gather(1, (first - 1).clamp(min=0))[:, 0] + 1, a)
+        hi[act] = piv.gather(1, first)[:, 0]
+    at = lo[:, None] + torch.arange(32, device=dev)
+    inside = at < hi[:, None]
+    hit = torch.zeros(at.shape, dtype=torch.bool, device=dev)
+    hit[inside] = above(read(at[inside]), x.expand(at.shape)[inside],
+                        strict.expand(at.shape)[inside])
+    bound = torch.where(hit.any(1), lo + hit.to(torch.int32).argmax(1), hi)
+    tile = torch.arange(m, device=dev) // JOIN_TILE
+    top = bound[t:][tile]
+
+    def bisect(lo, hi, right_of):
+        while bool((lo < hi).any()):
+            act = lo < hi
+            mid = lo + ((hi - lo) >> 1)
+            right = torch.zeros_like(act)
+            right[act] = right_of(read(mid[act]), q[act])
+            lo, hi = torch.where(right, mid + 1, lo), torch.where(act & ~right, mid, hi)
+        return lo
+
+    first = bisect(bound[:t][tile], top, lambda kv, qv: kv < qv)
+    lo, hi, gal, step = first, top, first < top, 1
+    while bool(gal.any()):
+        probe = lo + step - 1
+        gal &= probe < hi
+        over = torch.zeros_like(gal)
+        over[gal] = read(probe[gal]) > q[gal]
+        hi = torch.where(over, probe, hi)
+        lo = torch.where(gal & ~over, probe + 1, lo)
+        gal &= ~over & (lo < hi)
+        step <<= 1
+    last = bisect(lo, hi, lambda kv, qv: kv <= qv)
+    exp_lo, exp_cnt, _ = join.sorted_join_torch(skeys, qkeys)
+    check(torch.equal(first, exp_lo.long()) and torch.equal(last - first, exp_cnt.long()),
+          "join_replay: the replayed searches' bounds differ from the twin's")
+    return int(touched.sum()), reads
 
 
 def sector_ids(first, nbytes):
@@ -790,9 +915,10 @@ def time_ms(fn, reps: int = 5, inner: int = 1) -> float:
 def measure_case(name, fn, twin, library, work, shapes) -> dict:
     """A kernel's numbers at one shape: exact against its twin, its time
     (one call, and back to back), host time a call, the twin's and the
-    library call's times, and its bounds."""
+    library call's times, and its bounds, which must lie below its
+    times."""
     got, exp = fn(), twin()
-    return dict(
+    out = dict(
         max_abs_err=_compare(name, got, exp), ms=time_ms(fn),
         back_to_back_ms=time_ms(fn, inner=10), host_ms=host_ms(fn),
         plain_ms=time_ms(twin),
@@ -800,6 +926,9 @@ def measure_case(name, fn, twin, library, work, shapes) -> dict:
         library_back_to_back_ms=time_ms(library, inner=10) if library else None,
         **bounds(work), shapes=shapes,
     )
+    check(out["bound_ms"] < min(out["ms"], out["back_to_back_ms"]),
+          f"{name} at {shapes}: a bound of {out['bound_ms']:.4f} ms above its time")
+    return out
 
 
 def _compare(name, got, exp) -> float:
@@ -2282,6 +2411,41 @@ def probe_ab(dev, cfg, rs, index) -> dict:
     return out
 
 
+def lo_key_ab(dev, cfg, rs, index) -> dict:
+    """Both probes' stage on the flagship batch, the sorted join and the
+    sort-merge probe (MUSCATO_PJOIN=0), with the int32 (inactive, lo)
+    compaction key that they sort below fused.PACKED_LO_LIMIT index
+    windows and with the int64 key that they sort from there on (the limit
+    set to 0 here), in turns (int32, int64, int64, int32, int32, int64):
+    CUDA-event ms each, once the two keys' Probes are found equal."""
+    import torch
+
+    from muscato_tpu_torch.engine import pipeline
+    from muscato_tpu_torch.ops import fused
+
+    l_eff = int(rs.lengths.max())
+    rpacked, lengths = pipeline._device_read_batch(rs, 0, BATCH, l_eff, dev)
+    limits = {"int32": fused.PACKED_LO_LIMIT, "int64": 0}
+    out = {}
+    for probe, impl in (("sorted_join", fused._probe_windows_pjoin_impl),
+                        ("sort_merge", fused._probe_windows_impl)):
+        run = lambda: impl(rpacked, lengths, tuple(cfg.Windows), index.skeys,  # noqa: E731
+                           width=cfg.WindowWidth, min_dinuc=cfg.MinDinuc)
+        times, first = {arm: [] for arm in limits}, {}
+        try:
+            for arm in ("int32", "int64", "int64", "int32", "int32", "int64"):
+                fused.PACKED_LO_LIMIT = limits[arm]
+                if arm not in first:
+                    first[arm] = run()
+                times[arm].append(time_ms(run, reps=3))
+        finally:
+            fused.PACKED_LO_LIMIT = limits["int32"]
+        check(all(torch.equal(a, b) for a, b in zip(first["int32"], first["int64"])),
+              f"{probe} probe: the int64 key's Probe differs from the int32 key's")
+        out[probe] = times
+    return out
+
+
 def probe_small_index(dev, cfg, rs, index) -> dict:
     """Probe stage of the flagship batch against a sorted prefix of the
     index far smaller than the K x R queries, where the sort-merge probe
@@ -3733,6 +3897,9 @@ def match_phases(dev, unstaged=None) -> tuple:
 
     ab = probe_ab(dev, cfg, rs, index)
     print("probe stage A/B (ms, flagship batch): " + json.dumps(ab), flush=True)
+    lo_ab = lo_key_ab(dev, cfg, rs, index)
+    print("probe stage, (inactive, lo) key A/B (ms, flagship batch): " + json.dumps(lo_ab),
+          flush=True)
     small = probe_small_index(dev, cfg, rs, index)
     print(f"probe stage against a small index (ms, flagship batch, "
           f"K x R = {len(WINDOWS) * BATCH} queries): " + json.dumps(small), flush=True)
@@ -3789,12 +3956,14 @@ def report_files(results: str) -> dict:
             "genestats": report._stats_path(results, "genestats")}
 
 
-def driver_phase(dev) -> None:
+def driver_phase(dev) -> dict:
     """The muscato_torch entry point on gendat files (full index size,
     DRIVER_READS reads) prepared by prep_targets; then a run that saves an
     IndexFile and keeps its TempDir, a run that loads that file, and a run
     that resumes from the kept TempDir, whose report files must each be
-    byte-identical to the first run's."""
+    byte-identical to the first run's.  Returns {work, reads, seq, ids,
+    plain, wall_s}: the directory of the files (the caller removes it),
+    their paths, and the first run's report bytes and seconds."""
     from muscato_tpu_torch.bench import gendat
     from muscato_tpu_torch.io import targets
     from muscato_tpu_torch import cli
@@ -3862,8 +4031,292 @@ def driver_phase(dev) -> None:
               f"({os.path.getsize(index_file)} bytes), loading run {t_load:.1f}s, "
               f"ResumeDir run {t_resume:.1f}s; all four report files of each "
               f"byte-identical to the plain run's", flush=True)
+        return dict(work=work, reads=reads, seq=seq, ids=ids, plain=plain, wall_s=t_plain)
+    except BaseException:
+        shutil.rmtree(work, ignore_errors=True)
+        raise
+
+
+def run_world(work: str, tag: str, cfg, want: str) -> dict:
+    """One world of WORLD_RANKS processes of the muscato_torch entry point
+    on the card, each started as a user starts a rank: ``cfg`` (saved as
+    its config file, with the rank's own ResultsFileName and LogDir) and
+    -Coordinator=localhost:<port> -ProcessCount -ProcessIndex -device=cuda,
+    with MUSCATO_DIST_BACKEND=gloo and MUSCATO_STAGE_TIMES=1, LOCAL_RANK
+    unset (both ranks take cuda:0).  A rank that exits non-zero or passes
+    WORLD_TIMEOUT fails the phase (wait_ranks); nothing falls back to one
+    process or to the CPU.  Every rank must log its place in the gloo
+    world, the mesh ``want`` ("dp=D mp=M"), the range-sharded read prep of
+    its own byte range of the read file and its kernel launches, which
+    must include every kernel of the default path; rank 0 alone writes the
+    report files.  Returns {wall_s, ranks: each rank's {rank, prep (its
+    range, reads and uniques), host_s (HOST_STAGES' seconds from its log),
+    launches, timings (the mesh's), shard (its build line's numbers),
+    done_s (rank 0)}, results: rank 0's report file paths}."""
+    import dataclasses
+    import subprocess as sp
+
+    from muscato_tpu_torch.bench.scaling import free_port
+
+    port = free_port()
+    env = {k: v for k, v in os.environ.items() if k != "LOCAL_RANK"}
+    env.update(MUSCATO_DIST_BACKEND="gloo", MUSCATO_STAGE_TIMES="1")
+    procs, logs, cfgs = [], [], []
+    try:
+        t0 = time.perf_counter()
+        for r in range(WORLD_RANKS):
+            rc = dataclasses.replace(
+                cfg, ResultsFileName=os.path.join(work, f"{tag}_rank{r}.txt"),
+                LogDir=os.path.join(work, f"logs_{tag}_rank{r}"),
+                TempDir=os.path.join(work, f"tmp_{tag}"))
+            path = os.path.join(work, f"{tag}_rank{r}.json")
+            rc.save(path)
+            cfgs.append(rc)
+            logs.append(os.path.join(work, f"{tag}_rank{r}.log"))
+            with open(logs[r], "w") as log:
+                procs.append(sp.Popen(
+                    [sys.executable, "-c", WORLD_CHILD, f"-ConfigFileName={path}",
+                     f"-Coordinator=localhost:{port}", f"-ProcessCount={WORLD_RANKS}",
+                     f"-ProcessIndex={r}", "-device=cuda"],
+                    stdout=log, stderr=sp.STDOUT, env=env, cwd=ROOT))
+        wait_ranks(procs, logs, WORLD_TIMEOUT)
+        wall = time.perf_counter() - t0
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    size = os.path.getsize(cfg.ReadFileName)
+    ranks = []
+    for r, rc in enumerate(cfgs):
+        (run_id,) = os.listdir(rc.LogDir)
+        main_log = [m for _, m in _log_entries(os.path.join(rc.LogDir, run_id, "muscato.log"))]
+        screen = [m for _, m in _log_entries(os.path.join(rc.LogDir, run_id,
+                                                          "muscato_screen.log"))]
+        label = f"world {tag}, rank {r}"
+        check(f"process group: rank {r} of {WORLD_RANKS} (gloo)" in main_log,
+              f"{label}: no gloo process group in its log")
+        check(f"mesh run: {want}, rank {r}" in main_log, f"{label}: not a {want} mesh run: "
+              f"{[m for m in main_log if m.startswith('mesh run')]}")
+        (prep,) = [PREP_RANGE.match(m) for m in main_log if PREP_RANGE.match(m)]
+        lo, hi = r * size // WORLD_RANKS, (r + 1) * size // WORLD_RANKS
+        check([int(x) for x in prep.groups()[:5]] == [r, WORLD_RANKS, lo, hi, size],
+              f"{label}: read prep {prep.group(0)}, not bytes [{lo},{hi}) of {size}")
+        (shard,) = [SHARD_BUILT.match(m) for m in main_log if SHARD_BUILT.match(m)]
+        (launch,) = [LAUNCH_LINE.match(m) for m in screen if LAUNCH_LINE.match(m)]
+        launches = {k: int(v) for k, v in (kv.split("=") for kv in launch.group(2).split())}
+        check(all(launches[k] > 0 for k in DEFAULT_PATH),
+              f"{label}: a kernel of the default path never launched: {launches}")
+        (timings,) = [json.loads(m.split(": ", 1)[1]) for m in screen
+                      if m.startswith("mesh timings over ")]
+        wrote = os.path.exists(rc.ResultsFileName)
+        check(wrote == (r == 0), f"{label}: wrote report files: {wrote}")
+        done = [float(m.split()[2][:-1]) for m in main_log if m.startswith("done in ")]
+        host = {k: float(m.rsplit(" in ", 1)[1][:-1]) for k, head in HOST_STAGES.items()
+                for m in main_log if m.startswith(head)}
+        check(bool(done) == (r == 0) and (r == 0 or "non-primary process: rank and report "
+                                         "ran on rank 0" in main_log),
+              f"{label}: its log's end {main_log[-2:]}")
+        ranks.append(dict(
+            rank=r, prep=dict(bytes=[lo, hi], reads=int(prep.group(6)),
+                              unique=int(prep.group(7))),
+            shard=dict(m=int(shard.group(1)), genes=[int(shard.group(3)), int(shard.group(4))],
+                       bases=int(shard.group(5)), windows=int(shard.group(6)),
+                       build_s=float(shard.group(8)), peak_reserved_gib=float(shard.group(9)),
+                       card_used_gib=float(shard.group(10))),
+            host_s=host, launches=launches, timings=timings, done_s=done[0] if done else None))
+    return dict(wall_s=wall, ranks=ranks, results=report_files(cfgs[0].ResultsFileName))
+
+
+def world_w1_phase(dev, drv: dict) -> dict:
+    """W1: driver_phase's files (the flagship's genes, DRIVER_READS reads)
+    through two worlds of WORLD_RANKS muscato_torch processes on the card
+    (run_world): Mesh auto, which must take read parallelism (dp=2 mp=1,
+    each rank building the whole index on the card), and Mesh=1x2 (two
+    gene-range shards and the mp all-gather).  In each, rank 0's four
+    report files must be byte-identical to driver_phase's single-process
+    run's.  Prints each world's wall beside that run's and each rank's
+    figures; returns each kernel's launches summed over both worlds'
+    ranks."""
+    total = dict.fromkeys(KERNELS, 0)
+    for mesh, want in (("auto", "dp=2 mp=1"), ("1x2", "dp=1 mp=2")):
+        cfg = config()
+        cfg.ReadFileName, cfg.GeneFileName, cfg.GeneIdFileName = drv["reads"], drv["seq"], drv["ids"]
+        cfg.Mesh = mesh
+        world = run_world(drv["work"], f"w1_{mesh}", cfg, want)
+        for k, p in world["results"].items():
+            with open(p, "rb") as f:
+                check(f.read() == drv["plain"][k], f"W1, Mesh={mesh}: rank 0's {k} file "
+                      "differs from the single-process run's")
+        for rk in world["ranks"]:
+            for k in total:
+                total[k] += rk["launches"][k]
+        print(f"W1, Mesh={mesh} ({want}), {WORLD_RANKS} muscato_torch processes on the card "
+              f"(gloo): rank 0's four report files byte-identical to the single-process "
+              f"run's; world wall {world['wall_s']:.1f}s beside the single-process run's "
+              f"{drv['wall_s']:.1f}s ({world['wall_s'] / drv['wall_s']:.2f}x); ranks "
+              + json.dumps(world["ranks"]), flush=True)
+    return total
+
+
+def write_prepared_targets(ts, work: str, tag: str) -> tuple:
+    """``ts`` as a prepared gene file and id file (the format prep_targets
+    writes: one sequence a line; "%011d<TAB>name<TAB>length" a line),
+    uncompressed, which the driver reads as it reads the .sz files (a
+    snappy stream of 2.4e9 bases would add about 30 s of codec time on
+    the host); returns their paths."""
+    import numpy as np
+
+    from muscato_tpu_torch.io import seqcodec
+
+    seq = os.path.join(work, f"musc_{tag}.txt")
+    ids = os.path.join(work, f"musc_ids_{tag}.txt")
+    gs = np.asarray(ts.gene_start)
+    with open(seq, "wb") as f:
+        for c0 in range(0, ts.num_genes, 4096):
+            c1 = min(c0 + 4096, ts.num_genes)
+            letters = seqcodec.decode(ts.tcat[gs[c0]:gs[c1]])
+            f.write(b"\n".join(letters[a:b] for a, b in zip(gs[c0:c1] - gs[c0],
+                                                             gs[c0 + 1:c1 + 1] - gs[c0])))
+            f.write(b"\n")
+    with open(ids, "wb") as f:
+        f.write(b"".join(b"%011d\t%s\t%d\n" % (i, n, ln)
+                         for i, (n, ln) in enumerate(zip(ts.names, ts.lengths))))
+    return seq, ids
+
+
+def world_w2_phase(dev) -> dict:
+    """W2: SHARDED_BASES random bases (random_targets, seed SEED + 2, run
+    B's gene set) with gene names, written as prepared gene and id files,
+    and BIG_READS reads planted by plant_big (in the first and the last
+    gene, the gene holding position 2**31 and more past it, the genes on
+    both sides of the mesh's shard bound, shard_bounds(ts, 2), the longest
+    genes, and groups across that bound), written as fastq, through a world
+    of WORLD_RANKS muscato_torch processes on the card (run_world) under
+    Mesh auto, best mode, MaxMatches 1,000,000: the driver must take two
+    index shards (dp=1 mp=2), each rank building its own, past 2**30
+    bases, on the card and running B5 and B1 against it.  Rank 0's
+    results.txt must equal, row for row in its first six columns, the
+    report rows of gene_subset.oracle (the port's CPU run over the genes
+    reported and planted) over the driver's ReadSet of the fastq, with
+    matches in both shards and past position 2**31, and some group across
+    the bound reported on both sides.  Prints each rank's build seconds,
+    peak reserved memory and the card's used memory after the builds, its
+    mesh timings and the world's wall; then B1 at rank 0's shape
+    (shard_join_case).  Returns {launches: each kernel's launches summed
+    over the ranks, sorted_join: that case's numbers}."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from muscato_tpu_torch.bench import gene_subset
+    from muscato_tpu_torch.bench.gendat import _fastq_blob
+    from muscato_tpu_torch.engine import report
+    from muscato_tpu_torch.io import reads as reads_io
+    from muscato_tpu_torch.io import seqcodec
+    from muscato_tpu_torch.io.seqcodec import _C2B
+    from muscato_tpu_torch.parallel import mesh as pmesh
+
+    work = tempfile.mkdtemp(prefix="muscato_chip_smoke_w2_")
+    try:
+        t0 = time.perf_counter()
+        ts = random_targets(SHARDED_BASES, SEED + 2, dev, exact=True)
+        torch.cuda.empty_cache()  # the ranks share this card's memory
+        gs = np.asarray(ts.gene_start)
+        ts.names = [b"w2_%07d" % i for i in range(ts.num_genes)]
+        bound = pmesh.shard_bounds(ts, WORLD_RANKS)[1]
+        at31 = int(np.searchsorted(gs, SHARDED_PAST, "right")) - 1
+        rng = np.random.default_rng(SEED + 2)
+        must = [0, ts.num_genes - 1, at31, bound - 1, bound,
+                *(at31 + 1 + rng.choice(ts.num_genes - at31 - 2, PAST_GENES - 1,
+                                        replace=False)),
+                *np.argsort(ts.lengths, kind="stable")[-LONGEST_GENES:]]
+        rs, plants = plant_big(ts, must, SEED + 2, bound=bound)
+        seq, ids = write_prepared_targets(ts, work, "w2genes")
+        fastq = os.path.join(work, "w2_reads.fastq")
+        check(set(rs.lengths.tolist()) == {READ_LEN}, "W2: reads of other lengths")
+        with open(fastq, "wb") as f:
+            f.write(_fastq_blob(_C2B[rs.codes[:, :READ_LEN]], 0).tobytes())
+        make_s = time.perf_counter() - t0
+        cfg = dataclasses.replace(config(), ReadFileName=fastq, GeneFileName=seq,
+                                  GeneIdFileName=ids, Mesh="auto")
+        world = run_world(work, "w2", cfg, f"dp=1 mp={WORLD_RANKS}")
+        for rk in world["ranks"]:
+            check(rk["shard"]["bases"] > 1 << 30, f"W2, rank {rk['rank']}: a shard of "
+                  f"{rk['shard']['bases']} bases")
+        genes_of = {n: i for i, n in enumerate(ts.names)}
+        results = world["results"]["results"]
+        got = result_prefixes(results)
+        named = np.unique([genes_of[row.split(b"\t")[4]] for row in got])
+        t0 = time.perf_counter()
+        rs_drv = reads_io.build_readset(fastq, cfg.MinReadLength, cfg.MaxReadLength)
+        exp = gene_subset.oracle(cfg, rs_drv, ts, named, plants.genes)
+        oracle_s = time.perf_counter() - t0
+        exp_path = os.path.join(work, "w2_oracle.txt")
+        report.write_results(exp_path, exp, rs_drv, ts)
+        check(got == result_prefixes(exp_path), f"W2: rank 0's results.txt ({len(got)} rows) "
+              f"differs from the gene-subset oracle's ({len(exp.read_row)} matches)")
+        gene = np.asarray([genes_of[row.split(b"\t")[4]] for row in got])
+        in_shard = [int((gene < bound).sum()), int((gene >= bound).sum())]
+        past = int((gs[gene] >= SHARDED_PAST).sum())
+        check(all(in_shard) and past > 0, f"W2: matches a shard {in_shard}, past 2**31 {past}")
+        by_seq = {}
+        for row, g in zip(got, gene):
+            by_seq.setdefault(row.split(b"\t", 1)[0], set()).add(bool(g >= bound))
+        both = sum(len(by_seq.get(seqcodec.decode(rs.codes[row, :rs.lengths[row]]), ())) == 2
+                   for genes, _, row in plants.groups
+                   if (genes >= bound).any() and not (genes >= bound).all())
+        check(both > 0, "W2: no group across the shard bound reported on both sides")
+        launches = dict.fromkeys(KERNELS, 0)
+        for rk in world["ranks"]:
+            for k in launches:
+                launches[k] += rk["launches"][k]
+        b1 = shard_join_case(dev, ts, rs_drv, cfg)
+        print(f"W2, Mesh=auto (dp=1 mp={WORLD_RANKS}), {WORLD_RANKS} muscato_torch processes "
+              f"on the card (gloo): {len(got)} result rows of {rs_drv.num_unique} reads against "
+              f"{int(gs[-1])} bases in {ts.num_genes} genes (made, planted and written in "
+              f"{make_s:.1f}s), equal row for row to the gene-subset oracle's (the CPU run over "
+              f"{len(np.union1d(named, plants.genes))} genes, {oracle_s:.1f}s with the read "
+              f"prep); {in_shard} a shard, {past} past position 2**31, {both} groups across the "
+              f"bound reported on both sides; world wall {world['wall_s']:.1f}s; ranks "
+              + json.dumps(world["ranks"]), flush=True)
+        print("W2, B1 on shard 0 (rank 0's, built again here) at the run's queries: "
+              + json.dumps(b1), flush=True)
+        return dict(launches=launches, sorted_join=b1)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+def shard_join_case(dev, ts, rs, cfg) -> dict:
+    """B1 as W2's rank 0 ran it: shard 0 of ``ts`` built again on the card
+    (mesh.shard_targets, as the rank built it) and the queries of the
+    whole ReadSet ``rs`` (B5's keys of every window, sorted, as the
+    sorted-join probe gives them), exact against its twin and timed
+    (measure_case) beside torch.searchsorted's left and right bounds and
+    its bound.  Frees the shard."""
+    import torch
+
+    from muscato_tpu_torch.engine import pipeline
+    from muscato_tpu_torch.ops import join, window_queries
+    from muscato_tpu_torch.parallel import mesh as pmesh
+
+    keys = pmesh.shard_targets(ts, cfg.WindowWidth, WORLD_RANKS, 0, dev).index.skeys
+    l_eff = pipeline._read_width(rs.lengths, rs.codes.shape[1], cfg.WindowWidth)
+    rpacked, lens = pipeline._upload_rows(rs.codes[:, :l_eff], rs.lengths, rs.num_unique, dev)
+    keyf = window_queries.window_queries(rpacked, lens, tuple(cfg.Windows),
+                                         width=cfg.WindowWidth, min_dinuc=cfg.MinDinuc)[0]
+    qs = join.flip(torch.sort(join.flip(keyf)).values)
+    kf, qf = join.flip(keys), join.flip(qs)
+    out = measure_case("sorted_join", lambda: join.sorted_join(keys, qs)[:2],
+                       lambda: join.sorted_join_torch(keys, qs)[:2],
+                       lambda: (torch.searchsorted(kf, qf, side="left"),
+                                torch.searchsorted(kf, qf, side="right")),
+                       call_work("sorted_join", (keys, qs), {}),
+                       f"skeys ({keys.numel()},) qkeys ({qs.numel()},)")
+    del keys, rpacked, lens, keyf, qs, kf, qf
+    torch.cuda.empty_cache()
+    return out
 
 
 # The config matrix (muscato_tpu_torch/bench/config_matrix.py): the kernels
@@ -4403,11 +4856,16 @@ def main() -> int:
     launches_big = timed("big_index_run_phase", big_index_run_phase, dev, big)
     del big
     launches_sharded = timed("gene_sharded_run_phase", gene_sharded_run_phase, dev)
+    w2 = timed("world_w2_phase", world_w2_phase, dev)
     (flag, flag_sw, flag_nd, flag_sb, flag_mb, launches_mesh, launches_search,
      match_kres, b3_replay) = timed("match_phases", match_phases, dev, unstaged)
     kres.update(match_kres)
     kres["monotone_gather"]["batch_replay_ms"] = b3_replay
-    timed("driver_phase", driver_phase, dev)
+    drv = timed("driver_phase", driver_phase, dev)
+    try:
+        launches_w1 = timed("world_w1_phase", world_w1_phase, dev, drv)
+    finally:
+        shutil.rmtree(drv["work"], ignore_errors=True)
     launches_matrix = timed("config_matrix_phase", config_matrix_phase, dev)
     routes = timed("long_read_routes", long_read_routes, dev, unstaged)
     launches_scale = timed("scale_run_phase", scale_run_phase, dev)
@@ -4438,6 +4896,8 @@ def main() -> int:
          "launches_config_matrix": launches_matrix[name],
          "launches_big_index": launches_big[name],
          "launches_gene_sharded": launches_sharded[name],
+         "launches_world": launches_w1[name] + w2["launches"][name],
+         **({"w2_shard": w2[name]} if name in w2 else {}),
          "max_abs_err": kres[name]["max_abs_err"], "ms": kres[name]["ms"],
          "plain_ms": kres[name]["plain_ms"], "bound_ms": kres[name]["bound_ms"],
          "bound_by": kres[name]["bound_by"], "library_ms": kres[name]["library_ms"],

@@ -36,6 +36,7 @@ from ..config import Config
 from ..io import reads as reads_io
 from ..io import targets as targets_io
 
+import torch
 import torch.distributed as torch_dist
 
 from ..device import rank_device
@@ -175,6 +176,27 @@ def _build_or_load_index(cfg: Config, ts, device) -> TargetIndex:
     return index
 
 
+def _log_shard(shard, mesh, seconds: float) -> None:
+    """Log this rank's shard build and, on a card, this process's peak
+    reserved memory.  Under MUSCATO_STAGE_TIMES=1 also the card's used
+    memory once every rank has built its shard (a barrier), which holds
+    every rank's build when the ranks share the card."""
+    index = shard.index
+    mem = ""
+    if index.device.type == "cuda":
+        mem = f"; peak reserved {torch.cuda.max_memory_reserved(index.device) / 2**30:.2f} GiB"
+        if os.environ.get("MUSCATO_STAGE_TIMES") == "1":
+            mesh.agree_max(0)
+            free, total = torch.cuda.mem_get_info(index.device)
+            mem += (f", card used {(total - free) / 2**30:.2f} of {total / 2**30:.2f} GiB "
+                    "after every rank's build")
+    logging.getLogger("muscato.index").info(
+        "mesh shard %d of %d (genes [%d,%d)): %d bases -> %d window keys built on %s "
+        "in %.2fs%s", mesh.m, mesh.mp, *shard.genes, index.num_bases, index.num_valid,
+        index.device, seconds, mem,
+    )
+
+
 def _run_stages(cfg: Config, logger: logging.Logger, device) -> None:
     t0 = time.time()
     plog = logging.getLogger("muscato.prep")
@@ -230,7 +252,9 @@ def _run_stages(cfg: Config, logger: logging.Logger, device) -> None:
             mesh = _choose_mesh(cfg, ts.size, device)
             if mesh is not None:
                 logger.info("mesh run: dp=%d mp=%d, rank %d", mesh.dp, mesh.mp, mesh.rank)
+                t_build = time.time()
                 shard = pmesh.shard_targets(ts, cfg.WindowWidth, mesh.mp, mesh.m, device)
+                _log_shard(shard, mesh, time.time() - t_build)
                 return pmesh.run_matching_sharded(cfg, rs, shard, mesh)
             index = _build_or_load_index(cfg, ts, device)
             return pipeline.run_matching_indexed(cfg, rs, index)

@@ -113,6 +113,27 @@ class Probe(NamedTuple):
     total: torch.Tensor  # 0-d int64: exact candidate pair count
 
 
+# Index windows below which the probes pack their (inactive, lo) compaction
+# key into int32, as the JAX probes do; a larger index (a mesh shard holds
+# up to 1.5e9 windows) takes an int64 key of the same order.  The int32
+# key's sort keeps the probe stage about a quarter shorter on an H100
+# (chip_smoke.py's lo_key_ab times both keys on each probe).
+PACKED_LO_LIMIT = 1 << 30
+
+
+def _lo_order(counts_m, lo_m, nidx: int):
+    """(order, lo[order] as int32): the slots with a count first, in lo
+    order, then the others (one sort of the packed key (inactive, lo),
+    in int32 below PACKED_LO_LIMIT index windows, else in int64)."""
+    inactive = counts_m == 0
+    if nidx < PACKED_LO_LIMIT:
+        lo = lo_m.clamp(0, (1 << 30) - 1).to(torch.int32)
+        packed_c, order = torch.sort((inactive.to(torch.int32) << 30) | lo)
+        return order, packed_c & ((1 << 30) - 1)
+    packed_c, order = torch.sort(inactive.to(torch.int64) * _TWO32 + lo_m.clamp(min=0))
+    return order, (packed_c & (_TWO32 - 1)).to(torch.int32)
+
+
 def _probe_windows_pjoin_impl(rpacked, lengths, q1s, skeys, *, width, min_dinuc):
     """Sorted-join probe (port of ``fused._probe_windows_pjoin_impl``):
     sort the queries, resolve lo/count per query against the sorted index
@@ -121,8 +142,6 @@ def _probe_windows_pjoin_impl(rpacked, lengths, q1s, skeys, *, width, min_dinuc)
     nflat = len(q1s) * rpacked.shape[0]
     if nflat >= (1 << 30) - 1:
         raise ValueError("query space exceeds the packed-key range")
-    if skeys.shape[0] >= (1 << 30):
-        raise ValueError("index exceeds the packed-lo range")
     keyf, key2f, validf = window_queries(
         rpacked, lengths, q1s, width=width, min_dinuc=min_dinuc
     )
@@ -135,12 +154,10 @@ def _probe_windows_pjoin_impl(rpacked, lengths, q1s, skeys, *, width, min_dinuc)
     lo_m, counts_m, _ = _join.sorted_join(skeys, _join.flip(ks_flip))
     counts_m = torch.where(qid_m >= 0, counts_m, 0)
     total = counts_m.sum(dtype=torch.int64)
-    inactive = (counts_m == 0).to(torch.int32)
-    packed_key = (inactive << 30) | lo_m.clamp(0, (1 << 30) - 1)
-    packed_c, order = torch.sort(packed_key)
+    order, lo_c = _lo_order(counts_m, lo_m, skeys.shape[0])
     return Probe(
-        counts=counts_m[order], lo=packed_c & ((1 << 30) - 1),
-        qid=qid_m[order], keyf=keyf, key2f=key2f, total=total,
+        counts=counts_m[order], lo=lo_c, qid=qid_m[order], keyf=keyf, key2f=key2f,
+        total=total,
     )
 
 
@@ -156,8 +173,6 @@ def _probe_windows_impl(rpacked, lengths, q1s, skeys, *, width, min_dinuc):
     nidx = skeys.shape[0]
     if nflat >= (1 << 30) - 1:
         raise ValueError("query space exceeds the packed-key range")
-    if nidx >= (1 << 30):
-        raise ValueError("index exceeds the packed-lo range")
     keyf, key2f, validf = window_queries(
         rpacked, lengths, q1s, width=width, min_dinuc=min_dinuc
     )
@@ -184,14 +199,11 @@ def _probe_windows_impl(rpacked, lengths, q1s, skeys, *, width, min_dinuc):
     del ie
     lo_m = seg_ie.clamp(min=0)
     qid_m = torch.where(pay_s >= 0, pay_s, -1)
-    inactive = (counts_m == 0).to(torch.int64)
-    packed_key = (inactive << 30) | lo_m.clamp(0, (1 << 30) - 1)
-    packed_c, order = torch.sort(packed_key.to(torch.int32))
+    order, lo_c = _lo_order(counts_m, lo_m, nidx)
     order = order[:nflat]
     counts_c = counts_m[order]
     return Probe(
-        counts=counts_c, lo=packed_c[:nflat] & ((1 << 30) - 1),
-        qid=qid_m[order], keyf=keyf, key2f=key2f,
+        counts=counts_c, lo=lo_c[:nflat], qid=qid_m[order], keyf=keyf, key2f=key2f,
         total=counts_c.sum(dtype=torch.int64),
     )
 

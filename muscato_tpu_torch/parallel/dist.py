@@ -20,6 +20,8 @@ NCCL refuses them otherwise.
 
 from __future__ import annotations
 
+import logging
+
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -104,6 +106,11 @@ def build_readset_multihost(read_file: str, min_read_length: int,
         first_line = int(counts[:pid].sum())
         local = reads_io.build_readset_range(
             buf, min_read_length, max_read_length, lo, hi, first_line
+        )
+        logging.getLogger("muscato.prep").info(
+            "range-sharded read prep: rank %d of %d parsed bytes [%d,%d) of %d: "
+            "%d reads, %d unique", pid, nproc, lo, hi, size, local.num_total,
+            local.num_unique,
         )
 
         dims = np.asarray(

@@ -40,6 +40,7 @@ tensors.
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 import time
@@ -346,7 +347,13 @@ def run_matching_sharded(cfg: Config, rs: ReadSet, shard: Shard, mesh: Mesh,
     ReadSet.  ``timings``, when given, receives the sums of
     ``sharded_match_arrays``'s keys over the batches, 'stages' (probe,
     expand_verify and rank seconds; CUDA-event time on a GPU) and
-    'batches'."""
+    'batches'.  Under MUSCATO_STAGE_TIMES=1 the rank logs those sums
+    ("mesh timings over N batches: {json}") and, as the single-device
+    loop does, "kernel launches over N batches: name=count ..."."""
+    stage_times = os.environ.get("MUSCATO_STAGE_TIMES") == "1"
+    if stage_times:
+        launches0 = {k: f.launches for k, f in pl.KERNELS.items()}
+        timings = {} if timings is None else timings
     nreads = rs.codes.shape[0]
     width = cfg.WindowWidth
     batch = cfg.ReadBatch or (1 << 22)
@@ -382,6 +389,11 @@ def run_matching_sharded(cfg: Config, rs: ReadSet, shard: Shard, mesh: Mesh,
     if timings is not None:
         timings["stages"] = clock.sums()
         timings["batches"] = len(all_rows)
+    if stage_times:
+        logger.info("mesh timings over %d batches: %s", len(all_rows),
+                    json.dumps(timings, sort_keys=True))
+        logger.info("kernel launches over %d batches: %s", len(all_rows), " ".join(
+            f"{k}={f.launches - launches0[k]}" for k, f in pl.KERNELS.items()))
 
     z = np.zeros(0, dtype=np.int32)
     if mesh.rank != 0:

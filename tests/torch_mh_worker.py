@@ -1,17 +1,17 @@
 """One process of a two-process run of the port on the CPU, for
 tests/test_torch_multihost.py.
 
-    python torch_mh_worker.py <process_id> <num_processes> <port> <port2> <outdir>
+    python torch_mh_worker.py <process_id> <num_processes> <port> <outdir> <tag>...
 
 First it joins a gloo world through
 ``dist.initialize("localhost:<port>", num_processes, process_id)`` and
 builds the ReadSet of <outdir>/mh_reads.fastq with
 ``build_readset_multihost``, which must equal ``build_readset`` of the
 whole file while its own parse covers only part of the file, and
-``pod_mesh()`` gives the 1 x num_processes mesh.  Then it
-runs the ``muscato_torch`` entry point on <outdir>/config_<process_id>.json,
-whose Coordinator (localhost:<port2>), ProcessCount and ProcessIndex
-start the driver's own process group.
+``pod_mesh()`` gives the 1 x num_processes mesh.  Then, for each <tag>,
+it runs the ``muscato_torch`` entry point on
+<outdir>/config_<tag>_<process_id>.json, whose Coordinator (a port of its
+own), ProcessCount and ProcessIndex start the driver's own process group.
 
 This file imports only numpy and the port (no jax, no muscato_tpu).
 """
@@ -21,8 +21,8 @@ import sys
 
 
 def main():
-    pid, nproc, port, port2 = (int(x) for x in sys.argv[1:5])
-    outdir = sys.argv[5]
+    pid, nproc, port = (int(x) for x in sys.argv[1:4])
+    outdir, tags = sys.argv[4], sys.argv[5:]
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, os.path.dirname(here))  # the repo root: the port's package
 
@@ -55,9 +55,10 @@ def main():
     assert (mesh.dp, mesh.mp, mesh.rank) == (1, nproc, pid)
     dist.destroy_process_group()
 
-    cfg = os.path.join(outdir, f"config_{pid}.json")
-    assert cli.main_muscato([f"-ConfigFileName={cfg}", "-device=cpu"]) == 0
-    assert not dist.is_initialized()  # the driver closed its process group
+    for tag in tags:
+        cfg = os.path.join(outdir, f"config_{tag}_{pid}.json")
+        assert cli.main_muscato([f"-ConfigFileName={cfg}", "-device=cpu"]) == 0
+        assert not dist.is_initialized()  # the driver closed its process group
     print(f"worker {pid} OK", flush=True)
 
 
