@@ -1,0 +1,9 @@
+"""B6: ``pipeline.KERNELS["expand_owners_sub"]`` (csrc/expand.cu through ops/expand.py)."""
+
+from benchmark.harness import work
+
+SYMBOL = "expand_owners_sub_kernel"
+
+
+def call_work(args, kw) -> tuple:
+    return work.call_work("expand_owners_sub", args, kw)
