@@ -33,6 +33,7 @@ Mosaic's windows, and the GPU kernels have none.
 from __future__ import annotations
 
 import contextlib
+import functools
 import logging
 import os
 import time
@@ -203,18 +204,42 @@ def run_matching_gene_sharded(cfg: Config, rs: ReadSet, ts: TargetSet,
     return _dedup_and_rank(cfg, r, g, s, nx)
 
 
-class _StageClock:
-    """Per-stage times of the batch loop, summed over spans: CUDA events on
-    a CUDA device (the device timeline), host perf_counter on the CPU.
-    Each stage's work is bracketed by its own start and stop, so a probe
-    queued inside another batch's iteration still counts as probe; each
-    span is booked to a batch (``tag``: the clock's current one unless
-    the caller names another), so that sums can be taken by batch.  The
-    sums wait for the device once, so a loop reads them after its end."""
+def _profiling() -> bool:
+    """Whether torch.profiler records in this process now."""
+    return bool(getattr(torch.autograd.profiler, "_is_profiler_enabled", False))
 
-    def __init__(self, device: torch.device):
+
+class _StageClock:
+    """The spans of one call of the entry, summed over its batches.
+
+    Device spans (``span``): CUDA events recorded on the stream that runs
+    the block's work (the current one: inside ``torch.cuda.stream(s)``,
+    ``s``), host perf_counter on the CPU.  Each span is booked to a batch
+    (``tag``: the clock's current one unless the caller names another), so
+    that a probe queued inside another batch's iteration still counts as
+    its own batch's; the stages (STAGES) are device spans.  The sums wait
+    for the device once, so a loop reads them after its end.
+
+    Host spans (``host``): perf_counter.  With ``ranges`` (torch.profiler
+    records), a host span also opens ``record_function("muscato." +
+    name)``, which puts it on the profile's timeline beside the device's
+    kernels; a block that enqueues work on the device, or waits in a copy
+    from it, is timed with ``ranged=False``, since the profiler lays a
+    range that encloses device work on the device's timeline too.
+
+    Names are hierarchical: ``fetch.d2h`` is a part of the fetch.  With
+    ``timed`` False (a call that only the profiler traces) the clock times
+    nothing and records no event; its host spans still open their
+    ranges."""
+
+    STAGES = ("probe", "expand_verify", "rank")
+
+    def __init__(self, device: torch.device, *, timed: bool = True, ranges: bool = False):
         self.cuda = device.type == "cuda"
-        self.spans = []  # (stage name, batch tag, start, stop): events or times
+        self.timed = timed
+        self.ranges = ranges
+        self.spans = []  # (device span name, batch tag, start, stop): events or times
+        self.host_s = {}  # host span name -> seconds
         self.tag = 0  # the batch that spans are booked to by default
 
     def _now(self):
@@ -226,15 +251,33 @@ class _StageClock:
 
     @contextlib.contextmanager
     def span(self, name: str, tag=None):
-        """Time the block as stage ``name`` of batch ``tag`` (the current
-        batch when None)."""
+        """Time the block as device span ``name`` of batch ``tag`` (the
+        current batch when None)."""
+        if not self.timed:
+            yield
+            return
         tag = self.tag if tag is None else tag
         a = self._now()
         yield
         self.spans.append((name, tag, a, self._now()))
 
+    @contextlib.contextmanager
+    def host(self, name: str, ranged: bool = True, timed: bool = True):
+        """Time the block on the host as span ``name``; with ``ranged``, a
+        block of host work alone, under a profiler range too.  With
+        ``timed`` False the block only opens its range (a label for the
+        profile's idle gaps that no timing reads)."""
+        t = time.perf_counter()
+        if self.ranges and ranged:
+            with torch.profiler.record_function("muscato." + name):
+                yield
+        else:
+            yield
+        if self.timed and timed:
+            self.host_s[name] = self.host_s.get(name, 0.0) + time.perf_counter() - t
+
     def batch_sums(self) -> dict:
-        """Seconds by stage for each batch: {tag: {stage: seconds}}."""
+        """Seconds by device span for each batch: {tag: {name: seconds}}."""
         if self.cuda:
             torch.cuda.synchronize()
         out = {}
@@ -245,12 +288,27 @@ class _StageClock:
         return out
 
     def sums(self) -> dict:
-        """Seconds by stage over every span."""
+        """Seconds by device span over every span."""
         out = {}
         for sums in self.batch_sums().values():
             for name, dt in sums.items():
                 out[name] = out.get(name, 0.0) + dt
         return out
+
+
+_NULL = contextlib.nullcontext()
+
+
+def _span(clock: "_StageClock | None", name: str, tag=None):
+    """``clock``'s device span ``name`` of batch ``tag``; nothing without a
+    clock."""
+    return _NULL if clock is None else clock.span(name, tag)
+
+
+def _host_span(clock: "_StageClock | None", name: str, ranged: bool = True,
+               timed: bool = True):
+    """``clock``'s host span ``name``; nothing without a clock."""
+    return _NULL if clock is None else clock.host(name, ranged, timed)
 
 
 class _PinnedUploads:
@@ -269,28 +327,35 @@ class _PinnedUploads:
         self.done = [None, None]  # the event of each buffer's last copy
         self.turn = 0
 
-    def upload(self, codes: np.ndarray, lengths: np.ndarray, n: int):
+    def upload(self, codes: np.ndarray, lengths: np.ndarray, n: int,
+               clock: "_StageClock | None" = None):
         """Device (codes (n, L) uint8, lengths (n,) int32): the given rows,
-        then zero rows up to n; ready on the compute stream."""
+        then zero rows up to n; ready on the compute stream.  ``clock``
+        times the wait on the buffer's previous copy (``wait.upload``),
+        the host copy into it (``upload.stage``) and the copy to the
+        device on the side stream (``upload.h2d``)."""
         i, self.turn = self.turn, self.turn ^ 1
         if self.done[i] is not None:
-            self.done[i].synchronize()
+            with _host_span(clock, "wait.upload"):
+                self.done[i].synchronize()
         shape = (n, codes.shape[1])
-        if self.bufs[i] is None or tuple(self.bufs[i][0].shape) != shape:
-            self.bufs[i] = (torch.empty(shape, dtype=torch.uint8, pin_memory=True),
-                            torch.empty(n, dtype=torch.int32, pin_memory=True))
-        hc, hl = (t.numpy() for t in self.bufs[i])
-        real_n = codes.shape[0]
-        hc[:real_n] = codes
-        hc[real_n:] = 0
-        hl[:real_n] = lengths
-        hl[real_n:] = 0
+        with _host_span(clock, "upload.stage"):
+            if self.bufs[i] is None or tuple(self.bufs[i][0].shape) != shape:
+                self.bufs[i] = (torch.empty(shape, dtype=torch.uint8, pin_memory=True),
+                                torch.empty(n, dtype=torch.int32, pin_memory=True))
+            hc, hl = (t.numpy() for t in self.bufs[i])
+            real_n = codes.shape[0]
+            hc[:real_n] = codes
+            hc[real_n:] = 0
+            hl[:real_n] = lengths
+            hl[real_n:] = 0
         compute = torch.cuda.current_stream(self.device)
         with torch.cuda.stream(self.side):
             dc = torch.empty(shape, dtype=torch.uint8, device=self.device)
             dl = torch.empty(n, dtype=torch.int32, device=self.device)
-            dc.copy_(self.bufs[i][0], non_blocking=True)
-            dl.copy_(self.bufs[i][1], non_blocking=True)
+            with _span(clock, "upload.h2d"):
+                dc.copy_(self.bufs[i][0], non_blocking=True)
+                dl.copy_(self.bufs[i][1], non_blocking=True)
             ev = torch.cuda.Event()
             ev.record(self.side)
         dc.record_stream(compute)
@@ -344,7 +409,7 @@ class _BatchStages:
         self.chunks = 0  # streaming chunks run, re-runs included
 
     def _span(self, name: str, tag=None):
-        return self.clock.span(name, tag) if self.clock else contextlib.nullcontext()
+        return _span(self.clock, name, tag)
 
     def probe(self, rpacked, lengths, tag=None) -> fused.Probe:
         """The batch's probe, timed as batch ``tag``'s (the clock's current
@@ -381,7 +446,8 @@ class _BatchStages:
                     self.budget, pair_cap=pair_cap,
                     vchunk=min(self.vchunk, pair_cap), **common,
                 )
-                nsurv = int(ver.nsurv)
+                with _host_span(self.clock, "wait.survivors", ranged=False):
+                    nsurv = int(ver.nsurv)
                 need = agree(nsurv)
                 # Survivor-capacity regrow: the sorted survivors are all on
                 # the device, so growing the buffer re-runs nothing.
@@ -403,7 +469,8 @@ class _BatchStages:
                         surv_cap=surv_cap, total=total, **common,
                     )
                     self.chunks += st.chunks
-                    nsurv = int(st.nsurv)
+                    with _host_span(self.clock, "wait.survivors", ranged=False):
+                        nsurv = int(st.nsurv)
                     need = agree(nsurv)
                     if need <= surv_cap:
                         break
@@ -456,69 +523,98 @@ def run_matching_indexed(cfg: Config, rs: ReadSet, index: TargetIndex,
     and bytes of fetching and unpacking the retained rows ('fetch_s',
     'fetch_bytes'), 'pairs' (the candidate pair total), 'batches',
     'chunks' (the streaming expand's chunks run, re-runs after a survivor
-    overflow included; 0 when every batch took the dedup expand), and
-    'probe_kind' (direct, binary, sorted_join or sort_merge)."""
+    overflow included; 0 when every batch took the dedup expand),
+    'probe_kind' (direct, binary, sorted_join or sort_merge), 'spans'
+    ({name: seconds} summed over the batches, below) and 'counts' (the
+    call's 'reads', the 'survivors' of its verify and the rows its rank
+    'retained', each summed over the batches).
+
+    The spans, parts of the keys above: 'prepare' (host: the checks
+    before the loop, the probe's choice, the search aux and the stage
+    set-up), the upload's 'upload.stage' (host: the copy into the pinned
+    buffer, or on the CPU into the tensors) and 'upload.h2d' (device, on
+    the upload's side stream), 'read_pack' (device: the nibble pack), the
+    host's waits on the device, 'wait.upload' (a pinned buffer's previous
+    copy), 'wait.total' (the pair total), 'wait.survivors' and
+    'wait.count', the rank's 'rank.cap' and 'rank.dedup' (device), the
+    fetch's 'fetch.d2h' and, where the rows come back packed,
+    'fetch.unpack' (host: the unpack and the read-row offset), then
+    'assemble' (host: the concatenation and the MatchResult's columns)
+    and, over several batches, 'union.cap' and 'union.rank' (host: the cap
+    and the rank over their union).  While torch.profiler records, with or
+    without ``timings``, each host span that encloses host work alone
+    opens ``record_function("muscato.<name>")``: prepare (its checks),
+    upload.stage, wait.upload, wait.total, fetch.unpack, assemble,
+    union.cap and union.rank; the multi-batch fetch's read-row offset
+    opens the range fetch.offset, which is not timed.  Without ``timings``,
+    MUSCATO_STAGE_TIMES or a profiler, the call records no CUDA event and
+    opens no range."""
     if probe not in (None, "sort", "search"):
         raise ValueError(f"probe must be None, 'sort' or 'search', got {probe!r}")
     device = index.device
-    width = cfg.WindowWidth
-    # Trim the packed read matrix to the longest actual read.
-    l_eff = _read_width(rs.lengths, rs.codes.shape[1], width)
-    q1s = tuple(int(q) for q in cfg.Windows)
-
-    # The reference aborts when a window seeds no reads
-    # (cmd/muscato_window_reads/main.go:143-151).
-    for k, q1 in enumerate(q1s):
-        if not _window_has_reads(rs, q1, width):
-            raise SystemExit(f"Window {k} produced no valid reads, exiting")
-
-    nreads = rs.codes.shape[0]
-    batch = cfg.ReadBatch or (1 << 22)
-    batch = min(batch, _round_up(nreads, 1024))
-    nbatches = -(-nreads // batch)
-
-    # Probe auto-selection, as the JAX engine makes it: the sorted join
-    # sorts a batch's queries and joins them against the whole index; the
-    # search probe touches only the queried entries, and wins for a small
-    # batch against a huge index (crossover set at V > 64 queries).
-    nflat = len(q1s) * min(batch, _round_up(nreads, 1024))
-    if probe is None:
-        use_search = index.skeys.shape[0] > 64 * nflat
-    else:
-        use_search = probe == "search"
-    index_aux = index.search_aux() if use_search else None
     stage_times = os.environ.get("MUSCATO_STAGE_TIMES") == "1"
-    if stage_times:
-        launches0 = {k: f.launches for k, f in KERNELS.items()}
-        batch_walls = []  # (b0, b1, host_stage, total) of each batch
-    clock = _StageClock(device) if timings is not None or stage_times else None
-    stages = _BatchStages(cfg, index, l_eff, index_aux=index_aux, clock=clock)
-    kind = fused.probe_kind(index_aux, stages.allow_pjoin)
-    logger.info(
-        "probe: %s (%d index keys, %d queries a batch%s)", kind,
-        index.skeys.shape[0], nflat,
-        f", aux {index_aux.nbytes} bytes built in {index_aux.build_s:.2f}s"
-        if index_aux is not None else "",
-    )
+    ranges = _profiling()
+    timed = timings is not None or stage_times
+    clock = _StageClock(device, timed=timed, ranges=ranges) if timed or ranges else None
+    with _host_span(clock, "prepare"):
+        width = cfg.WindowWidth
+        # Trim the packed read matrix to the longest actual read.
+        l_eff = _read_width(rs.lengths, rs.codes.shape[1], width)
+        q1s = tuple(int(q) for q in cfg.Windows)
 
-    surv_cap = max(_CAP_HINT[0], _SURV_CAP0)
-    # Single-batch retained rows come back 64-bit packed; the multi-batch
-    # path re-caps across batches and needs the group columns.
-    full_cols = _defer_rank or nbatches > 1
-    pack_bits = None if full_cols else _fetch_pack_bits(index, batch, cfg)
+        # The reference aborts when a window seeds no reads
+        # (cmd/muscato_window_reads/main.go:143-151).
+        for k, q1 in enumerate(q1s):
+            if not _window_has_reads(rs, q1, width):
+                raise SystemExit(f"Window {k} produced no valid reads, exiting")
+
+        nreads = rs.codes.shape[0]
+        batch = cfg.ReadBatch or (1 << 22)
+        batch = min(batch, _round_up(nreads, 1024))
+        nbatches = -(-nreads // batch)
+
+        # Probe auto-selection, as the JAX engine makes it: the sorted join
+        # sorts a batch's queries and joins them against the whole index; the
+        # search probe touches only the queried entries, and wins for a small
+        # batch against a huge index (crossover set at V > 64 queries).
+        nflat = len(q1s) * min(batch, _round_up(nreads, 1024))
+        if probe is None:
+            use_search = index.skeys.shape[0] > 64 * nflat
+        else:
+            use_search = probe == "search"
+        # Single-batch retained rows come back 64-bit packed; the multi-batch
+        # path re-caps across batches and needs the group columns.
+        full_cols = _defer_rank or nbatches > 1
+        pack_bits = None if full_cols else _fetch_pack_bits(index, batch, cfg)
+    # The search aux's build and the budget table's upload run on the device.
+    with _host_span(clock, "prepare", ranged=False):
+        index_aux = index.search_aux() if use_search else None
+        if stage_times:
+            launches0 = {k: f.launches for k, f in KERNELS.items()}
+            batch_walls = []  # (b0, b1, host_stage, total) of each batch
+        stages = _BatchStages(cfg, index, l_eff, index_aux=index_aux, clock=clock)
+        kind = fused.probe_kind(index_aux, stages.allow_pjoin)
+        logger.info(
+            "probe: %s (%d index keys, %d queries a batch%s)", kind,
+            index.skeys.shape[0], nflat,
+            f", aux {index_aux.nbytes} bytes built in {index_aux.build_s:.2f}s"
+            if index_aux is not None else "",
+        )
+        surv_cap = max(_CAP_HINT[0], _SURV_CAP0)
     read_prep_s = 0.0
 
     def load(b0):
         nonlocal read_prep_s
         t = time.perf_counter()
         out = _device_read_batch(rs, b0, b0 + batch, l_eff, device,
-                                 cache_ok=nbatches == 1, uploads=stages.uploads)
+                                 cache_ok=nbatches == 1, uploads=stages.uploads,
+                                 clock=clock)
         read_prep_s += time.perf_counter() - t
         return out
 
     t_run0 = time.perf_counter()
     surv_rows = []
-    total_pairs = 0
+    total_pairs = total_surv = total_kept = 0
     nxt = load(0)
     pr_next = None
     for b0 in range(0, nreads, batch):
@@ -541,10 +637,12 @@ def run_matching_indexed(cfg: Config, rs: ReadSet, index: TargetIndex,
             if stages.prefetch:
                 pr_next = stages.probe(*nxt, tag=b0 + batch)
             st_host = time.perf_counter() - t_hs
-        total = get_total()
+        with _host_span(clock, "wait.total"):
+            total = get_total()
         buf, nsurv, surv_cap = stages.expand_verify(pr, total, rpacked, lengths, surv_cap)
         _CAP_HINT[0] = surv_cap
         total_pairs += total
+        total_surv += nsurv
         count = 0
         if nsurv:
             # The rank sorts every row it is given, so it takes the live
@@ -554,10 +652,12 @@ def run_matching_indexed(cfg: Config, rs: ReadSet, index: TargetIndex,
                 rows_dev, count_d = fused.rank_survivors(
                     buf, nsurv, cfg.MaxMatches, cfg.MMTol,
                     match_mode=cfg.MatchMode, full_cols=full_cols,
-                    pack_bits=pack_bits,
+                    pack_bits=pack_bits, span=functools.partial(_span, clock),
                 )
-                count = int(count_d)
+                with _host_span(clock, "wait.count", ranged=False):
+                    count = int(count_d)
             surv_rows.append((rows_dev[:count], b0))
+        total_kept += count
         dt = time.perf_counter() - t_batch
         if stage_times:
             batch_walls.append((b0, b1, st_host, dt))
@@ -566,6 +666,7 @@ def run_matching_indexed(cfg: Config, rs: ReadSet, index: TargetIndex,
             "%.2fs (%.0f reads/s)",
             b0, b1, total, nsurv, count, dt, (b1 - b0) / max(dt, 1e-9),
         )
+    device_s = time.perf_counter() - t_run0
 
     if stage_times:
         by_batch = clock.batch_sums()
@@ -589,50 +690,71 @@ def run_matching_indexed(cfg: Config, rs: ReadSet, index: TargetIndex,
         )
         logger.info("kernel launches over %d batches: %s", nbatches, " ".join(
             f"{k}={f.launches - launches0[k]}" for k, f in KERNELS.items()))
-    device_s = time.perf_counter() - t_run0
     t_fetch = time.perf_counter()
     fetched = []
     for rows_dev, b0 in surv_rows:
-        rows = rows_dev.cpu().numpy()
-        if pack_bits is not None:
-            rows = _unpack_rows64(rows, pack_bits)
-        rows[:, 0] += b0  # batch-local read row -> global row
+        with _host_span(clock, "fetch.d2h", ranged=False):
+            rows = rows_dev.cpu().numpy()
+        with (_host_span(clock, "fetch.unpack") if pack_bits is not None
+              else _host_span(clock, "fetch.offset", timed=False)):
+            if pack_bits is not None:
+                rows = _unpack_rows64(rows, pack_bits)
+            rows[:, 0] += b0  # batch-local read row -> global row
         fetched.append(rows)
+    fetch_s = time.perf_counter() - t_fetch
+    logger.info(
+        "windows %s: %d candidate pairs, %d retained",
+        cfg.Windows, total_pairs, sum(len(x) for x in fetched),
+    )
+    out = _assemble(cfg, fetched, clock, rows_only=_defer_rank, union=nbatches > 1)
+
     if timings is not None:
-        timings["stages"] = clock.sums()
+        # The clock's reads (a device synchronise, the events) come after
+        # every window they time.
+        dev = clock.sums()
+        timings["stages"] = {k: v for k, v in dev.items() if k in _StageClock.STAGES}
         timings["read_prep_s"] = read_prep_s
         timings["device_s"] = device_s
-        timings["fetch_s"] = time.perf_counter() - t_fetch
+        timings["fetch_s"] = fetch_s
         timings["fetch_bytes"] = sum(r.numel() * r.element_size() for r, _ in surv_rows)
         timings["pairs"] = total_pairs
         timings["batches"] = nbatches
         timings["chunks"] = stages.chunks
         timings["probe_kind"] = kind
-    logger.info(
-        "windows %s: %d candidate pairs, %d retained",
-        cfg.Windows, total_pairs, sum(len(x) for x in fetched),
-    )
+        timings["spans"] = {**{k: v for k, v in dev.items() if k not in _StageClock.STAGES},
+                            **clock.host_s}
+        timings["counts"] = dict(reads=nreads, survivors=total_surv, retained=total_kept)
+    return (out, kind) if _defer_rank else out
 
-    if _defer_rank:
+
+def _assemble(cfg: Config, fetched: list, clock: "_StageClock | None", *,
+              rows_only: bool, union: bool):
+    """The call's result from the fetched batches' rows: the raw (N, NCOL)
+    rows with ``rows_only``, else the MatchResult; with ``union`` (several
+    batches) the k-mer cap groups span batches, so the cap is re-applied
+    over the union and the rows re-ranked (both idempotent on filtered
+    rows).  Timed as ``assemble`` (the concatenation and the columns) and
+    ``union.cap`` and ``union.rank``."""
+    with _host_span(clock, "assemble"):
+        if rows_only:
+            return (np.concatenate(fetched) if fetched
+                    else np.zeros((0, fused.NCOL), dtype=np.int32))
         if not fetched:
-            return np.zeros((0, fused.NCOL), dtype=np.int32), kind
-        return np.concatenate(fetched), kind
-    if not fetched:
-        z = np.zeros(0, dtype=np.int32)
-        return MatchResult(z, z, z, z)
-    rows = np.concatenate(fetched)
-    if nbatches == 1:
-        # The device already produced the final retained set in canonical
-        # (read, gene, start) order.
-        return MatchResult(
-            rows[:, 0].copy(), rows[:, 1].copy(),
-            rows[:, 2].copy(), rows[:, 3].copy(),
-        )
-    # Several batches: k-mer cap groups span batches, so re-apply the cap
-    # over the union and re-rank (both idempotent on filtered rows).
+            z = np.zeros(0, dtype=np.int32)
+            return MatchResult(z, z, z, z)
+        rows = np.concatenate(fetched)
+        if not union:
+            # The device already produced the final retained set in
+            # canonical (read, gene, start) order.
+            return MatchResult(
+                rows[:, 0].copy(), rows[:, 1].copy(),
+                rows[:, 2].copy(), rows[:, 3].copy(),
+            )
     r, g, s, nx, grp, grp2, win = (rows[:, i] for i in range(fused.NCOL))
-    r, g, s, nx = _apply_max_matches(cfg, r, g, s, nx, grp, grp2, win)
-    return _dedup_and_rank(cfg, r, g, s, nx)
+    with _host_span(clock, "union.cap"):
+        r, g, s, nx = _apply_max_matches(cfg, r, g, s, nx, grp, grp2, win)
+    with _host_span(clock, "union.rank"):
+        return _dedup_and_rank(cfg, r, g, s, nx)
 
 
 def _fetch_pack_bits(index: TargetIndex, batch: int, cfg: Config):
@@ -676,7 +798,8 @@ def preload_device_batch(cfg: Config, rs: ReadSet, device) -> None:
 
 
 def _device_read_batch(rs: ReadSet, b0: int, b1: int, l_eff: int, device,
-                       cache_ok: bool = False, uploads: _PinnedUploads | None = None):
+                       cache_ok: bool = False, uploads: _PinnedUploads | None = None,
+                       clock: _StageClock | None = None):
     """Device tensors (rpacked int32 (n, nw), lengths int32 (n,)) for read
     rows [b0, b1), padded to the batch size with empty rows.  The uint8
     codes are uploaded (on a CUDA device through a pinned buffer of
@@ -684,14 +807,15 @@ def _device_read_batch(rs: ReadSet, b0: int, b1: int, l_eff: int, device,
     a 4M-read batch on the host took most of the flagship's wall time.
     With ``cache_ok`` (single-batch runs) the result is kept on the
     ReadSet for later runs; multi-batch runs never cache, so resident read
-    memory stays one batch."""
+    memory stays one batch.  ``clock`` times the upload's parts
+    (``_upload_rows``)."""
     device = torch.device(device)
     cache = getattr(rs, "_dev_cache", None)
     key = (b0, b1, l_eff, str(device))
     if cache is not None and key in cache:
         return cache[key]
     out = _upload_rows(rs.codes[b0:b1, :l_eff], rs.lengths[b0:b1], b1 - b0,
-                       device, uploads)
+                       device, uploads, clock)
     if cache_ok:
         if cache is None:
             cache = rs._dev_cache = {}
@@ -700,19 +824,24 @@ def _device_read_batch(rs: ReadSet, b0: int, b1: int, l_eff: int, device,
 
 
 def _upload_rows(codes: np.ndarray, lengths: np.ndarray, n: int, device,
-                 uploads: _PinnedUploads | None = None):
+                 uploads: _PinnedUploads | None = None,
+                 clock: _StageClock | None = None):
     """Device tensors (rpacked int32 (n, nw), lengths int32 (n,)) of the
     host rows ``codes`` (uint8, already cut to the packed width) and
-    ``lengths``, then zero rows up to n."""
+    ``lengths``, then zero rows up to n.  ``clock`` times the host copy
+    (``upload.stage``; on the CPU the copy into the tensors), the upload
+    (``_PinnedUploads.upload``) and the nibble pack (``read_pack``)."""
     lens = np.asarray(lengths, dtype=np.int32)
     if device.type == "cuda":
-        dc, dl = (uploads or _PinnedUploads(device)).upload(codes, lens, n)
+        dc, dl = (uploads or _PinnedUploads(device)).upload(codes, lens, n, clock)
     else:
-        dc = torch.zeros((n, codes.shape[1]), dtype=torch.uint8)
-        dl = torch.zeros(n, dtype=torch.int32)
-        dc.numpy()[: codes.shape[0]] = codes
-        dl.numpy()[: codes.shape[0]] = lens
-    return packed_ops.pack_rows(dc), dl
+        with _host_span(clock, "upload.stage"):
+            dc = torch.zeros((n, codes.shape[1]), dtype=torch.uint8)
+            dl = torch.zeros(n, dtype=torch.int32)
+            dc.numpy()[: codes.shape[0]] = codes
+            dl.numpy()[: codes.shape[0]] = lens
+    with _span(clock, "read_pack"):
+        return packed_ops.pack_rows(dc), dl
 
 
 def _apply_max_matches(cfg, r, g, s, nx, grp, grp2, win):

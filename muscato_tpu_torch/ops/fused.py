@@ -40,6 +40,7 @@ passes of ``torch.sort``.
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
@@ -657,11 +658,17 @@ def _seg_min_broadcast(nxm, seg_id, n):
     return best
 
 
-def _rank_core_packed(buf, live, mm, mmtol, *, match_mode, pack_bits):
+def _no_span(name: str):
+    """The rank's default span: times nothing."""
+    return contextlib.nullcontext()
+
+
+def _rank_core_packed(buf, live, mm, mmtol, *, match_mode, pack_bits, span=_no_span):
     """Port of ``fused._rank_core_packed``: cap, dedup and best+MMTol with
     (r, g, s, nx) packed into 64-bit words through every sort.  Returns
     ((n, 2) int32 lo/hi rows — retained prefix in canonical (r, g, s)
-    order — and the retained count)."""
+    order — and the retained count).  ``span(name)`` brackets steps 1
+    (``rank.cap``) and 2 (``rank.dedup``)."""
     rb, gb, sb, xb = pack_bits
     n = buf.shape[0]
     r, g, s, nx, grp, grp2, win = buf.unbind(1)
@@ -670,33 +677,35 @@ def _rank_core_packed(buf, live, mm, mmtol, *, match_mode, pack_bits):
 
     # 1. MaxMatches cap per (window, key1, key2) group; in-group order is
     #    (nx, g, s, r) for best, (g, s, r, nx) for first.
-    dw = (dead << 16) | win.to(torch.int64)
-    if match_mode == "first":
-        lo1, hi1 = _pack64_fields((nx, r, s, g), (xb, rb, sb, gb))
-    else:
-        lo1, hi1 = _pack64_fields((r, s, g, nx), (rb, sb, gb, xb))
-    grp_u, grp2_u = u64(grp), u64(grp2)
-    perm = _lexsort([dw * _TWO32 + grp_u, _key_u(grp2_u, hi1), lo1])
-    dw, grp_u, grp2_u, hi1, lo1 = (t[perm] for t in (dw, grp_u, grp2_u, hi1, lo1))
-    newgrp = _cat_first(
-        (dw[1:] != dw[:-1]) | (grp_u[1:] != grp_u[:-1]) | (grp2_u[1:] != grp2_u[:-1])
-    )
-    seg_start = _forward_fill(newgrp, iota)
-    cap = mm + (1 if match_mode == "first" else 0)
-    keep = (dw < (1 << 16)) & ((iota - seg_start) < cap)
+    with span("rank.cap"):
+        dw = (dead << 16) | win.to(torch.int64)
+        if match_mode == "first":
+            lo1, hi1 = _pack64_fields((nx, r, s, g), (xb, rb, sb, gb))
+        else:
+            lo1, hi1 = _pack64_fields((r, s, g, nx), (rb, sb, gb, xb))
+        grp_u, grp2_u = u64(grp), u64(grp2)
+        perm = _lexsort([dw * _TWO32 + grp_u, _key_u(grp2_u, hi1), lo1])
+        dw, grp_u, grp2_u, hi1, lo1 = (t[perm] for t in (dw, grp_u, grp2_u, hi1, lo1))
+        newgrp = _cat_first(
+            (dw[1:] != dw[:-1]) | (grp_u[1:] != grp_u[:-1]) | (grp2_u[1:] != grp2_u[:-1])
+        )
+        seg_start = _forward_fill(newgrp, iota)
+        cap = mm + (1 if match_mode == "first" else 0)
+        keep = (dw < (1 << 16)) & ((iota - seg_start) < cap)
 
     # 2. exact dedup on (read, gene, start), canonical order; nx rides in
     #    the low bits (a function of (r, g, s)).
-    if match_mode == "first":
-        nx2, r2, s2, g2 = (_extract64(lo1, hi1, p, b) for p, b in
-                           ((0, xb), (xb, rb), (xb + rb, sb), (xb + rb + sb, gb)))
-    else:
-        r2, s2, g2, nx2 = (_extract64(lo1, hi1, p, b) for p, b in
-                           ((0, rb), (rb, sb), (rb + sb, gb), (rb + sb + gb, xb)))
-    loc, hic = _pack64_fields((nx2, s2, g2, r2), (xb, sb, gb, rb))
-    dead2 = (~keep).to(torch.int64)
-    perm = _lexsort([dead2 * _TWO32 + hic, loc])
-    dead2, hic, loc = dead2[perm], hic[perm], loc[perm]
+    with span("rank.dedup"):
+        if match_mode == "first":
+            nx2, r2, s2, g2 = (_extract64(lo1, hi1, p, b) for p, b in
+                               ((0, xb), (xb, rb), (xb + rb, sb), (xb + rb + sb, gb)))
+        else:
+            r2, s2, g2, nx2 = (_extract64(lo1, hi1, p, b) for p, b in
+                               ((0, rb), (rb, sb), (rb + sb, gb), (rb + sb + gb, xb)))
+        loc, hic = _pack64_fields((nx2, s2, g2, r2), (xb, sb, gb, rb))
+        dead2 = (~keep).to(torch.int64)
+        perm = _lexsort([dead2 * _TWO32 + hic, loc])
+        dead2, hic, loc = dead2[perm], hic[perm], loc[perm]
     first_rgs = _cat_first((hic[1:] != hic[:-1]) | (loc[1:] != loc[:-1]))
     keep = (dead2 == 0) & first_rgs
 
@@ -716,13 +725,14 @@ def _rank_core_packed(buf, live, mm, mmtol, *, match_mode, pack_bits):
 
 
 def _rank_core(buf, live, mm, mmtol, *, match_mode, full_cols=True,
-               pack_bits=None):
+               pack_bits=None, span=_no_span):
     """Port of ``fused._rank_core``: the unpacked rank, which the
     multi-batch path uses with full_cols (the group columns come back for
-    the cross-batch re-cap).  Returns (rows, retained count)."""
+    the cross-batch re-cap).  Returns (rows, retained count).
+    ``span(name)`` brackets steps 1 (``rank.cap``) and 2 (``rank.dedup``)."""
     if pack_bits is not None and not full_cols:
         return _rank_core_packed(
-            buf, live, mm, mmtol, match_mode=match_mode, pack_bits=pack_bits
+            buf, live, mm, mmtol, match_mode=match_mode, pack_bits=pack_bits, span=span
         )
     n = buf.shape[0]
     r, g, s, nx, grp, grp2, win = buf.unbind(1)
@@ -731,27 +741,29 @@ def _rank_core(buf, live, mm, mmtol, *, match_mode, full_cols=True,
 
     # 1. MaxMatches cap per (window, key1, key2) group
     #    ('first' emits MaxMatches+1 like the reference's append-then-check).
-    if match_mode == "first":
-        ops = (dead, win, grp, grp2, g, s, r, nx)
-    else:
-        ops = (dead, win, grp, grp2, nx, g, s, r)
-    perm = _lexsort([_key_s(ops[i], ops[i + 1]) for i in range(0, 8, 2)])
-    dead_s, win, grp, grp2, g, s, r, nx = (
-        t[perm] for t in (dead, win, grp, grp2, g, s, r, nx)
-    )
-    newgrp = _cat_first(
-        (win[1:] != win[:-1]) | (grp[1:] != grp[:-1]) | (grp2[1:] != grp2[:-1])
-    )
-    seg_start = _forward_fill(newgrp, iota)
-    cap = mm + (1 if match_mode == "first" else 0)
-    keep = (dead_s == 0) & ((iota - seg_start) < cap)
+    with span("rank.cap"):
+        if match_mode == "first":
+            ops = (dead, win, grp, grp2, g, s, r, nx)
+        else:
+            ops = (dead, win, grp, grp2, nx, g, s, r)
+        perm = _lexsort([_key_s(ops[i], ops[i + 1]) for i in range(0, 8, 2)])
+        dead_s, win, grp, grp2, g, s, r, nx = (
+            t[perm] for t in (dead, win, grp, grp2, g, s, r, nx)
+        )
+        newgrp = _cat_first(
+            (win[1:] != win[:-1]) | (grp[1:] != grp[:-1]) | (grp2[1:] != grp2[:-1])
+        )
+        seg_start = _forward_fill(newgrp, iota)
+        cap = mm + (1 if match_mode == "first" else 0)
+        keep = (dead_s == 0) & ((iota - seg_start) < cap)
     extras = (grp, grp2, win) if full_cols else ()
 
     # 2. exact dedup on (read, gene, start); establishes the final order.
-    dead2 = (~keep).to(torch.int32)
-    perm = _lexsort([_key_s(dead2, r), _key_s(g, s)])
-    dead2, r, g, s, nx = (t[perm] for t in (dead2, r, g, s, nx))
-    extras = tuple(t[perm] for t in extras)
+    with span("rank.dedup"):
+        dead2 = (~keep).to(torch.int32)
+        perm = _lexsort([_key_s(dead2, r), _key_s(g, s)])
+        dead2, r, g, s, nx = (t[perm] for t in (dead2, r, g, s, nx))
+        extras = tuple(t[perm] for t in extras)
     first_rgs = _cat_first(
         (r[1:] != r[:-1]) | (g[1:] != g[:-1]) | (s[1:] != s[:-1])
     )
@@ -778,12 +790,14 @@ def _rank_core(buf, live, mm, mmtol, *, match_mode, full_cols=True,
 
 
 def rank_survivors(buf, nsurv, mm, mmtol, *, match_mode, full_cols=True,
-                   pack_bits=None):
+                   pack_bits=None, span=_no_span):
     """Device-side cap + dedup + best+MMTol over one batch's survivor
-    buffer, whose first ``nsurv`` rows are live."""
+    buffer, whose first ``nsurv`` rows are live.  ``span(name)`` is a
+    context that times the cap (``rank.cap``) and the dedup
+    (``rank.dedup``)."""
     live = torch.arange(buf.shape[0], device=buf.device) < nsurv
     return _rank_core(buf, live, mm, mmtol, match_mode=match_mode,
-                      full_cols=full_cols, pack_bits=pack_bits)
+                      full_cols=full_cols, pack_bits=pack_bits, span=span)
 
 
 # ---- one call ------------------------------------------------------------
