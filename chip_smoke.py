@@ -237,8 +237,8 @@ cut), all at once, then:
      first 100,000 reads run through the driver on the CPU, whose rows'
      first six columns must equal those of the card run's rows of the
      same read sequences; it prints each run's stage walls (the driver's
-     logs), peak anonymous RSS, reads/s end to end and the host union's
-     seconds;
+     logs), peak anonymous RSS, reads/s end to end and the seconds after
+     the row fetch;
   7. runs the bench tool bigtest (100k reads x 100k genes through the
      muscato_torch driver) through its entry point.
 
@@ -4584,7 +4584,8 @@ def scale_run(work: str, dev, tag: str) -> dict:
     """One run of the reference-scale script (run_100m run) on ``work``:
     checks its exit, the batch count, one stage-times line a batch and
     the kernels of the default path launched; returns its run100m.json
-    with the driver log's own stage times and the host union's seconds."""
+    with the driver log's own stage times and the seconds after the row
+    fetch."""
     logs = os.path.join(work, "logs")
     before = set(os.listdir(logs)) if os.path.isdir(logs) else set()
     t0 = time.perf_counter()
@@ -4608,12 +4609,13 @@ def scale_run(work: str, dev, tag: str) -> dict:
         kv.split("=") for kv in launch_line[1].split(": ", 1)[1].split())}
     check(all(launches[k] > 0 for k in DEFAULT_PATH),
           f"run_100m ({tag}): a kernel never launched: {launches}")
-    # The host union is what follows the row fetch: from the pipeline's
-    # last line (logged after the fetch) to the driver's "retained" line.
+    # What follows the row fetch (the MatchResult's assembly; the union of
+    # the batches runs on the card before it): from the pipeline's last
+    # line (logged after the fetch) to the driver's "retained" line.
     (fetched,) = said(screen, "windows ")
     (retained,) = said(main, "retained ")
     t_first = main[0][0]
-    return dict(rec, tag=tag, command_s=wall, host_union_s=retained[0] - fetched[0],
+    return dict(rec, tag=tag, command_s=wall, after_fetch_s=retained[0] - fetched[0],
                 launches=launches,
                 driver_log=[(round(t - t_first, 3), m) for t, m in main],
                 screen_log=[m for _, m in screen])
@@ -4668,7 +4670,7 @@ def scale_run_phase(dev) -> dict:
             rec = scale_run(work, dev, tag)
             keep = ("n_reads", "prep_targets_s", "driver_s", "driver_exit",
                     "reads_per_sec_end_to_end", "peak_anon_rss_mb", "result_rows",
-                    "command_s", "host_union_s", "launches")
+                    "command_s", "after_fetch_s", "launches")
             print(f"scale run ({tag}): " + json.dumps(dict(
                 {k: rec[k] for k in keep}, gen_s=gen_s,
                 index_file_bytes=os.path.getsize(os.path.join(work, "index_w20.npz")))),

@@ -5,7 +5,8 @@ Unique reads stream through the resident target index in batches; each
 batch runs probe -> expand -> verify -> rank on the device
 (``ops/fused.py``) and only the retained rows come back to the host.
 Multi-batch runs re-apply the per-group MaxMatches cap and the dedup/rank
-over the union on the host, as the JAX engine does.  A batch takes the
+over the union of the batches' rows, as the JAX engine does on the host,
+with the batches' own rank on the device.  A batch takes the
 diagonal-dedup expand, or, for NoDedup, more than 31 windows or a pair
 total above ``_MAX_PAIR_CAP``, the streaming expand, as in the JAX engine.
 Targets above 2**31-1 bases run as sequential gene-range shards
@@ -519,15 +520,17 @@ def run_matching_indexed(cfg: Config, rs: ReadSet, index: TargetIndex,
     timings, when given, receives per-stage seconds under 'stages' (probe,
     expand_verify, rank; CUDA-event device time on a GPU), the host
     seconds spent staging and uploading read batches ('read_prep_s'), the
-    batch loop's wall time up to the row fetch ('device_s'), the seconds
-    and bytes of fetching and unpacking the retained rows ('fetch_s',
-    'fetch_bytes'), 'pairs' (the candidate pair total), 'batches',
+    batch loop's wall time up to the row fetch, the union of several
+    batches included ('device_s'), the seconds and bytes of fetching and
+    unpacking the retained rows ('fetch_s', 'fetch_bytes'), 'pairs' (the
+    candidate pair total), 'batches',
     'chunks' (the streaming expand's chunks run, re-runs after a survivor
     overflow included; 0 when every batch took the dedup expand),
     'probe_kind' (direct, binary, sorted_join or sort_merge), 'spans'
     ({name: seconds} summed over the batches, below) and 'counts' (the
     call's 'reads', the 'survivors' of its verify and the rows its rank
-    'retained', each summed over the batches).
+    'retained', each summed over the batches, and over several batches
+    the rows their union keeps, 'union_kept').
 
     The spans, parts of the keys above: 'prepare' (host: the checks
     before the loop, the probe's choice, the search aux and the stage
@@ -536,17 +539,17 @@ def run_matching_indexed(cfg: Config, rs: ReadSet, index: TargetIndex,
     the upload's side stream), 'read_pack' (device: the nibble pack), the
     host's waits on the device, 'wait.upload' (a pinned buffer's previous
     copy), 'wait.total' (the pair total), 'wait.survivors' and
-    'wait.count', the rank's 'rank.cap' and 'rank.dedup' (device), the
-    fetch's 'fetch.d2h' and, where the rows come back packed,
-    'fetch.unpack' (host: the unpack and the read-row offset), then
-    'assemble' (host: the concatenation and the MatchResult's columns)
-    and, over several batches, 'union.cap' and 'union.rank' (host: the cap
-    and the rank over their union).  While torch.profiler records, with or
-    without ``timings``, each host span that encloses host work alone
-    opens ``record_function("muscato.<name>")``: prepare (its checks),
-    upload.stage, wait.upload, wait.total, fetch.unpack, assemble,
-    union.cap and union.rank; the multi-batch fetch's read-row offset
-    opens the range fetch.offset, which is not timed.  Without ``timings``,
+    'wait.count' (a batch's rank, and the union's), the rank's 'rank.cap'
+    and 'rank.dedup' (device), over several batches the union's
+    'union.cap' (device: its rank's cap) and 'union.rank' (device: its
+    dedup, best+MMTol and compaction), the fetch's 'fetch.d2h' and, where
+    the rows come back packed, 'fetch.unpack' (host), then 'assemble'
+    (host: the concatenation and the MatchResult's columns).  While
+    torch.profiler records, with or without ``timings``, each host span
+    that encloses host work alone opens
+    ``record_function("muscato.<name>")``: prepare (its checks),
+    upload.stage, wait.upload, wait.total, fetch.unpack and assemble.
+    Without ``timings``,
     MUSCATO_STAGE_TIMES or a profiler, the call records no CUDA event and
     opens no range."""
     if probe not in (None, "sort", "search"):
@@ -582,10 +585,13 @@ def run_matching_indexed(cfg: Config, rs: ReadSet, index: TargetIndex,
             use_search = index.skeys.shape[0] > 64 * nflat
         else:
             use_search = probe == "search"
-        # Single-batch retained rows come back 64-bit packed; the multi-batch
-        # path re-caps across batches and needs the group columns.
+        # The batches' rows keep the group columns where a union caps them
+        # again (several batches, or the gene-range shards); the call's
+        # rows come back 64-bit packed, over the call's read range, unless
+        # they are the shards' raw rows.
         full_cols = _defer_rank or nbatches > 1
-        pack_bits = None if full_cols else _fetch_pack_bits(index, batch, cfg)
+        pack_bits = None if _defer_rank else _fetch_pack_bits(
+            index, batch if nbatches == 1 else _round_up(nreads, 1024), cfg)
     # The search aux's build and the budget table's upload run on the device.
     with _host_span(clock, "prepare", ranged=False):
         index_aux = index.search_aux() if use_search else None
@@ -656,7 +662,10 @@ def run_matching_indexed(cfg: Config, rs: ReadSet, index: TargetIndex,
                 )
                 with _host_span(clock, "wait.count", ranged=False):
                     count = int(count_d)
-            surv_rows.append((rows_dev[:count], b0))
+                rows_dev = rows_dev[:count]
+                if b0:
+                    rows_dev[:, 0] += b0  # batch-local read row -> global row
+            surv_rows.append(rows_dev)
         total_kept += count
         dt = time.perf_counter() - t_batch
         if stage_times:
@@ -666,6 +675,9 @@ def run_matching_indexed(cfg: Config, rs: ReadSet, index: TargetIndex,
             "%.2fs (%.0f reads/s)",
             b0, b1, total, nsurv, count, dt, (b1 - b0) / max(dt, 1e-9),
         )
+    union = nbatches > 1 and not _defer_rank
+    if union:
+        surv_rows, union_kept = _device_union(cfg, surv_rows, pack_bits, clock)
     device_s = time.perf_counter() - t_run0
 
     if stage_times:
@@ -692,21 +704,19 @@ def run_matching_indexed(cfg: Config, rs: ReadSet, index: TargetIndex,
             f"{k}={f.launches - launches0[k]}" for k, f in KERNELS.items()))
     t_fetch = time.perf_counter()
     fetched = []
-    for rows_dev, b0 in surv_rows:
+    for rows_dev in surv_rows:
         with _host_span(clock, "fetch.d2h", ranged=False):
             rows = rows_dev.cpu().numpy()
-        with (_host_span(clock, "fetch.unpack") if pack_bits is not None
-              else _host_span(clock, "fetch.offset", timed=False)):
-            if pack_bits is not None:
+        if pack_bits is not None:
+            with _host_span(clock, "fetch.unpack"):
                 rows = _unpack_rows64(rows, pack_bits)
-            rows[:, 0] += b0  # batch-local read row -> global row
         fetched.append(rows)
     fetch_s = time.perf_counter() - t_fetch
     logger.info(
         "windows %s: %d candidate pairs, %d retained",
         cfg.Windows, total_pairs, sum(len(x) for x in fetched),
     )
-    out = _assemble(cfg, fetched, clock, rows_only=_defer_rank, union=nbatches > 1)
+    out = _assemble(fetched, clock, rows_only=_defer_rank)
 
     if timings is not None:
         # The clock's reads (a device synchronise, the events) come after
@@ -716,7 +726,7 @@ def run_matching_indexed(cfg: Config, rs: ReadSet, index: TargetIndex,
         timings["read_prep_s"] = read_prep_s
         timings["device_s"] = device_s
         timings["fetch_s"] = fetch_s
-        timings["fetch_bytes"] = sum(r.numel() * r.element_size() for r, _ in surv_rows)
+        timings["fetch_bytes"] = sum(r.numel() * r.element_size() for r in surv_rows)
         timings["pairs"] = total_pairs
         timings["batches"] = nbatches
         timings["chunks"] = stages.chunks
@@ -724,17 +734,44 @@ def run_matching_indexed(cfg: Config, rs: ReadSet, index: TargetIndex,
         timings["spans"] = {**{k: v for k, v in dev.items() if k not in _StageClock.STAGES},
                             **clock.host_s}
         timings["counts"] = dict(reads=nreads, survivors=total_surv, retained=total_kept)
+        if union:
+            timings["counts"]["union_kept"] = union_kept
     return (out, kind) if _defer_rank else out
 
 
-def _assemble(cfg: Config, fetched: list, clock: "_StageClock | None", *,
-              rows_only: bool, union: bool):
-    """The call's result from the fetched batches' rows: the raw (N, NCOL)
-    rows with ``rows_only``, else the MatchResult; with ``union`` (several
-    batches) the k-mer cap groups span batches, so the cap is re-applied
-    over the union and the rows re-ranked (both idempotent on filtered
-    rows).  Timed as ``assemble`` (the concatenation and the columns) and
-    ``union.cap`` and ``union.rank``."""
+def _device_union(cfg: Config, parts: list, pack_bits, clock: "_StageClock | None"):
+    """The union of several batches' retained rows (device, full columns,
+    global read rows), capped and ranked again by the batches' own rank on
+    the device: the k-mer cap groups span batches.  Returns the list of the
+    one buffer to fetch (64-bit packed with ``pack_bits``, else the four
+    int32 columns) and its row count.  ``clock`` times the rank's cap as
+    the device span ``union.cap`` and its dedup, best+MMTol and compaction
+    as ``union.rank``; the host waits for the count in ``wait.count``."""
+    if not parts:
+        return [], 0
+    rows = torch.cat(parts)
+    with contextlib.ExitStack() as rest:
+        def span(name):
+            if name == "rank.cap":
+                return _span(clock, "union.cap")
+            # The dedup opens union.rank, which closes at the rank's end.
+            rest.enter_context(_span(clock, "union.rank"))
+            return _NULL
+
+        out, count_d = fused.rank_survivors(
+            rows, rows.shape[0], cfg.MaxMatches, cfg.MMTol, match_mode=cfg.MatchMode,
+            full_cols=False, pack_bits=pack_bits, span=span,
+        )
+    with _host_span(clock, "wait.count", ranged=False):
+        count = int(count_d)
+    return [out[:count]], count
+
+
+def _assemble(fetched: list, clock: "_StageClock | None", *, rows_only: bool):
+    """The call's result from the fetched rows, already in canonical
+    (read, gene, start) order: the raw (N, NCOL) rows with ``rows_only``,
+    else the MatchResult.  Timed as ``assemble`` (the concatenation and
+    the columns)."""
     with _host_span(clock, "assemble"):
         if rows_only:
             return (np.concatenate(fetched) if fetched
@@ -743,23 +780,16 @@ def _assemble(cfg: Config, fetched: list, clock: "_StageClock | None", *,
             z = np.zeros(0, dtype=np.int32)
             return MatchResult(z, z, z, z)
         rows = np.concatenate(fetched)
-        if not union:
-            # The device already produced the final retained set in
-            # canonical (read, gene, start) order.
-            return MatchResult(
-                rows[:, 0].copy(), rows[:, 1].copy(),
-                rows[:, 2].copy(), rows[:, 3].copy(),
-            )
-    r, g, s, nx, grp, grp2, win = (rows[:, i] for i in range(fused.NCOL))
-    with _host_span(clock, "union.cap"):
-        r, g, s, nx = _apply_max_matches(cfg, r, g, s, nx, grp, grp2, win)
-    with _host_span(clock, "union.rank"):
-        return _dedup_and_rank(cfg, r, g, s, nx)
+        return MatchResult(
+            rows[:, 0].copy(), rows[:, 1].copy(),
+            rows[:, 2].copy(), rows[:, 3].copy(),
+        )
 
 
 def _fetch_pack_bits(index: TargetIndex, batch: int, cfg: Config):
     """Static bit widths (rbits, gbits, sbits, xbits) for the 64-bit packed
-    retained-row fetch, or None when the fields cannot fit."""
+    retained-row fetch of read rows below ``batch``, or None when the
+    fields cannot fit."""
     gs = index.gene_start_np
     maxg = int(np.max(np.diff(gs))) if len(gs) > 1 else 1
     ngenes = len(gs) - 1

@@ -80,8 +80,16 @@ def _assert_same(got, exp):
         _cfg(10, (0, 20, 45), 2),
         _cfg(20, (10, 30, 50, 70), 3, batch=2048),  # three batches
         _cfg(10, (0, 20, 45), 0, mode="first", mm=2),  # the cap binds
+        _cfg(10, (0, 20, 45), 0, mode="first", mm=2, batch=2048),
+        _cfg(10, (0, 20, 45), 0, mode="best", mm=2, batch=2048),
+        # Narrow windows share their k-mers across batches, so that the
+        # union's cap drops rows that each batch's own rank kept.
+        _cfg(5, (0, 20, 45), 0, mode="first", mm=1, batch=2048),
+        _cfg(6, (0, 20, 45), 0, mode="best", mm=1, batch=2048),
     ],
-    ids=["w20", "w10", "w20-multibatch", "w10-first-capped"],
+    ids=["w20", "w10", "w20-multibatch", "w10-first-capped", "w10-first-capped-multibatch",
+         "w10-best-capped-multibatch", "w5-first-capped-multibatch",
+         "w6-best-capped-multibatch"],
 )
 def test_run_matching_matches_jax(workload, jax_workload, cfg):
     rs, ts = workload
@@ -92,6 +100,33 @@ def test_run_matching_matches_jax(workload, jax_workload, cfg):
     _assert_same(got, exp)
     assert set(timings["stages"]) == {"probe", "expand_verify", "rank"}
     assert timings["batches"] == -(-rs.num_unique // (cfg.ReadBatch or 1 << 22))
+    counts = timings["counts"]
+    if timings["batches"] == 1:
+        assert "union_kept" not in counts
+    else:
+        assert counts["union_kept"] == len(got.read_row) <= counts["retained"]
+        if cfg.MaxMatches == 1:  # the cross-batch cap engages
+            assert counts["union_kept"] < counts["retained"]
+
+
+@pytest.mark.parametrize("width,mode", [(5, "first"), (6, "best")])
+def test_union_fetches_unpacked_rows_where_the_bits_do_not_fit(
+        workload, jax_workload, width, mode, monkeypatch):
+    """Where the 64-bit packed fetch cannot hold the fields, the union of
+    several batches returns four int32 columns, with the same MatchResult
+    and no unpack."""
+    rs, ts = workload
+    cfg = _cfg(width, (0, 20, 45), 0, mode=mode, mm=1, batch=2048)
+    index = tpipeline.build_target_index(ts, cfg.WindowWidth, "cpu")
+    packed_timings, timings = {}, {}
+    packed = tpipeline.run_matching_indexed(cfg, rs, index, timings=packed_timings)
+    monkeypatch.setattr(tpipeline, "_fetch_pack_bits", lambda *a: None)
+    got = tpipeline.run_matching_indexed(cfg, rs, index, timings=timings)
+    _assert_same(got, packed)
+    _assert_same(got, _jax_result(jax_workload, cfg))
+    assert "fetch.unpack" in packed_timings["spans"] and "fetch.unpack" not in timings["spans"]
+    assert timings["fetch_bytes"] == 16 * len(got.read_row)
+    assert packed_timings["fetch_bytes"] == 8 * len(got.read_row)
 
 
 @pytest.mark.parametrize("switch", ["MUSCATO_PJOIN=0", "MUSCATO_PEXPAND_SUB=1"])

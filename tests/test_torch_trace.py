@@ -18,11 +18,11 @@ from muscato_tpu_torch.ops import fused
 
 _ARGS = (5000, 100, 200, 1000)
 # Host and device spans of every call that retains rows; the packed fetch
-# adds its unpack, several batches their union.
+# adds its unpack, several batches their union on the device.
 _ALWAYS = {"prepare", "upload.stage", "read_pack", "wait.total", "wait.survivors",
            "wait.count", "rank.cap", "rank.dedup", "fetch.d2h", "assemble"}
 _DEVICE = ("probe", "expand_verify", "rank", "rank.cap", "rank.dedup", "upload.h2d",
-           "read_pack")
+           "read_pack", "union.cap", "union.rank")
 _BLOCKING = ("wait.survivors", "wait.count", "fetch.d2h")
 
 
@@ -63,7 +63,8 @@ def test_spans_fill_timings(workload, case):
     mr, tm, _ = _timed(workload, cfg)
     multi = tm["batches"] > 1
     assert multi == (case == "w20-multibatch")
-    want = _ALWAYS | ({"union.cap", "union.rank"} if multi else {"fetch.unpack"})
+    # Both cases' rows come back packed (the fields fit 64 bits).
+    want = _ALWAYS | {"fetch.unpack"} | ({"union.cap", "union.rank"} if multi else set())
     assert set(tm["spans"]) == want
     assert all(v >= 0 for v in tm["spans"].values())
     assert set(tm["stages"]) == {"probe", "expand_verify", "rank"}
@@ -71,12 +72,12 @@ def test_spans_fill_timings(workload, case):
 
 @pytest.mark.parametrize("case", list(_CASES))
 def test_spans_tile_the_call(workload, case):
-    """prepare, the loop (device_s), the fetch, the assembly and the union
-    cover the call's wall but for max(5 ms, 5%)."""
+    """prepare, the loop (device_s, the union of several batches
+    included), the fetch and the assembly cover the call's wall but for
+    max(5 ms, 5%)."""
     _, tm, wall = _timed(workload, _CASES[case])
     sp = tm["spans"]
-    covered = (sp["prepare"] + tm["device_s"] + tm["fetch_s"] + sp["assemble"]
-               + sp.get("union.cap", 0.0) + sp.get("union.rank", 0.0))
+    covered = sp["prepare"] + tm["device_s"] + tm["fetch_s"] + sp["assemble"]
     assert covered <= wall
     assert wall - covered <= max(5e-3, 0.05 * wall), (wall, covered, sp)
     # The fetch's parts lie inside it, the upload's copy inside read_prep_s.
@@ -92,9 +93,9 @@ def test_counts(workload, case):
     assert c["reads"] == rs.codes.shape[0]
     assert c["survivors"] >= c["retained"] > 0
     if tm["batches"] == 1:
-        assert c["retained"] == len(mr.read_row)
+        assert c["retained"] == len(mr.read_row) and "union_kept" not in c
     else:  # the union's cap and rank only drop rows
-        assert c["retained"] >= len(mr.read_row)
+        assert c["retained"] >= c["union_kept"] == len(mr.read_row)
 
 
 def test_clock_reads_leave_the_timed_windows(workload, monkeypatch):
@@ -124,15 +125,13 @@ def _profiled(workload, cfg):
 @pytest.mark.parametrize("case", list(_CASES))
 def test_profiler_sees_the_host_ranges(workload, case):
     """Under torch.profiler, with no ``timings``, the host spans open their
-    ranges (and the multi-batch fetch its untimed fetch.offset), and no
-    range is named for a device span or a blocking read."""
+    ranges, and no range is named for a device span (the union's too) or a
+    blocking read."""
     mr, names = _profiled(workload, _CASES[case])
     ranges = {n for n in names if n.startswith("muscato.")}
-    assert {"muscato.prepare", "muscato.upload.stage", "muscato.wait.total"} <= ranges
-    assert {"muscato.fetch.unpack", "muscato.assemble"} & ranges
-    if case == "w20-multibatch":
-        assert {"muscato.union.cap", "muscato.union.rank", "muscato.fetch.offset"} <= ranges
-        assert "muscato.fetch.unpack" not in ranges
+    assert {"muscato.prepare", "muscato.upload.stage", "muscato.wait.total",
+            "muscato.fetch.unpack", "muscato.assemble"} <= ranges
+    assert "muscato.fetch.offset" not in ranges
     assert not {"muscato." + n for n in _DEVICE + _BLOCKING} & ranges
     plain = tpipeline.run_matching_indexed(_CASES[case], *workload)
     for f in ("read_row", "gene", "start", "nmiss"):  # the ranges change nothing
