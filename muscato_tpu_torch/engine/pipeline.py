@@ -414,12 +414,13 @@ class _BatchStages:
 
     def probe(self, rpacked, lengths, tag=None) -> fused.Probe:
         """The batch's probe, timed as batch ``tag``'s (the clock's current
-        batch when None)."""
+        batch when None), the search probe's steps too."""
         with self._span("probe", tag):
             return fused.probe_windows(
                 rpacked, lengths, self.q1s, self.index.skeys,
                 width=self.cfg.WindowWidth, min_dinuc=self.cfg.MinDinuc,
                 index_aux=self.index_aux, allow_pjoin=self.allow_pjoin,
+                span=functools.partial(_span, self.clock, tag=tag),
             )
 
     def expand_verify(self, pr: fused.Probe, total: int, rpacked, lengths,
@@ -539,7 +540,10 @@ def run_matching_indexed(cfg: Config, rs: ReadSet, index: TargetIndex,
     the upload's side stream), 'read_pack' (device: the nibble pack), the
     host's waits on the device, 'wait.upload' (a pinned buffer's previous
     copy), 'wait.total' (the pair total), 'wait.survivors' and
-    'wait.count' (a batch's rank, and the union's), the rank's 'rank.cap'
+    'wait.count' (a batch's rank, and the union's), the search probe's
+    'probe.queries', 'probe.search' and 'probe.compact' (device: its
+    window queries and their sort, B8 or B9, the compaction; parts of the
+    stage 'probe'), the rank's 'rank.cap'
     and 'rank.dedup' (device), over several batches the union's
     'union.cap' (device: its rank's cap) and 'union.rank' (device: its
     dedup, best+MMTol and compaction), the fetch's 'fetch.d2h' and, where

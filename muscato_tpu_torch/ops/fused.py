@@ -59,6 +59,11 @@ _TWO32 = 1 << 32
 _TWO31 = 1 << 31
 
 
+def _no_span(name: str):
+    """The default span of the probe and the rank: times nothing."""
+    return contextlib.nullcontext()
+
+
 def _cat_first(x: torch.Tensor) -> torch.Tensor:
     """[True, x...] — run-start flags from an adjacent-difference mask."""
     return torch.cat([torch.ones(1, dtype=torch.bool, device=x.device), x])
@@ -236,40 +241,49 @@ def _compact_lo_order(loc, counts, qid, keyf0, key2f0) -> Probe:
 
 
 def _probe_windows_direct_impl(rpacked, lengths, q1s, urec, sbucket, *, width,
-                               min_dinuc, upshift, bucket_bits, bucket_width):
+                               min_dinuc, upshift, bucket_bits, bucket_width,
+                               span=_no_span):
     """Direct-bucket probe (port of ``fused._probe_windows_direct_impl``):
     no bucket of the index's SearchAux holds more than ``bucket_width``
     distinct keys, so a query fetches its bucket's bounds and then the
     bucket's (k1, k2, start, count) records, with no search loop: B8,
     ``sops.direct_probe``, over the sorted queries.  Returns the Probe
-    contract: active slots in lo order, keyf/key2f in qid order."""
-    (keyf0, key2f0), (keyf, key2f, validf, qid) = _sorted_queries(
-        rpacked, lengths, q1s, width=width, min_dinuc=min_dinuc
-    )
-    counts, loc = sops.direct_probe(
-        keyf, key2f, validf, urec, sbucket, upshift=upshift, bucket_bits=bucket_bits,
-        bucket_width=bucket_width, use_k2=winops.uses_second_key(width),
-    )
-    return _compact_lo_order(loc, counts, qid, keyf0, key2f0)
+    contract: active slots in lo order, keyf/key2f in qid order.
+    ``span(name)`` brackets the queries (``probe.queries``), B8
+    (``probe.search``) and the compaction (``probe.compact``)."""
+    with span("probe.queries"):
+        (keyf0, key2f0), (keyf, key2f, validf, qid) = _sorted_queries(
+            rpacked, lengths, q1s, width=width, min_dinuc=min_dinuc
+        )
+    with span("probe.search"):
+        counts, loc = sops.direct_probe(
+            keyf, key2f, validf, urec, sbucket, upshift=upshift, bucket_bits=bucket_bits,
+            bucket_width=bucket_width, use_k2=winops.uses_second_key(width),
+        )
+    with span("probe.compact"):
+        return _compact_lo_order(loc, counts, qid, keyf0, key2f0)
 
 
 def _probe_windows_search_impl(rpacked, lengths, q1s, ukeys, ukeys2, ukk, ustart,
                                ucount, sbucket, *, width, min_dinuc, upshift,
-                               probe_steps, bucket_bits):
+                               probe_steps, bucket_bits, span=_no_span):
     """Bucketed binary-search probe (port of
     ``fused._probe_windows_search_impl``): the sorted queries search the
     index's unique keys from their bucket's bounds, ``probe_steps`` rounds
-    each: B9, ``sops.binary_probe``.  Same Probe contract as the other
-    probes."""
-    (keyf0, key2f0), (keyf, key2f, validf, qid) = _sorted_queries(
-        rpacked, lengths, q1s, width=width, min_dinuc=min_dinuc
-    )
-    counts, loc = sops.binary_probe(
-        keyf, key2f, validf, ukeys, ukeys2, ukk, ustart, ucount, sbucket,
-        upshift=upshift, bucket_bits=bucket_bits, probe_steps=probe_steps,
-        use_k2=winops.uses_second_key(width),
-    )
-    return _compact_lo_order(loc, counts, qid, keyf0, key2f0)
+    each: B9, ``sops.binary_probe``.  Same Probe contract and spans as the
+    direct probe (B9 in ``probe.search``)."""
+    with span("probe.queries"):
+        (keyf0, key2f0), (keyf, key2f, validf, qid) = _sorted_queries(
+            rpacked, lengths, q1s, width=width, min_dinuc=min_dinuc
+        )
+    with span("probe.search"):
+        counts, loc = sops.binary_probe(
+            keyf, key2f, validf, ukeys, ukeys2, ukk, ustart, ucount, sbucket,
+            upshift=upshift, bucket_bits=bucket_bits, probe_steps=probe_steps,
+            use_k2=winops.uses_second_key(width),
+        )
+    with span("probe.compact"):
+        return _compact_lo_order(loc, counts, qid, keyf0, key2f0)
 
 
 def probe_kind(index_aux=None, allow_pjoin: bool = True) -> str:
@@ -282,12 +296,17 @@ def probe_kind(index_aux=None, allow_pjoin: bool = True) -> str:
 
 
 def probe_windows(rpacked, lengths, q1s, skeys, *, width, min_dinuc,
-                  index_aux=None, allow_pjoin=True) -> Probe:
+                  index_aux=None, allow_pjoin=True, span=_no_span) -> Probe:
     """Probe stage of one batch (port of ``fused.probe_windows``).
     ``index_aux``, the index's SearchAux, selects the search probe in its
     mode (direct or binary); without it the sorted join runs, or the
     sort-merge probe when ``allow_pjoin`` is false (MUSCATO_PJOIN=0).
-    Every probe returns the same Probe."""
+    Every probe returns the same Probe.  ``span(name)`` is a context that
+    times the search probe's three steps, which tile it: its window
+    queries and their sort (``probe.queries``), B8's or B9's launch
+    (``probe.search``) and the compaction in lo order
+    (``probe.compact``); the sorted join and the sort-merge probe open
+    none."""
     q1s = tuple(int(q) for q in q1s)
     kind = probe_kind(index_aux, allow_pjoin)
     if kind == "direct":
@@ -297,7 +316,7 @@ def probe_windows(rpacked, lengths, q1s, skeys, *, width, min_dinuc,
         return _probe_windows_direct_impl(
             rpacked, lengths, q1s, aux.urec, aux.sbucket, width=width,
             min_dinuc=min_dinuc, upshift=aux.upshift, bucket_bits=aux.bucket_bits,
-            bucket_width=DIRECT_BUCKET_WIDTH,
+            bucket_width=DIRECT_BUCKET_WIDTH, span=span,
         )
     if kind == "binary":
         aux = index_aux
@@ -305,7 +324,7 @@ def probe_windows(rpacked, lengths, q1s, skeys, *, width, min_dinuc,
             rpacked, lengths, q1s, aux.ukeys, aux.ukeys2, aux.ukk, aux.ustart,
             aux.ucount, aux.sbucket, width=width, min_dinuc=min_dinuc,
             upshift=aux.upshift, probe_steps=aux.probe_steps,
-            bucket_bits=aux.bucket_bits,
+            bucket_bits=aux.bucket_bits, span=span,
         )
     impl = _probe_windows_pjoin_impl if kind == "sorted_join" else _probe_windows_impl
     return impl(rpacked, lengths, q1s, skeys, width=width, min_dinuc=min_dinuc)
@@ -656,11 +675,6 @@ def _seg_min_broadcast(nxm, seg_id, n):
     )
     best, _ = monotone_gather(table, seg_id)
     return best
-
-
-def _no_span(name: str):
-    """The rank's default span: times nothing."""
-    return contextlib.nullcontext()
 
 
 def _rank_core_packed(buf, live, mm, mmtol, *, match_mode, pack_bits, span=_no_span):

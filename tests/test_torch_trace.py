@@ -185,3 +185,84 @@ def test_rank_spans(packed):
     assert seen == ["rank.cap", "rank.dedup"]
     assert int(count) == int(want_count) > 0
     assert torch.equal(rows, want_rows)
+
+
+_PROBE_SPANS = {"probe.queries", "probe.search", "probe.compact"}
+
+
+@pytest.fixture(scope="module")
+def targets():
+    rs, ts = tgendat.generate_arrays_realistic(*_ARGS, seed=1)
+    return rs, ts
+
+
+def _search_index(targets, mode, monkeypatch):
+    """A fresh index of ``targets`` whose search aux takes ``mode``: the
+    direct layout, or the binary one below a capped bucket width."""
+    from muscato_tpu_torch.engine import index as tindex
+
+    if mode == "binary":
+        monkeypatch.setattr(tindex, "MAX_DIRECT_BITS", 15)
+    index = tpipeline.build_target_index(targets[1], 20, "cpu")
+    assert index.search_aux().mode == mode
+    return index
+
+
+@pytest.mark.parametrize("case", list(_CASES))
+@pytest.mark.parametrize("mode", ["direct", "binary"])
+def test_search_probe_spans(targets, mode, case, monkeypatch):
+    """A search-probe call opens the probe's three spans in every batch,
+    inside its stage; the MatchResult is the sorted join's."""
+    index = _search_index(targets, mode, monkeypatch)
+    rs = targets[0]
+    tm = {}
+    mr = tpipeline.run_matching_indexed(_CASES[case], _fresh(rs), index, probe="search",
+                                        timings=tm)
+    assert tm["probe_kind"] == mode
+    sp = tm["spans"]
+    assert _PROBE_SPANS <= set(sp)
+    assert all(sp[n] > 0 for n in _PROBE_SPANS)
+    assert sum(sp[n] for n in _PROBE_SPANS) <= tm["stages"]["probe"]
+    plain = tpipeline.run_matching_indexed(_CASES[case], _fresh(rs), index, probe="sort")
+    for f in ("read_row", "gene", "start", "nmiss"):
+        np.testing.assert_array_equal(getattr(mr, f), getattr(plain, f))
+
+
+@pytest.mark.parametrize("case", list(_CASES))
+def test_sorted_join_opens_no_probe_span(workload, case):
+    _, tm, _ = _timed(workload, _CASES[case])
+    assert tm["probe_kind"] == "sorted_join"
+    assert not _PROBE_SPANS & set(tm["spans"])
+
+
+@pytest.mark.parametrize("mode", ["direct", "binary"])
+def test_search_probe_tracing_off_records_nothing(targets, mode, monkeypatch):
+    """A search-probe call with tracing off opens no range, makes no clock
+    and no CUDA event; under the profiler its device spans open no
+    range."""
+    monkeypatch.delenv("MUSCATO_STAGE_TIMES", raising=False)
+    index = _search_index(targets, mode, monkeypatch)
+    rs, cfg = targets[0], _CASES["w20-multibatch"]
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        mr = tpipeline.run_matching_indexed(cfg, _fresh(rs), index, probe="search")
+    names = {e.name for e in prof.events()}
+    assert "muscato.prepare" in names
+    assert not {"muscato." + n for n in _PROBE_SPANS} & names
+    called = []
+
+    def refuse(name):
+        def fn(*a, **k):
+            called.append(name)
+            raise AssertionError(f"{name} called with tracing off")
+        return fn
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse("record_function"))
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse("record_function"))
+    monkeypatch.setattr(torch.cuda, "Event", refuse("Event"))
+    monkeypatch.setattr(tpipeline._StageClock, "__init__", refuse("_StageClock"))
+    got = tpipeline.run_matching_indexed(cfg, _fresh(rs), index, probe="search")
+    assert called == []
+    for f in ("read_row", "gene", "start", "nmiss"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(mr, f))
